@@ -1,0 +1,205 @@
+"""Dual-stream execution (port of ``repro/core/streams.py``): the edge
+stages and the batched cloud serving stages of a LISA pipeline.
+
+``cloud_context_batch`` / ``cloud_insight_batch`` stack several packets of
+one tier into one device call; ``cloud_generate_batch`` serves multi-token
+answers through prefill + decode steps (``vlm.llm_generate``), whose decode
+attention runs the flash-decode CUDA kernel when ``flash_decode`` is set.
+Request counts are padded up to a bucket size, as in the reference, so the
+shapes match the reference's. (PyTorch runs eagerly: there is no compile
+cache to key.) Stages take and return numpy arrays: that is the payload
+that crosses the link.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, bridge, resolve_device
+from repro_torch.configs.lisa7b import LISAPipelineConfig
+from repro_torch.core import bottleneck as bn
+from repro_torch.core import packets as pk
+from repro_torch.core import vlm
+from repro_torch.core.lut import SystemLUT, Tier
+
+
+class Stream(enum.Enum):
+    CONTEXT = "context"   # high-frequency, low-resolution awareness
+    INSIGHT = "insight"   # low-frequency, high-fidelity grounding
+
+
+def _pad_rows(arr: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad axis 0 up to ``bucket`` by repeating the last row (rows past the
+    real count are sliced away after the call)."""
+    n = arr.shape[0]
+    if n == bucket:
+        return arr
+    reps = np.repeat(arr[-1:], bucket - n, axis=0)
+    return np.concatenate([arr, reps], axis=0)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Device tensor -> numpy. numpy has no bfloat16, so bf16 comes back
+    as float32 (exact; the cloud side casts it back to bf16 losslessly)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
+
+
+@dataclass
+class DualStreamExecutor:
+    pcfg: LISAPipelineConfig
+    params: dict                          # tensors or numpy leaves
+    bottlenecks: Dict[str, dict]          # tier name -> bottleneck params
+    lut: SystemLUT
+    buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)
+    max_new_tokens: int = 4
+    # route decode attention through the flash-decode CUDA kernel
+    flash_decode: bool = True
+    device: DeviceLike = None             # None -> cuda
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.buckets = tuple(sorted(self.buckets))
+        self.params = bridge.to_torch(self.params, self.device)
+        self.bottlenecks = bridge.to_torch(self.bottlenecks, self.device)
+
+    @property
+    def _gen_pcfg(self) -> LISAPipelineConfig:
+        pcfg = self.pcfg
+        return dataclasses.replace(
+            pcfg, llm=pcfg.llm.replace(use_flash_decode=self.flash_decode))
+
+    def _dev(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr)).to(self.device)
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n; oversized calls round up to a multiple of
+        the largest bucket."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        top = self.buckets[-1]
+        return ((n + top - 1) // top) * top
+
+    # ---- edge side ----
+
+    @torch.inference_mode()
+    def edge_context(self, images, seq_id: int, now: float
+                     ) -> Tuple[pk.Packet, np.ndarray]:
+        ctx = _host(vlm.clip_encode(self.params, self.pcfg,
+                                    self._dev(images)))
+        return pk.make_context_packet(seq_id, now, ctx), ctx
+
+    @torch.inference_mode()
+    def edge_insight(self, images, tier: Tier, seq_id: int, now: float,
+                     ctx: Optional[np.ndarray] = None) -> pk.Packet:
+        """``ctx``: precomputed CLIP features for this frame, which keeps
+        the edge at one CLIP pass per frame."""
+        img = self._dev(images)
+        a = vlm.sam_head(self.params, self.pcfg, img)
+        codes, scales = bn.encode(self.bottlenecks[tier.name], a)
+        if ctx is None:
+            ctx = _host(vlm.clip_encode(self.params, self.pcfg, img))
+        return pk.make_insight_packet(seq_id, now, tier.name, _host(codes),
+                                      _host(scales),
+                                      clip_feats=np.asarray(ctx))
+
+    # ---- cloud side (batched) ----
+
+    def _stack(self, packets: Sequence[pk.Packet],
+               queries: Sequence[np.ndarray], keys: Sequence[str]
+               ) -> Tuple[List[np.ndarray], np.ndarray, List[int], int]:
+        """Concatenate per-packet content rows + queries along the batch
+        axis and pad to the bucket. Returns (stacked content arrays in
+        ``keys`` order, stacked queries, per-packet row counts, bucket)."""
+        rows = [np.asarray(q).reshape(-1, np.asarray(q).shape[-1])
+                for q in queries]
+        counts = [p.content[keys[0]].shape[0] for p in packets]
+        if any(r.shape[0] != c for r, c in zip(rows, counts)):
+            raise ValueError(
+                f"query batch rows {[r.shape[0] for r in rows]} do not match "
+                f"packet batch rows {counts}")
+        bucket = self.bucket_for(sum(counts))
+        content = [_pad_rows(np.concatenate(
+            [np.asarray(p.content[k]) for p in packets], axis=0), bucket)
+            for k in keys]
+        query = _pad_rows(np.concatenate(rows, axis=0), bucket)
+        return content, query, counts, bucket
+
+    @staticmethod
+    def _split(arrs: Sequence[np.ndarray], counts: Sequence[int]
+               ) -> List[Tuple[np.ndarray, ...]]:
+        """Slice off the pad rows and split back into per-packet results."""
+        out, lo = [], 0
+        for c in counts:
+            out.append(tuple(np.asarray(a[lo:lo + c]) for a in arrs))
+            lo += c
+        return out
+
+    def _sam_feats(self, tier: str, codes, scales) -> torch.Tensor:
+        a = bn.decode(self.bottlenecks[tier], self._dev(codes),
+                      self._dev(scales), out_dtype=self.pcfg.sam.adtype)
+        return vlm.sam_tail(self.params, self.pcfg, a)
+
+    @torch.inference_mode()
+    def cloud_context_batch(self, packets: Sequence[pk.Packet],
+                            queries: Sequence[np.ndarray]
+                            ) -> List[np.ndarray]:
+        """Batched Context stage: K packets -> K answer-logit arrays."""
+        (ctx,), query, counts, _ = self._stack(packets, queries, ["ctx"])
+        logits, _ = vlm.llm_reason(self.params, self.pcfg, self._dev(ctx),
+                                   self._dev(query))
+        return [r[0] for r in self._split([_host(logits)], counts)]
+
+    @torch.inference_mode()
+    def cloud_insight_batch(self, packets: Sequence[pk.Packet],
+                            queries: Sequence[np.ndarray]
+                            ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Batched Insight stage: K same-tier packets -> K
+        (mask_logits, answer_logits) pairs."""
+        tier = self._same_tier(packets)
+        (codes, scales, ctx), query, counts, _ = self._stack(
+            packets, queries, ["codes", "scales", "clip"])
+        feats = self._sam_feats(tier, codes, scales)
+        logits, seg = vlm.llm_reason(self.params, self.pcfg, self._dev(ctx),
+                                     self._dev(query))
+        mask = vlm.mask_decode(self.params, self.pcfg, feats, seg)
+        return self._split([_host(mask), _host(logits)], counts)
+
+    @torch.inference_mode()
+    def cloud_generate_batch(self, packets: Sequence[pk.Packet],
+                             queries: Sequence[np.ndarray]
+                             ) -> List[Tuple[np.ndarray, ...]]:
+        """Batched multi-token serving through the KV-cache decode path.
+        Context packets -> (answer_logits, tokens); Insight packets ->
+        (mask_logits, answer_logits, tokens). ``tokens`` is the greedy
+        ``max_new_tokens``-long answer."""
+        T, gcfg = self.max_new_tokens, self._gen_pcfg
+        if packets[0].kind == "context":
+            (ctx,), query, counts, _ = self._stack(packets, queries, ["ctx"])
+            tokens, logits, _ = vlm.llm_generate(
+                self.params, gcfg, self._dev(ctx), self._dev(query), T)
+            return self._split([_host(logits), _host(tokens)], counts)
+        tier = self._same_tier(packets)
+        (codes, scales, ctx), query, counts, _ = self._stack(
+            packets, queries, ["codes", "scales", "clip"])
+        feats = self._sam_feats(tier, codes, scales)
+        tokens, logits, seg = vlm.llm_generate(
+            self.params, gcfg, self._dev(ctx), self._dev(query), T)
+        mask = vlm.mask_decode(self.params, self.pcfg, feats, seg)
+        return self._split([_host(mask), _host(logits), _host(tokens)],
+                           counts)
+
+    @staticmethod
+    def _same_tier(packets: Sequence[pk.Packet]) -> str:
+        tiers = {p.tier_name for p in packets}
+        if len(tiers) != 1:
+            raise ValueError(f"mixed tiers in one microbatch: {tiers} — "
+                             "bucket packets by tier before batching")
+        return next(iter(tiers))

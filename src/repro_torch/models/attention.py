@@ -1,0 +1,157 @@
+"""GQA attention: full-sequence (encoders, prefill) and single-token
+decode against a ring KV cache (port of ``repro/models/attention.py``).
+
+Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, k stored
+post-RoPE. Slot positions live at the model level and arrive here as an
+additive mask. MLA, the Pallas full-sequence flash path (``use_flash``)
+and query chunking (``attn_chunk``) are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.models.common import apply_rope, fan_in_init, linear
+from repro_torch.models.config import ModelConfig
+
+_ROADMAP = "not ported yet; see ROADMAP.md"
+
+
+def init_gqa(generator: torch.Generator, cfg: ModelConfig, layers: int,
+             device=None) -> dict:
+    """Stacked GQA weights with a leading layer axis."""
+    d, H, K, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.resolved_head_dim)
+    dt = cfg.pdtype
+    p = {
+        "wq": fan_in_init(generator, (d, H * hd), dt, device, layers),
+        "wk": fan_in_init(generator, (d, K * hd), dt, device, layers),
+        "wv": fan_in_init(generator, (d, K * hd), dt, device, layers),
+        "wo": fan_in_init(generator, (H * hd, d), dt, device, layers),
+    }
+    if cfg.qkv_bias:
+        for n, w in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+            p[n] = torch.zeros((layers, w), dtype=dt, device=device)
+    return p
+
+
+def _rope_q_or_k(cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_style == "none":
+        return x
+    if cfg.rope_style == "mrope":
+        raise NotImplementedError(f"M-RoPE is {_ROADMAP}")
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """q (B,S,H,hd) k/v (B,T,K,hd) grouped attention, fp32 softmax.
+
+    mask: additive, broadcastable to (B, 1, S, T). The reference multiplies
+    native-dtype operands with float32 accumulation and a float32 result;
+    products of bf16 values are exact in float32, so upcasting the operands
+    and multiplying in float32 computes the same thing. Probabilities are
+    cast to v's dtype before P.V, as in the reference.
+    """
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    scores = scores + mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = linear(x, p["wk"], p.get("bk")).reshape(B, S, K, hd)
+    v = linear(x, p["wv"], p.get("bv")).reshape(B, S, K, hd)
+    return q, k, v
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.use_flash:
+        raise NotImplementedError(f"use_flash (flash_call) is {_ROADMAP}")
+    if cfg.attn_chunk:
+        raise NotImplementedError(f"attn_chunk is {_ROADMAP}")
+    if cfg.attn_scores_stub or cfg.shard_cache_hd:
+        raise NotImplementedError(
+            f"attn_scores_stub / shard_cache_hd are {_ROADMAP}")
+
+
+def gqa_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor,
+             mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence GQA. Returns (out, cache_contents)."""
+    _check_supported(cfg)
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x)
+    q = _rope_q_or_k(cfg, q, positions)
+    k = _rope_q_or_k(cfg, k, positions)
+    out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    return out, {"k": k, "v": v}
+
+
+def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, cache: dict, slot,
+               mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode. x (B,1,d); cache k/v (B,W,K,hd); slot an int
+    (shared ring slot) or a (B,) tensor (per-row slots); mask (B,W)
+    additive over cache slots (already admitting the new token's slot).
+
+    The cache is updated IN PLACE (the reference rebuilds it with
+    ``dynamic_update_slice``/``.at[].set``); the returned dict holds the
+    same tensors."""
+    _check_supported(cfg)
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x)
+    q = _rope_q_or_k(cfg, q, positions)
+    k = _rope_q_or_k(cfg, k, positions)
+    k_cache, v_cache = cache["k"], cache["v"]
+    if isinstance(slot, torch.Tensor) and slot.dim() == 1:
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, slot] = k[:, 0]
+        v_cache[rows, slot] = v[:, 0]
+    else:
+        k_cache[:, int(slot)] = k[:, 0]
+        v_cache[:, int(slot)] = v[:, 0]
+    if cfg.use_flash_decode and S == 1:
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache,
+                                          mask)[:, None]
+    else:
+        out = _sdpa(q, k_cache, v_cache, mask[:, None, :],
+                    1.0 / math.sqrt(hd))
+    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def gqa_empty_cache(cfg: ModelConfig, batch: int, width: int,
+                    device=None) -> dict:
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (batch, width, K, hd)
+    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+
+
+def attn_full(p, cfg: ModelConfig, x, positions, mask):
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    return gqa_full(p, cfg, x, positions, mask)
+
+
+def attn_decode(p, cfg: ModelConfig, x, positions, cache, slot, mask):
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    return gqa_decode(p, cfg, x, positions, cache, slot, mask)

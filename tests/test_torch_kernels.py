@@ -1,0 +1,119 @@
+"""The port's decode-attention kernel module, held against the reference.
+
+On the CPU the wrapper (``repro_torch.kernels.decode_attention.ops``) takes
+the plain PyTorch version; these tests hold that version against the JAX
+plain reference and against the Pallas kernel in interpret mode, and check
+the wrapper's dispatch and validation. The CUDA kernel itself is held
+against the plain version on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import ops as jops
+from repro.kernels.decode_attention import ref as jref
+from repro_torch.kernels.decode_attention import ops, ref
+
+torch.set_num_threads(1)
+
+NEG_INF = -1e30
+# fp32: the two frameworks sum in different orders (tests/test_kernels.py)
+FP32 = dict(rtol=1e-4, atol=2e-5)
+# bf16 inputs and output: one bf16 rounding of the result dominates
+BF16 = dict(rtol=5e-2, atol=5e-2)
+
+
+def _inputs(B, H, K, hd, W, seed=0, lens=None):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    k = rng.randn(B, W, K, hd).astype(np.float32)
+    v = rng.randn(B, W, K, hd).astype(np.float32)
+    # slot-validity mask: ragged per-row lengths (ring-buffer semantics)
+    if lens is None:
+        lens = np.linspace(W // 2, W, B).astype(int)
+    bias = np.zeros((B, W), np.float32)
+    for i, n in enumerate(lens):
+        bias[i, n:] = NEG_INF
+    return q, k, v, bias
+
+
+def _torch(*arrs, dtype=torch.float32):
+    q, k, v, bias = (torch.from_numpy(a) for a in arrs)
+    return q.to(dtype), k.to(dtype), v.to(dtype), bias
+
+
+def _jax(*arrs, dtype=jnp.float32):
+    q, k, v, bias = (jnp.asarray(a) for a in arrs)
+    return q.astype(dtype), k.astype(dtype), v.astype(dtype), bias
+
+
+@pytest.mark.parametrize("B,H,K,hd,W", [(2, 4, 2, 64, 128), (1, 8, 8, 32, 200),
+                                        (2, 8, 1, 128, 96), (4, 4, 4, 64, 512)])
+def test_plain_matches_reference_and_pallas_fp32(B, H, K, hd, W):
+    arrs = _inputs(B, H, K, hd, W)
+    out = ref.decode_attention_ref(*_torch(*arrs)).numpy()
+    np.testing.assert_allclose(
+        out, np.asarray(jref.decode_attention_ref(*_jax(*arrs))), **FP32)
+    pallas = jops.decode_attention(*_jax(*arrs), block_k=64)
+    np.testing.assert_allclose(out, np.asarray(pallas), **FP32)
+
+
+def test_plain_matches_reference_bf16():
+    arrs = _inputs(2, 4, 2, 64, 128, seed=1)
+    out = ref.decode_attention_ref(*_torch(*arrs, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    want = jref.decode_attention_ref(*_jax(*arrs, dtype=jnp.bfloat16))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+def test_idle_row_beside_live_row_is_finite_and_matches():
+    """A fully masked (idle) row must come out finite — with the finite
+    NEG_INF that is the mean of v — and leave the live row untouched."""
+    arrs = _inputs(2, 4, 2, 64, 128, seed=2, lens=[0, 128])
+    out = ref.decode_attention_ref(*_torch(*arrs)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(
+        out, np.asarray(jref.decode_attention_ref(*_jax(*arrs))), **FP32)
+    np.testing.assert_allclose(
+        out, np.asarray(jops.decode_attention(*_jax(*arrs), block_k=64)),
+        **FP32)
+    v = arrs[2]
+    mean_v = np.repeat(v[0].mean(axis=0), 2, axis=0)      # (H, hd), G = 2
+    np.testing.assert_allclose(out[0], mean_v, **FP32)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    t = _torch(*_inputs(2, 4, 2, 64, 96, seed=3))
+    before = ops.launches
+    out = ops.decode_attention(*t)
+    assert ops.launches == before
+    assert torch.equal(out, ref.decode_attention_ref(*t))
+
+
+def test_non_cpu_non_cuda_and_mixed_devices_raise():
+    q, k, v, bias = _torch(*_inputs(1, 2, 2, 32, 16))
+    meta = [x.to("meta") for x in (q, k, v, bias)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.decode_attention(*meta)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.decode_attention(meta[0], k, v, bias)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "bias", "strides",
+                                 "groups"])
+def test_kernel_argument_checks_raise(bad):
+    """What the CUDA path refuses before it launches (checked on CPU
+    tensors through the same validator)."""
+    hd = 48 if bad == "head_dim" else 64
+    q, k, v, bias = _torch(*_inputs(2, 4 if bad != "groups" else 3, 2, hd,
+                                    32))
+    if bad == "dtype":
+        k = k.to(torch.bfloat16)
+    if bad == "bias":
+        bias = bias[:, :-1]
+    if bad == "strides":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops._check(q, k, v, bias)

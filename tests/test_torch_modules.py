@@ -1,0 +1,485 @@
+"""Module parity: each ported module against its reference counterpart on
+bridged weights (lisa_mini, ``random_init_system`` seed 0), with the same
+numpy inputs handed to both packages.
+
+Tolerance: fp32 rtol 1e-4, atol 1e-4 — the only difference is summation
+order, which compounds through the layers. Bottleneck codes may differ by
++-1 on fewer than 1e-3 of entries, where a sum lands on .5 and round()
+flips with accumulation order (as tests/test_kernels.py allows).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.lisa7b import CONFIG as J7B
+from repro.configs.lisa_mini import CONFIG as JP
+from repro.core import bottleneck as jbn
+from repro.core import intent as jintent
+from repro.core import lut as jlut
+from repro.core import packets as jpk
+from repro.core import vlm as jv
+from repro.core.profile import random_init_system
+from repro.models import attention as jattn
+from repro.models import common as jc
+from repro.models import stack as jstack
+from repro_torch import bridge
+from repro_torch.configs import get_lisa_config
+from repro_torch.core import bottleneck as tbn
+from repro_torch.core import intent as tintent
+from repro_torch.core import lut as tlut
+from repro_torch.core import packets as tpk
+from repro_torch.core import vlm as tv
+from repro_torch.models import attention as tattn
+from repro_torch.models import common as tc
+from repro_torch.models import stack as tstack
+
+torch.set_num_threads(1)
+
+TP = get_lisa_config("lisa-mini")
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def system():
+    params, bns, _ = random_init_system(JP, seed=0)
+    np_params = jax.tree.map(np.asarray, params)
+    np_bns = jax.tree.map(np.asarray, bns)
+    return (params, bridge.to_torch(np_params, "cpu"), bns,
+            bridge.to_torch(np_bns, "cpu"))
+
+
+def _close(a, b, **tol):
+    np.testing.assert_allclose(np.asarray(a), b.detach().numpy()
+                               if isinstance(b, torch.Tensor) else b,
+                               **(tol or TOL))
+
+
+def _rng(seed=0):
+    return np.random.RandomState(seed)
+
+
+def _layer(tree, i):
+    return jax.tree.map(lambda a: a[i], tree)
+
+
+def _tlayer(tree, i):
+    return tstack.layer_slice(tree, i)
+
+
+# ---------------------------------------------------------------------------
+# configs and host copies
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["lisa-7b", "lisa-mini"])
+def test_configs_match_field_for_field(name):
+    ref = J7B if name == "lisa-7b" else JP
+    port = get_lisa_config(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.sam_tokens, port.clip_tokens) == (ref.sam_tokens,
+                                                    ref.clip_tokens)
+    for sub in ("sam", "clip", "llm"):
+        pc, rc = getattr(port, sub), getattr(ref, sub)
+        assert pc.resolved_head_dim == rc.resolved_head_dim
+        assert str(pc.pdtype).replace("torch.", "") == str(rc.pdtype)
+        assert str(pc.adtype).replace("torch.", "") == str(rc.adtype)
+
+
+def test_host_copies_match():
+    assert dataclasses.asdict(tlut.paper_lut()) == \
+        dataclasses.asdict(jlut.paper_lut())
+    for prompt in ("Highlight the stranded person", "Is there any car?",
+                   "how many boats", "status", "outline the roof"):
+        assert tintent.classify_intent(prompt).value == \
+            jintent.classify_intent(prompt).value
+    assert tpk.insight_payload_bytes(4096, 638, 196, 768) == \
+        jpk.insight_payload_bytes(4096, 638, 196, 768)
+    assert tpk.context_payload_bytes(196, 4096) == \
+        jpk.context_payload_bytes(196, 4096)
+    for ratio in (0.25, 0.10, 0.05):
+        for nbytes in (2, 4):
+            assert tbn.rank_for_ratio(1280, ratio, nbytes) == \
+                jbn.rank_for_ratio(1280, ratio, nbytes)
+    spec_t, spec_j = tbn.BottleneckSpec(128, 62, 4), jbn.BottleneckSpec(
+        128, 62, 4)
+    assert spec_t.ratio == spec_j.ratio
+    assert tbn.payload_bytes(spec_t, 64) == jbn.payload_bytes(spec_j, 64)
+
+
+# ---------------------------------------------------------------------------
+# bridge and init
+# ---------------------------------------------------------------------------
+
+
+def test_bridge_round_trip_keeps_structure_shape_dtype(system):
+    params, tparams, _, _ = system
+    jl, jdef = jax.tree.flatten(params)
+    tl = jax.tree.leaves(tparams)
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, tparams)) == \
+        jax.tree.structure(jax.tree.map(lambda _: 0, params)) == jdef
+    for a, t in zip(jl, tl):
+        assert tuple(t.shape) == a.shape
+        assert str(t.dtype).replace("torch.", "") == str(a.dtype)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(a))
+
+
+def test_bridge_reads_checkpoint_directory(tmp_path):
+    from repro.checkpoint.store import save_pytree
+    tree = {"a": jnp.arange(6, dtype=jnp.float32).reshape(2, 3),
+            "b": [jnp.asarray([1.5, -2.25, 3.0], jnp.bfloat16),
+                  jnp.asarray([[1, -2]], jnp.int8)],
+            "c": {"d": jnp.asarray([7], jnp.int32)}}
+    save_pytree(str(tmp_path), tree)
+    got = bridge.load_checkpoint(str(tmp_path), "cpu")
+    assert got["b"][0].dtype == torch.bfloat16
+    assert got["b"][1].dtype == torch.int8
+    for a, t in zip(jax.tree.leaves(tree), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      t.float().numpy())
+
+
+def test_init_lisa_mirrors_reference_layout():
+    gen = torch.Generator().manual_seed(0)
+    tparams = tv.init_lisa(TP, gen, "cpu")
+    jparams = jax.eval_shape(lambda: jv.init_lisa(JP, jax.random.PRNGKey(0)))
+    jl, jdef = jax.tree.flatten(jparams)
+    assert jax.tree.structure(jax.tree.map(lambda _: 0, tparams)) == jdef
+    for a, t in zip(jl, jax.tree.leaves(tparams)):
+        assert tuple(t.shape) == a.shape
+        assert str(t.dtype).replace("torch.", "") == str(a.dtype)
+    # fan-in scaled normal weights, zero biases, unit norms
+    w = tparams["llm"]["groups"][0]["attn"]["wq"]
+    assert abs(float(w.std()) * np.sqrt(w.shape[1]) - 1.0) < 0.05
+    assert float(tparams["sam"]["patch_b"].abs().max()) == 0.0
+    assert float(tparams["llm"]["norm"]["w"].min()) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# common
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", ["rms_norm", "layer_norm", "gelu", "rope",
+                                "causal_mask", "cache_mask"])
+def test_common(fn):
+    rng = _rng(1)
+    x = rng.randn(2, 5, 4, 32).astype(np.float32) * 3
+    w = rng.randn(32).astype(np.float32)
+    b = rng.randn(32).astype(np.float32)
+    tx = torch.from_numpy(x)
+    if fn == "rms_norm":
+        _close(jc.rms_norm(x, w), tc.rms_norm(tx, torch.from_numpy(w)))
+    elif fn == "layer_norm":
+        _close(jc.layer_norm(x, w, b),
+               tc.layer_norm(tx, torch.from_numpy(w), torch.from_numpy(b)))
+    elif fn == "gelu":
+        _close(jc.gelu(x), tc.gelu(tx))
+    elif fn == "rope":
+        pos = rng.randint(0, 300, (2, 5)).astype(np.int32)
+        _close(jc.apply_rope(x, pos), tc.apply_rope(tx, torch.from_numpy(pos)))
+    elif fn == "causal_mask":
+        np.testing.assert_array_equal(np.asarray(jc.causal_mask(7)),
+                                      tc.causal_mask(7).numpy())
+        np.testing.assert_array_equal(np.asarray(jc.causal_mask(7, 3)),
+                                      tc.causal_mask(7, 3).numpy())
+    else:
+        cp = np.array([[0, 1, 2, -1, -1], [3, 4, 0, 1, 2]], np.int32)
+        tcp = torch.from_numpy(cp)
+        np.testing.assert_array_equal(np.asarray(jc.cache_mask(cp, 2)),
+                                      tc.cache_mask(tcp, 2).numpy())
+        per_row = np.array([[1], [3]], np.int32)
+        np.testing.assert_array_equal(
+            np.asarray(jc.cache_mask(cp, per_row, 2)),
+            tc.cache_mask(tcp, torch.from_numpy(per_row), 2).numpy())
+
+
+# ---------------------------------------------------------------------------
+# attention and stack
+# ---------------------------------------------------------------------------
+
+
+def _llm_x(seed, S):
+    return _rng(seed).randn(2, S, TP.llm.d_model).astype(np.float32)
+
+
+def test_gqa_full(system):
+    params, tparams, _, _ = system
+    jp = _layer(params["llm"]["groups"][0]["attn"], 0)
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 0)
+    S = 9
+    x = _llm_x(2, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    jo, jkv = jattn.gqa_full(jp, JP.llm, x, pos, jc.causal_mask(S)[None])
+    to, tkv = tattn.gqa_full(tp, TP.llm, torch.from_numpy(x),
+                             torch.from_numpy(pos), tc.causal_mask(S)[None])
+    _close(jo, to)
+    _close(jkv["k"], tkv["k"])
+    _close(jkv["v"], tkv["v"])
+
+
+@pytest.mark.parametrize("flash", [True, False])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_gqa_decode(system, flash, per_row):
+    params, tparams, _, _ = system
+    jp = _layer(params["llm"]["groups"][0]["attn"], 0)
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 0)
+    rng = _rng(3)
+    B, W, K, hd = 2, 12, TP.llm.num_kv_heads, TP.llm.resolved_head_dim
+    k = rng.randn(B, W, K, hd).astype(np.float32)
+    v = rng.randn(B, W, K, hd).astype(np.float32)
+    x = _llm_x(4, 1)
+    if per_row:
+        pos = np.array([7, 10], np.int32)
+        slot_j, slot_t = pos % W, torch.from_numpy(pos % W)
+        cp = np.where(np.arange(W)[None] <= pos[:, None], np.arange(W)[None],
+                      -1).astype(np.int32)
+        mask = np.array(jc.cache_mask(cp, pos[:, None]))
+        positions = pos[:, None]
+    else:
+        pos = 8
+        slot_j, slot_t = pos, pos
+        cp = np.where(np.arange(W) <= pos, np.arange(W), -1).astype(np.int32)
+        cp = np.broadcast_to(cp, (B, W)).copy()
+        mask = np.array(jc.cache_mask(cp, pos))
+        positions = np.full((B, 1), pos, np.int32)
+    jcfg = JP.llm.replace(use_flash_decode=flash)
+    tcfg = TP.llm.replace(use_flash_decode=flash)
+    jo, jcache = jattn.gqa_decode(jp, jcfg, x, positions,
+                                  {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+                                  jnp.asarray(slot_j), jnp.asarray(mask))
+    tcache = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    to, tcache2 = tattn.gqa_decode(tp, tcfg, torch.from_numpy(x),
+                                   torch.from_numpy(positions), tcache, slot_t,
+                                   torch.from_numpy(mask))
+    _close(jo, to)
+    _close(jcache["k"], tcache2["k"])
+    _close(jcache["v"], tcache2["v"])
+
+
+def test_group_forward_dense_with_cache(system):
+    params, tparams, _, _ = system
+    S = 10
+    x = _llm_x(5, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    spec_j, spec_t = jstack.layer_groups(JP.llm)[0], tstack.layer_groups(
+        TP.llm)[0]
+    jx, _, jkv = jstack.group_forward(params["llm"]["groups"][0], JP.llm,
+                                      spec_j, x, pos, jc.causal_mask(S)[None],
+                                      want_cache=True)
+    tx, _, tkv = tstack.group_forward(tparams["llm"]["groups"][0], TP.llm,
+                                      spec_t, torch.from_numpy(x),
+                                      torch.from_numpy(pos),
+                                      tc.causal_mask(S)[None],
+                                      want_cache=True)
+    _close(jx, tx)
+    _close(jkv["k"], tkv["k"])
+    _close(jkv["v"], tkv["v"])
+
+
+def test_group_decode_dense(system):
+    params, tparams, _, _ = system
+    L, B, W = TP.llm.num_layers, 2, 12
+    K, hd = TP.llm.num_kv_heads, TP.llm.resolved_head_dim
+    rng = _rng(6)
+    k = rng.randn(L, B, W, K, hd).astype(np.float32)
+    v = rng.randn(L, B, W, K, hd).astype(np.float32)
+    pos = 9
+    cp = np.broadcast_to(np.where(np.arange(W) <= pos, np.arange(W), -1),
+                         (B, W)).astype(np.int32)
+    mask = np.array(jc.cache_mask(cp, pos))
+    x = _llm_x(7, 1)
+    positions = np.full((B, 1), pos, np.int32)
+    spec_j, spec_t = jstack.layer_groups(JP.llm)[0], tstack.layer_groups(
+        TP.llm)[0]
+    jx, jcache = jstack.group_decode(params["llm"]["groups"][0], JP.llm,
+                                     spec_j, x, positions,
+                                     {"k": jnp.asarray(k),
+                                      "v": jnp.asarray(v)},
+                                     jnp.int32(pos), jnp.asarray(mask))
+    tcache = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    tx, tcache = tstack.group_decode(tparams["llm"]["groups"][0], TP.llm,
+                                     spec_t, torch.from_numpy(x),
+                                     torch.from_numpy(positions), tcache,
+                                     pos, torch.from_numpy(mask))
+    _close(jx, tx)
+    _close(jcache["k"], tcache["k"])
+    _close(jcache["v"], tcache["v"])
+
+
+# ---------------------------------------------------------------------------
+# vlm
+# ---------------------------------------------------------------------------
+
+
+def _ctx_query(seed, B=2, qlen=6):
+    rng = _rng(seed)
+    ctx = rng.randn(B, JP.clip_tokens, JP.llm.d_model).astype(np.float32)
+    query = rng.randint(0, JP.llm.vocab_size, (B, qlen)).astype(np.int32)
+    return ctx, query
+
+
+def test_llm_prefill(system):
+    params, tparams, _, _ = system
+    ctx, query = _ctx_query(8)
+    W = ctx.shape[1] + query.shape[1] + 3
+    jl, js, jcache = jv.llm_prefill(params, JP, ctx, query, width=W)
+    tl, ts, tcache = tv.llm_prefill(tparams, TP, torch.from_numpy(ctx),
+                                    torch.from_numpy(query), width=W)
+    _close(jl, tl)
+    _close(js, ts)
+    _close(jcache["groups"][0]["k"], tcache["groups"][0]["k"])
+    _close(jcache["groups"][0]["v"], tcache["groups"][0]["v"])
+    np.testing.assert_array_equal(np.asarray(jcache["positions"]),
+                                  tcache["positions"].numpy())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_llm_decode_step(system, per_row):
+    params, tparams, _, _ = system
+    ctx, query = _ctx_query(9)
+    S = ctx.shape[1] + query.shape[1]
+    W = S + 4
+    jcfg = dataclasses.replace(JP, llm=JP.llm.replace(use_flash_decode=True))
+    tcfg = dataclasses.replace(TP, llm=TP.llm.replace(use_flash_decode=True))
+    _, _, jcache = jv.llm_prefill(params, jcfg, ctx, query, width=W)
+    _, _, tcache = tv.llm_prefill(tparams, tcfg, torch.from_numpy(ctx),
+                                  torch.from_numpy(query), width=W)
+    tok = np.array([[3], [17]], np.int32)
+    if per_row:
+        pos_j = np.array([S, S + 2], np.int32)
+        pos_t = torch.from_numpy(pos_j)
+    else:
+        pos_j, pos_t = jnp.int32(S), S
+    jl, js, jc2 = jv.llm_decode_step(params, jcfg, jcache, tok, pos_j)
+    tl, ts, tc2 = tv.llm_decode_step(tparams, tcfg, tcache,
+                                     torch.from_numpy(tok), pos_t)
+    _close(jl, tl)
+    _close(js, ts)
+    _close(jc2["groups"][0]["k"], tc2["groups"][0]["k"])
+    np.testing.assert_array_equal(np.asarray(jc2["positions"]),
+                                  tc2["positions"].numpy())
+
+
+def test_mask_decode(system):
+    params, tparams, _, _ = system
+    rng = _rng(10)
+    feats = rng.randn(2, JP.sam_tokens, JP.sam.d_model).astype(np.float32)
+    seg = rng.randn(2, JP.sam.d_model).astype(np.float32)
+    _close(jv.mask_decode(params, JP, feats, seg),
+           tv.mask_decode(tparams, TP, torch.from_numpy(feats),
+                          torch.from_numpy(seg)))
+
+
+@pytest.mark.parametrize("stage", ["sam_head", "sam_tail", "clip_encode_32",
+                                   "clip_encode_64"])
+def test_encoders(system, stage):
+    """clip_encode fed 64x64 images runs the antialiased downsizing resize
+    (lisa_mini's context size is 32)."""
+    params, tparams, _, _ = system
+    rng = _rng(11)
+    if stage == "sam_tail":
+        x = rng.randn(2, JP.sam_tokens, JP.sam.d_model).astype(np.float32)
+        _close(jv.sam_tail(params, JP, x),
+               tv.sam_tail(tparams, TP, torch.from_numpy(x)))
+        return
+    size = 64 if stage == "clip_encode_64" else 32
+    img = rng.rand(2, size, size, 3).astype(np.float32)
+    fn_j, fn_t = ((jv.sam_head, tv.sam_head) if stage == "sam_head"
+                  else (jv.clip_encode, tv.clip_encode))
+    _close(fn_j(params, JP, img), fn_t(tparams, TP, torch.from_numpy(img)))
+
+
+# ---------------------------------------------------------------------------
+# bottleneck
+# ---------------------------------------------------------------------------
+
+
+def _codes_close(jcodes, tcodes):
+    diff = np.abs(np.asarray(jcodes, np.int32) - tcodes.numpy().astype(
+        np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("tier", ["High Accuracy", "Balanced",
+                                  "High Throughput"])
+def test_bottleneck_encode(system, tier):
+    _, _, bns, tbns = system
+    x = _rng(12).randn(2, JP.sam_tokens, JP.sam.d_model).astype(np.float32)
+    jcodes, jscales = jbn.encode(bns[tier], x)
+    tcodes, tscales = tbn.encode(tbns[tier], torch.from_numpy(x))
+    assert tcodes.dtype == torch.int8
+    np.testing.assert_allclose(np.asarray(jscales), tscales.numpy(),
+                               rtol=1e-5, atol=1e-7)
+    _codes_close(jcodes, tcodes)
+
+
+def test_bottleneck_decode(system):
+    _, _, bns, tbns = system
+    tier = "Balanced"
+    rank = bns[tier]["enc"].shape[1]
+    rng = _rng(13)
+    codes = rng.randint(-127, 128, (2, JP.sam_tokens, rank)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.1, (2, JP.sam_tokens, 1)).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(jbn.decode(bns[tier], codes, scales)),
+        tbn.decode(tbns[tier], torch.from_numpy(codes),
+                   torch.from_numpy(scales)).numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the working dtype of LISA-7B on the card
+# ---------------------------------------------------------------------------
+
+
+def _bf16(pcfg):
+    def cast(m):
+        return m.replace(param_dtype="bfloat16", act_dtype="bfloat16")
+    return dataclasses.replace(pcfg, sam=cast(pcfg.sam), clip=cast(pcfg.clip),
+                               llm=cast(pcfg.llm))
+
+
+def test_bf16_pipeline_matches_reference(system):
+    """lisa_mini in bf16 (the fixture's weights cast to bf16, bridged bit
+    for bit): the casts of the port (norms and softmax in f32,
+    probabilities cast to v's dtype, bf16 activations) follow the
+    reference's. Tolerance rtol/atol 5e-2: a few bf16 roundings placed
+    differently by the two frameworks' CPU kernels. Greedy tokens are not
+    compared in bf16: where two logits sit within a rounding of each other
+    the argmax may differ, so the decode step is fed the same token."""
+    jb, tb = _bf16(JP), _bf16(TP)
+    params = jax.tree.map(lambda a: a.astype(jnp.bfloat16), system[0])
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, params), "cpu")
+    assert tparams["llm"]["embed"].dtype == torch.bfloat16
+    bf = dict(rtol=5e-2, atol=5e-2)
+    rng = _rng(14)
+    img = rng.rand(2, 64, 64, 3).astype(np.float32)
+    jctx = jv.clip_encode(params, jb, img)
+    tctx = tv.clip_encode(tparams, tb, torch.from_numpy(img))
+    _close(np.asarray(jctx, np.float32), tctx.float(), **bf)
+    ctx = np.asarray(jctx, np.float32)
+    query = rng.randint(0, JP.llm.vocab_size, (2, 8)).astype(np.int32)
+    S = ctx.shape[1] + query.shape[1]
+    jl, js, jcache = jv.llm_prefill(params, jb, jnp.asarray(ctx, jnp.bfloat16),
+                                    query, width=S + 1)
+    tl, ts, tcache = tv.llm_prefill(tparams, tb,
+                                    torch.from_numpy(ctx).to(torch.bfloat16),
+                                    torch.from_numpy(query), width=S + 1)
+    _close(np.asarray(jl, np.float32), tl.float(), **bf)
+    _close(np.asarray(js, np.float32), ts.float(), **bf)
+    tok = np.array([[5], [40]], np.int32)
+    jl, js, _ = jv.llm_decode_step(params, jb, jcache, tok, jnp.int32(S))
+    tl, ts, _ = tv.llm_decode_step(tparams, tb, tcache,
+                                   torch.from_numpy(tok), S)
+    _close(np.asarray(jl, np.float32), tl.float(), **bf)
+    _close(np.asarray(js, np.float32), ts.float(), **bf)
+    small = img[:, :32, :32].copy()
+    _close(np.asarray(jv.sam_tail(params, jb, jv.sam_head(params, jb, small)),
+                      np.float32),
+           tv.sam_tail(tparams, tb,
+                       tv.sam_head(tparams, tb, torch.from_numpy(small))
+                       ).float(), **bf)
