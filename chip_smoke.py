@@ -25,7 +25,22 @@ Phases, each fatal on failure:
      stated bf16 limits;
   7. replay one Context and one Insight microbatch warm, time each, and
      trace one more run of each with ``torch.profiler``: device time by
-     kernel and the device's idle share.
+     kernel and the device's idle share;
+  8. (inflight) serve eight requests from two operators (six Context, two
+     Insight over two tiers) through ``InflightDecoder(slots=4)`` over a
+     paged, shared-prefix ``PagePool`` at the full width of LISA-7B, in
+     waves between ``pump`` calls, with the launch counters set to 0 just
+     before and read just after: the paged kernel must launch exactly
+     once per layer and decode step. Then replay the schedule with every
+     paged launch held against its plain version on that launch's own
+     inputs, and with the plain version in the kernel's place, and hold
+     each request against the one-shot ``cloud_generate_batch``; time one
+     decode step, a prefix miss and a prefix hit, and trace one step.
+
+Phase 3 holds the paged kernel too: at the three shapes of the reference's
+kernel test and at the in-flight path's shape, with rows sharing prefix
+pages, ragged lengths, an idle row parked on the trash page, and every
+page no table names filled with NaN.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -74,7 +89,22 @@ SDPA_PATH_RTOL = 2.0 ** -3
 REPLACES = {  # the TPU kernel each CUDA kernel replaces
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:246",
+    "paged_decode_attention":
+        "src/repro/kernels/decode_attention/decode_attention.py:66",
 }
+# the in-flight phase: slots of the decoder, and eight requests from two
+# operators in three waves: (operator, kind, frame). A frame number names
+# one edge-encoded packet and query; uav-A sends frame 0 twice (a prefix
+# hit). Between waves the decoder takes PUMPS[w] steps, then drains.
+INFLIGHT_SLOTS = 4
+INFLIGHT_WAVES = (
+    (("uav-A", "context", 0), ("uav-B", "insight", 1),
+     ("uav-A", "context", 2)),
+    (("uav-A", "context", 0), ("uav-B", "context", 3),
+     ("uav-A", "insight", 4)),
+    (("uav-B", "context", 5), ("uav-A", "context", 6)),
+)
+PUMPS = (1, 2, 0)
 
 
 def log(msg: str) -> None:
@@ -222,6 +252,155 @@ def kernel_cases(pcfg, batches):
                       lens=np.linspace(1, W, B).astype(int).tolist()))
     cases.append(dict(name="fp32_idle_row", B=2, H=4, K=2, hd=64, W=128,
                       dtype=torch.float32, lens=[0, 128]))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3: paged_decode_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def paged_inputs(rng, case, dev):
+    """q, k/v pools, page table and bias of one paged case. ``valid``
+    (B, n*page) marks each row's attended slots; every pool page that no
+    table names is NaN, so a kernel reading outside its table fails."""
+    B, H, K, hd, P, page = (case[k] for k in ("B", "H", "K", "hd", "P",
+                                              "page"))
+    table, valid = case["table"], case["valid"]
+    q = rng.randn(B, H, hd).astype(np.float32)
+    kp = rng.randn(P, page, K, hd).astype(np.float32)
+    vp = rng.randn(P, page, K, hd).astype(np.float32)
+    unnamed = np.setdiff1d(np.arange(P), table)
+    kp[unnamed] = np.nan
+    vp[unnamed] = np.nan
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)
+    dtype = case["dtype"]
+    return (torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(kp).to(dev, dtype),
+            torch.from_numpy(vp).to(dev, dtype),
+            torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(bias).to(dev))
+
+
+def paged_bytes_flops(case, es):
+    """What the kernel must move and compute on these inputs: q, each
+    distinct page a table names (k and v, read once however many rows
+    share it), the tables, the bias and the output; 4 flops per
+    (query head, slot, head-dim element)."""
+    B, H, K, hd, page = (case[k] for k in ("B", "H", "K", "hd", "page"))
+    table = case["table"]
+    n = table.shape[1]
+    pages = len(np.unique(table))
+    nbytes = (2 * B * H * hd + 2 * pages * page * K * hd) * es \
+        + B * n * page * 4 + B * n * 4
+    return nbytes, 4 * B * H * n * page * hd
+
+
+def check_paged_decode_attention(rng, case, dev, timed):
+    from repro_torch.kernels.decode_attention import ops, ref
+    args = paged_inputs(rng, case, dev)
+    out = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_attention_ref(*args)
+    max_err = held_against(f"paged_decode_attention {case['name']}", out,
+                           want)
+    dtype = case["dtype"]
+    rtol, atol = TOL[dtype]
+    B, H, K, hd, page = (case[k] for k in ("B", "H", "K", "hd", "page"))
+    n = case["table"].shape[1]
+    res = {"case": case["name"], "B": B, "H": H, "K": K, "hd": hd,
+           "P": case["P"], "page": page, "n": n,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+    msg = (f"[kernel] paged_decode_attention {case['name']}: B={B} H={H} "
+           f"K={K} hd={hd} P={case['P']} page={page} n={n} {res['dtype']} "
+           f"max_abs_err={max_err:.3g} (rtol {rtol}, atol {atol})")
+    if timed:
+        nbytes, flops = paged_bytes_flops(case, torch.finfo(dtype).bits // 8)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dtype]
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [args] + [paged_inputs(rng, case, dev)
+                         for _ in range(copies - 1)]
+        gqa = {"enable_gqa": True} if K != H else {}
+
+        def gather_sdpa(q, kp, vp, table, bias):
+            # two library calls: the page gather, then SDPA
+            idx = table.long()
+            kg = kp[idx].reshape(B, n * page, K, hd).transpose(1, 2)
+            vg = vp[idx].reshape(B, n * page, K, hd).transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kg, vg,
+                attn_mask=bias[:, None, None, :].to(q.dtype), **gqa)
+
+        res.update({
+            "ms": device_ms(ops.paged_decode_attention, sets),
+            "plain_ms": device_ms(ref.paged_decode_attention_ref, sets),
+            "gather_sdpa_ms": device_ms(gather_sdpa, sets),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "distinct_pages": int(len(np.unique(case["table"])))})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" gather_sdpa_ms={res['gather_sdpa_ms']:.4f} bound_ms="
+                f"{res['bound_ms']:.5f} ({res['bound_by']}, "
+                f"{res['distinct_pages']} distinct pages)")
+    log(msg)
+    return res
+
+
+def paged_cases(pcfg):
+    """The three shapes of the reference's paged kernel test (fp32, random
+    tables, ragged lengths), and the in-flight path's shape: B = slots,
+    the LLM's heads, n = 13 prefix pages (clip tokens + query) + 1 private
+    page. ``main``: the tables of a decode step, rows 0 and 1 sharing
+    their prefix pages (one operator's repeated frame), each row at its
+    own step; ``main_ragged_idle``: row 0 idle (every entry on the trash
+    page 0, every slot masked), the others with lengths spread to
+    n*page, rows 1 and 2 sharing pages; once in bf16, once in fp32."""
+    rng = np.random.RandomState(1)
+    cases = []
+    for B, H, K, hd, P, page, n in ((2, 4, 2, 64, 9, 16, 3),
+                                    (1, 8, 8, 32, 5, 8, 4),
+                                    (3, 4, 1, 128, 12, 32, 2)):
+        table = rng.randint(0, P, (B, n))
+        lens = np.linspace(page, n * page, B).astype(int)
+        valid = np.arange(n * page)[None] < lens[:, None]
+        cases.append(dict(name=f"fp32_B{B}_P{P}_page{page}", B=B, H=H, K=K,
+                          hd=hd, P=P, page=page, table=table, valid=valid,
+                          dtype=torch.float32))
+    llm, page = pcfg.llm, 16
+    prefix = pcfg.clip_tokens + QUERY_LEN
+    n_pre = -(-prefix // page)
+    n = n_pre + -(-MAX_NEW_TOKENS // page)
+    B = INFLIGHT_SLOTS
+    base = dict(B=B, H=llm.num_heads, K=llm.num_kv_heads,
+                hd=llm.resolved_head_dim, page=page)
+    # main: row r owns prefix pages (rows 0 and 1 share) + 1 private page
+    pre = [list(range(1 + i * n_pre, 1 + (i + 1) * n_pre))
+           for i in (0, 0, 1, 2)]
+    private = 1 + 3 * n_pre + np.arange(B)
+    table = np.array([p + [int(private[r])] for r, p in enumerate(pre)])
+    valid = np.zeros((B, n * page), bool)
+    valid[:, :prefix] = True
+    for r in range(B):
+        valid[r, n_pre * page:n_pre * page + r + 1] = True
+    cases.append(dict(base, name=f"main_B{B}", P=int(table.max()) + 2,
+                      table=table, valid=valid, dtype=llm.adtype))
+    # ragged + idle: lengths 1 .. n*page on rows 1..B-1
+    table = np.zeros((B, n), int)
+    table[1] = np.arange(1, n + 1)
+    table[2] = np.concatenate([np.arange(1, n_pre + 1),
+                               [n + 1]])        # shares row 1's prefix
+    table[3] = np.arange(n + 2, 2 * n + 2)
+    lens = np.linspace(1, n * page, B - 1).astype(int)
+    valid = np.zeros((B, n * page), bool)
+    valid[1:] = np.arange(n * page)[None] < lens[:, None]
+    for dtype in (llm.adtype, torch.float32):
+        cases.append(dict(base, name=f"main_B{B}_ragged_idle_"
+                          f"{str(dtype).replace('torch.', '')}",
+                          P=2 * n + 3, table=table, valid=valid,
+                          dtype=dtype))
     return cases
 
 
@@ -419,6 +598,252 @@ def full_width_parity(executor, reqs, results, expect):
             "min_cosine_answer_logits": min_cos}
 
 
+# ---------------------------------------------------------------------------
+# phase 8 (inflight): InflightDecoder over a paged, shared-prefix pool
+# ---------------------------------------------------------------------------
+
+
+def inflight_requests(executor, pcfg, seed, timings=None):
+    """Edge-encode the frames INFLIGHT_WAVES names (seeded images and
+    queries; Insight frames alternate over two tiers). Returns
+    {frame: (kind, packet, query)}."""
+    rng = np.random.RandomState(seed + 1)
+    frames, n_ins = {}, 0
+    for wave in INFLIGHT_WAVES:
+        for _, kind, f in wave:
+            if f in frames:
+                continue
+            img = rng.rand(1, pcfg.image_size, pcfg.image_size,
+                           3).astype(np.float32)
+            query = rng.randint(0, pcfg.llm.vocab_size,
+                                (1, QUERY_LEN)).astype(np.int32)
+            t0 = _sync_s()
+            if kind == "context":
+                pkt, _ = executor.edge_context(img, f, 0.0)
+            else:
+                pkt = executor.edge_insight(img, executor.lut.tiers[n_ins % 2],
+                                            f, 0.0)
+                n_ins += 1
+            if timings is not None:
+                timings.append({"stage": f"edge_{kind}", "frame": f,
+                                "s": _sync_s() - t0})
+            frames[f] = (kind, pkt, query)
+    return frames
+
+
+def serve_inflight(executor, frames, step_times=None):
+    """Submit INFLIGHT_WAVES to a fresh InflightDecoder(slots=4), taking
+    PUMPS[w] decode steps after wave w, then drain. Returns (results in
+    submission order, the decoder). With ``step_times`` each decode step's
+    host wall time (ending in the device-to-host copy of its logits) is
+    appended, with its live rows."""
+    from repro_torch.core.intent import Intent
+    from repro_torch.engine import InflightDecoder
+    dec = InflightDecoder(executor, slots=INFLIGHT_SLOTS)
+    if step_times is not None:
+        stage = executor.cloud_decode_rows
+
+        def timed(*args):
+            t0 = _sync_s()
+            out = stage(*args)
+            step_times.append({"live": len(dec.active),
+                               "wall_ms": (_sync_s() - t0) * 1e3})
+            return out
+
+        executor.cloud_decode_rows = timed
+    done = {}
+    seq = 0
+    try:
+        for wave, pumps in zip(INFLIGHT_WAVES, PUMPS):
+            for operator, kind, f in wave:
+                _, pkt, query = frames[f]
+                dec.submit(seq, Intent(kind), pkt, query,
+                           lambda r: done.__setitem__(r["seq_id"], r),
+                           operator_id=operator)
+                seq += 1
+            dec.pump(pumps)
+        dec.drain()
+    finally:
+        if step_times is not None:
+            del executor.cloud_decode_rows
+    failed = [r for r in done.values() if "failure" in r]
+    if len(done) != seq or failed:
+        raise AssertionError(f"in-flight run served {len(done)} of {seq} "
+                             f"requests; failures {failed}")
+    return [done[i] for i in range(seq)], dec
+
+
+def _submissions():
+    return [(operator, kind, f) for wave in INFLIGHT_WAVES
+            for operator, kind, f in wave]
+
+
+def check_inflight_outputs(pcfg, results, dec):
+    """Every output finite with the expected shape; a prefix hit, a join
+    after step 0 and slot reuse happened; the pool's invariants hold and
+    only the stored prefixes' pages stay in use."""
+    g = pcfg.image_size // pcfg.patch_size \
+        * int(round(max(1, pcfg.mask_pixels_per_patch) ** 0.5))
+    for (_, kind, _), r in zip(_submissions(), results):
+        arrs = [r["answer_logits"], r["tokens"]]
+        if r["tokens"].shape != (1, MAX_NEW_TOKENS) or \
+                r["answer_logits"].shape != (1, pcfg.llm.vocab_size):
+            raise AssertionError(f"seq {r['seq_id']}: bad output shapes")
+        if kind == "insight":
+            if r["mask_logits"] is None or r["mask_logits"].shape != (1, g,
+                                                                      g):
+                raise AssertionError(f"seq {r['seq_id']}: bad mask")
+            arrs.append(r["mask_logits"])
+        elif r["mask_logits"] is not None:
+            raise AssertionError(f"seq {r['seq_id']}: Context with a mask")
+        if not all(np.isfinite(a).all() for a in arrs):
+            raise AssertionError(f"seq {r['seq_id']}: non-finite output")
+    hits = sum(r["prefix_hit"] for r in results)
+    late = max(r["joined_step"] for r in results)
+    if hits < 1 or late < 1 or len(results) <= INFLIGHT_SLOTS:
+        raise AssertionError(f"schedule did not exercise the decoder: "
+                             f"{hits} prefix hits, latest join at step "
+                             f"{late}")
+    acct = dec.pool.check_invariants()
+    stats = dec.pool.stats()
+    if stats["kv_pages_in_use"] != stats["prefix_entries"] * \
+            dec.n_prefix_pages:
+        raise AssertionError(f"pages in use {stats['kv_pages_in_use']} != "
+                             f"{stats['prefix_entries']} prefixes x "
+                             f"{dec.n_prefix_pages} pages")
+    return {"prefix_hits": hits, "latest_join_step": late,
+            "joined_steps": [r["joined_step"] for r in results],
+            "pool": acct, "pool_stats": stats}
+
+
+def compare_inflight(results, other, limits, label):
+    """Hold the in-flight results against another run's on the same
+    requests: tokens equal, answer and mask logits within ``limits``
+    (key -> norm-wise relative error; 0 means bit-equal)."""
+    worst = {k: 0.0 for k in limits}
+    for a, b in zip(results, other):
+        if not np.array_equal(a["tokens"], b["tokens"]):
+            raise AssertionError(f"seq {a['seq_id']}: tokens {a['tokens']} "
+                                 f"!= {label} {b['tokens']}")
+        for key, limit in limits.items():
+            x, y = a[key], b[key]
+            if x is None:
+                continue
+            y = np.asarray(y, np.float64)
+            rel = float(np.linalg.norm(x - y) / np.linalg.norm(y))
+            worst[key] = max(worst[key], rel)
+            if not rel <= limit:
+                raise AssertionError(f"seq {a['seq_id']}: {key} off the "
+                                     f"{label} by {rel:.3g} (norm-wise), "
+                                     f"limit {limit}")
+    log(f"[inflight] lisa-7b: vs {label} on {len(other)} requests: tokens "
+        f"equal; norm-wise relative error "
+        + ", ".join(f"{k} {v:.3g} (limit {limits[k]})"
+                    for k, v in worst.items()))
+    return worst
+
+
+def inflight_parity(executor, frames, results, expect):
+    """(a) Replay the schedule with every paged launch held against the
+    plain version on that launch's own inputs (the real pool views, page
+    tables and masks of every layer and step); (b) replay it with the
+    plain version in the kernel's place: tokens and answer logits equal,
+    mask logits within PATH_RTOL; (c) hold each request against the
+    one-shot ``cloud_generate_batch([packet], [query])``, the in-flight
+    path's oracle: tokens equal, logits and masks within SDPA_PATH_RTOL
+    (the batch sizes of the GEMMs differ, so their bf16 sums do)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    launch, errs, n_diff, n_out = ops.paged_decode_attention, [], 0, 0
+
+    def checked(*args):
+        nonlocal n_diff, n_out
+        out = launch(*args)
+        want = ref.paged_decode_attention_ref(*args)
+        errs.append(held_against("paged_decode_attention on the in-flight "
+                                 "path's inputs", out, want))
+        n_diff += int((out != want).sum())
+        n_out += out.numel()
+        return out
+
+    ops.paged_decode_attention = checked
+    try:
+        serve_inflight(executor, frames)
+    finally:
+        ops.paged_decode_attention = launch
+    if len(errs) != expect:
+        raise AssertionError(f"held {len(errs)} paged launches against the "
+                             f"plain version, expected {expect}")
+    log(f"[inflight] lisa-7b: {len(errs)} paged kernel launches on the "
+        f"in-flight path's own inputs agree with the plain version; max abs "
+        f"err {max(errs):.3g} (rtol {TOL[torch.bfloat16][0]}, atol "
+        f"{TOL[torch.bfloat16][1]}); {n_diff} of {n_out} output elements "
+        f"not bit-equal")
+    ops.paged_decode_attention = ref.paged_decode_attention_ref
+    try:
+        plain, _ = serve_inflight(executor, frames)
+    finally:
+        ops.paged_decode_attention = launch
+    rel_plain = compare_inflight(
+        results, plain, {"answer_logits": 0.0, "mask_logits": PATH_RTOL},
+        "path with the paged kernel's plain version")
+    oracle = []
+    for (_, kind, f), r in zip(_submissions(), results):
+        _, pkt, query = frames[f]
+        out = executor.cloud_generate_batch([pkt], [query])[0]
+        oracle.append({"seq_id": r["seq_id"], "tokens": out[-1],
+                       "answer_logits": out[-2],
+                       "mask_logits": out[0] if kind == "insight" else None})
+    rel_oracle = compare_inflight(
+        results, oracle, {"answer_logits": SDPA_PATH_RTOL,
+                          "mask_logits": SDPA_PATH_RTOL},
+        "one-shot cloud_generate_batch")
+    return {"launches_checked": len(errs), "max_abs_err": max(errs),
+            "elements_not_bit_equal": n_diff, "elements": n_out,
+            "rel_err_plain_kernel": rel_plain,
+            "rel_err_generate_batch": rel_oracle}
+
+
+def inflight_timings(executor, frames):
+    """Admission wall time (host clock, ending in a synchronise) of a
+    prefix miss (the first one on a fresh pool also creates the pool) and
+    of a hit, on an idle decoder; then one decode step with every slot
+    live, traced: its device time and the device's idle share."""
+    from repro_torch.core.intent import Intent
+    from repro_torch.engine import InflightDecoder
+    dec = InflightDecoder(executor, slots=INFLIGHT_SLOTS)
+    contexts = [f for f, (kind, _, _) in sorted(frames.items())
+                if kind == "context"]
+    out = {}
+    seq = 0
+
+    def admit(label, f, operator):
+        nonlocal seq
+        _, pkt, query = frames[f]
+        t0 = _sync_s()
+        dec.submit(seq, Intent.CONTEXT, pkt, query, lambda r: None,
+                   operator_id=operator)
+        out[label] = (_sync_s() - t0) * 1e3
+        seq += 1
+
+    for label, f in (("miss_first_ms", contexts[0]),
+                     ("miss_ms", contexts[1]), ("hit_ms", contexts[1])):
+        admit(label, f, "uav-C")
+        dec.drain()
+    if dec.active:
+        raise AssertionError("decoder not idle after drain")
+    for i, f in enumerate(contexts[:INFLIGHT_SLOTS]):
+        admit(f"fill_{i}", f, "uav-D")
+    if len(dec.active) != INFLIGHT_SLOTS:
+        raise AssertionError("timing decoder has idle slots")
+    # the trace's warm-up runs the first step with every slot live
+    out["step_traced"] = trace("cloud_decode_rows (4 live rows)", dec.step)
+    dec.drain()
+    log(f"[inflight] admission wall: prefix miss {out['miss_ms']:.1f} ms "
+        f"(first, creating the pool: {out['miss_first_ms']:.1f} ms), prefix "
+        f"hit {out['hit_ms']:.2f} ms")
+    return {k: v for k, v in out.items() if not k.startswith("fill_")}
+
+
 def _kernel_class(name: str) -> str:
     low = name.lower()
     if "decode_attention" in low:
@@ -430,11 +855,65 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def trace(label, fn):
+    """Run ``fn`` twice under ``torch.profiler``: once as the profiler's
+    warm-up, whose events are discarded (the first traced kernels can be
+    lost while the tracer starts), then once recorded. Reports the recorded
+    run's traced wall time, device time by kernel class, the top kernels,
+    and the device's idle share (1 - kernel time / traced wall). Fails if
+    the trace holds another count of decode-attention kernels than the
+    wrappers launched in the recorded run (the profiler dropped events), or
+    more kernel time than the traced wall (it counted a span as a kernel)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels.decode_attention import ops
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        prof.step()
+        made = ops.launches + ops.paged_launches
+        t0 = _sync_s()
+        fn()
+        traced = _sync_s() - t0
+        made = ops.launches + ops.paged_launches - made
+        prof.step()
+    by_class, top, seen = {}, [], 0
+    for e in prof.key_averages():
+        dev_us = e.self_device_time_total
+        if (dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
+            continue          # the schedule's step span is no kernel
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+        top.append((dev_us / 1e3, e.count, e.key[:90]))
+        seen += e.count if cls == "decode_attention" else 0
+    if seen != made:
+        raise AssertionError(
+            f"{label}: the trace holds {seen} decode-attention kernels but "
+            f"{made} were launched; the profiler dropped events")
+    busy = sum(by_class.values())
+    if not 0 < busy <= traced * 1e3:
+        raise AssertionError(f"{label}: the profiler recorded {busy:.2f} ms "
+                             f"of device time in {traced * 1e3:.2f} ms")
+    top.sort(reverse=True)
+    log(f"[profile] {label}: traced wall {traced * 1e3:.2f} ms, device "
+        f"{busy:.2f} ms (idle share {1.0 - busy / (traced * 1e3):.3f}); by "
+        "class " + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1])))
+    for t, c, n in top[:6]:
+        log(f"[profile]   {t:8.3f} ms  x{c:<5d} {n}")
+    return {"traced_wall_ms": traced * 1e3, "device_ms": busy,
+            "idle_share": 1.0 - busy / (traced * 1e3),
+            "decode_attention_kernels_traced": seen,
+            "device_ms_by_class": by_class,
+            "top_kernels": [{"ms": t, "count": c, "name": n}
+                            for t, c, n in top[:10]]}
+
+
 def profile_microbatches(executor, reqs):
     """Warm replays of one Context and one Insight microbatch: the
     untraced wall time, then a traced run's device time by kernel class
-    and the device's idle share (1 - kernel time / traced wall)."""
-    from torch.profiler import ProfilerActivity, profile
+    and the device's idle share."""
     batches = {
         "context": [r for r in reqs if r.packet.kind == "context"],
         "insight": [r for r in reqs if r.packet.kind == "insight"][:1]}
@@ -445,37 +924,56 @@ def profile_microbatches(executor, reqs):
         t0 = _sync_s()
         executor.cloud_generate_batch(*args)
         warm = _sync_s() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = _sync_s()
-            executor.cloud_generate_batch(*args)
-            traced = _sync_s() - t0
-        by_class, top = {}, []
-        for e in prof.key_averages():
-            dev_us = e.self_device_time_total
-            if dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            cls = _kernel_class(e.key)
-            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-            top.append((dev_us / 1e3, e.count, e.key[:90]))
-        busy = sum(by_class.values())
-        if busy <= 0:
-            raise AssertionError("the profiler recorded no device time")
-        top.sort(reverse=True)
-        report[f"{label}_B{len(batch)}"] = {
-            "warm_wall_ms": warm * 1e3, "traced_wall_ms": traced * 1e3,
-            "device_ms": busy, "idle_share": 1.0 - busy / (traced * 1e3),
-            "device_ms_by_class": by_class,
-            "top_kernels": [{"ms": t, "count": c, "name": n}
-                            for t, c, n in top[:10]]}
-        log(f"[profile] {label} B={len(batch)}: warm wall {warm * 1e3:.1f} "
-            f"ms; traced wall {traced * 1e3:.1f} ms, device {busy:.1f} ms "
-            f"(idle share {1.0 - busy / (traced * 1e3):.3f}); by class "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
-                by_class.items(), key=lambda kv: -kv[1])))
-        for t, c, n in top[:6]:
-            log(f"[profile]   {t:8.2f} ms  x{c:<5d} {n}")
+        log(f"[profile] {label} B={len(batch)}: warm wall "
+            f"{warm * 1e3:.1f} ms")
+        report[f"{label}_B{len(batch)}"] = dict(
+            warm_wall_ms=warm * 1e3,
+            **trace(f"{label} B={len(batch)}",
+                    lambda: executor.cloud_generate_batch(*args)))
     return report
+
+
+def inflight_phase(executor, pcfg, seed):
+    """Phase 8: the paged in-flight path at LISA-7B's full width, with the
+    launch counters set to 0 just before its counted run and read just
+    after, then its parity checks and timings."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    timings, steps = [], []
+    frames = inflight_requests(executor, pcfg, seed, timings)
+    decode_ops.launches = decode_ops.paged_launches = 0
+    t0 = _sync_s()
+    results, dec = serve_inflight(executor, frames, steps)
+    wall = _sync_s() - t0
+    launches = {"decode_attention": decode_ops.launches,
+                "paged_decode_attention": decode_ops.paged_launches}
+    expect = dec.n_steps * pcfg.llm.num_layers
+    log(f"[inflight] {len(results)} requests on {INFLIGHT_SLOTS} slots in "
+        f"{dec.n_steps} decode steps (mean live slots "
+        f"{dec.mean_live_slots:.2f}), wall {wall:.2f} s; joined at steps "
+        f"{[r['joined_step'] for r in results]}, prefix hits "
+        f"{[int(r['prefix_hit']) for r in results]}; launches {launches} "
+        f"(paged expected {expect})")
+    if launches["paged_decode_attention"] != expect or expect == 0 \
+            or launches["decode_attention"]:
+        raise AssertionError(f"in-flight path launches {launches}, expected "
+                             f"{expect} paged and no contiguous ones")
+    shape = check_inflight_outputs(pcfg, results, dec)
+    log(f"[inflight] outputs finite with expected shapes; pool "
+        f"{shape['pool']}, {shape['pool_stats']['prefix_entries']} prefixes "
+        f"x {dec.n_prefix_pages} pages in use; tokens "
+        f"{[r['tokens'].tolist()[0] for r in results]}")
+    full = [t["wall_ms"] for t in steps if t["live"] == INFLIGHT_SLOTS]
+    step_ms = float(np.median(full)) if full else None
+    log(f"[inflight] cloud_decode_rows wall with {INFLIGHT_SLOTS} live rows: "
+        f"median {step_ms} ms over {len(full)} steps; all steps "
+        f"{[round(t['wall_ms'], 1) for t in steps]}")
+    out = {"wall_s": wall, "n_steps": dec.n_steps,
+           "mean_live_slots": dec.mean_live_slots, "launches": launches,
+           "expected_paged_launches": expect, "edge": timings,
+           "steps": steps, "step_wall_ms_full": step_ms, **shape}
+    out["parity"] = inflight_parity(executor, frames, results, expect)
+    out["timings"] = inflight_timings(executor, frames)
+    return out
 
 
 def main() -> int:
@@ -504,8 +1002,7 @@ def main() -> int:
         f"cuda {report['cuda']})")
 
     t0 = time.perf_counter()
-    for name in _build.SOURCES:
-        _build.build(name)
+    _build.build()                      # one nvcc per source, in parallel
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(_build.SOURCES)} in {report['build_s']:.1f} s")
     for name in _build.SOURCES:
@@ -519,9 +1016,14 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     # the main path decodes a Context microbatch of 4 and one Insight
     # request per tier (KINDS, max_batch=4)
-    checks = [check_decode_attention(rng, c, dev)
-              for c in kernel_cases(pcfg, (1, 4))]
-    report["decode_attention"] = checks
+    paged_main = f"main_B{INFLIGHT_SLOTS}"     # the in-flight step's shape
+    checks = {"decode_attention": [check_decode_attention(rng, c, dev)
+                                   for c in kernel_cases(pcfg, (1, 4))],
+              "paged_decode_attention": [
+                  check_paged_decode_attention(
+                      rng, c, dev, timed=c["name"] == paged_main)
+                  for c in paged_cases(pcfg)]}
+    report.update(checks)
     report["small_input"] = small_input_check(args.seed, dev)
 
     t0 = time.perf_counter()
@@ -537,11 +1039,13 @@ def main() -> int:
 
     timings = []
     torch.cuda.reset_peak_memory_stats()
-    decode_ops.launches = 0
+    decode_ops.launches = decode_ops.paged_launches = 0
     t0 = _sync_s()
     reqs, results, sched = serve(executor, pcfg, args.seed, timings)
     wall = _sync_s() - t0
     launches = decode_ops.launches
+    if decode_ops.paged_launches:
+        raise AssertionError("the microbatch path launched the paged kernel")
     n_gen = sched.n_microbatches
     expect = n_gen * MAX_NEW_TOKENS * pcfg.llm.num_layers
     for t in timings:
@@ -579,22 +1083,36 @@ def main() -> int:
 
     report["parity"] = full_width_parity(executor, reqs, results, expect)
     report["profile"] = profile_microbatches(executor, reqs)
+    report["inflight"] = inflight_phase(executor, pcfg, args.seed)
 
-    main_check = max((c for c in checks if c["case"].startswith("main")),
-                     key=lambda c: c["B"])
+    # each kernel's line: its own checks, its own path's launches, and its
+    # times at its path's main shape
+    main_case = {"decode_attention": "main_B4",
+                 "paged_decode_attention": paged_main}
+    launched = {"decode_attention": report["serve"]["launches"],
+                "paged_decode_attention": report["inflight"]["launches"]}
+    path_err = {"decode_attention": report["parity"]["max_abs_err"],
+                "paged_decode_attention":
+                    report["inflight"]["parity"]["max_abs_err"]}
     kernels = []
     for name, src in _build.SOURCES.items():
+        main_check = next(c for c in checks[name]
+                          if c["case"] == main_case[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(src, REPO),
             "replaces": REPLACES[name],
-            "launches": report["serve"]["launches"][name],
-            "max_abs_err": max([c["max_abs_err"] for c in checks]
-                               + [report["parity"]["max_abs_err"]]),
+            "launches": launched[name][name],
+            "max_abs_err": max([c["max_abs_err"] for c in checks[name]]
+                               + [path_err[name]]),
             "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
             "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"],
-            "library_ms": main_check["library_ms"]})
+            # no one PyTorch call computes paged attention; its yardstick
+            # is the page gather + SDPA, two library calls
+            "library_ms": main_check.get("library_ms"),
+            **({"gather_sdpa_ms": main_check["gather_sdpa_ms"]}
+               if "gather_sdpa_ms" in main_check else {})})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -9,6 +9,14 @@ Request counts are padded up to a bucket size, as in the reference, so the
 shapes match the reference's. (PyTorch runs eagerly: there is no compile
 cache to key.) Stages take and return numpy arrays: that is the payload
 that crosses the link.
+
+The in-flight stages serve the paged shared-prefix cache instead:
+``cloud_prefix`` prefills a [ctx; query] prefix into fixed-size KV pages,
+``pool_write`` writes them into the shared page pool, and
+``cloud_decode_rows`` advances every live slot one token through per-row
+page tables (``vlm.llm_decode_step_paged``, whose decode attention runs
+the paged flash-decode CUDA kernel). The pool and the SAM features stay on
+the device; logits, <SEG> states and masks come back as numpy.
 """
 from __future__ import annotations
 
@@ -43,6 +51,16 @@ def _pad_rows(arr: np.ndarray, bucket: int) -> np.ndarray:
     return np.concatenate([arr, reps], axis=0)
 
 
+def _pool_write(dst: Dict, src: Dict, page_ids: torch.Tensor) -> Dict:
+    """Write one prefilled prefix's pages (leaves (L, n, page, ...)) into
+    the shared page pool (leaves (L, P, page, ...)) at ``page_ids`` (n,),
+    IN PLACE (the reference returns a rebuilt pool). Returns ``dst``."""
+    for d, s in zip(dst["groups"], src["groups"]):
+        for name in d:
+            d[name][:, page_ids] = s[name]
+    return dst
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     """Device tensor -> numpy. numpy has no bfloat16, so bf16 comes back
     as float32 (exact; the cloud side casts it back to bf16 losslessly)."""
@@ -59,8 +77,10 @@ class DualStreamExecutor:
     lut: SystemLUT
     buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)
     max_new_tokens: int = 4
-    # route decode attention through the flash-decode CUDA kernel
+    # route decode attention through the flash-decode CUDA kernels
     flash_decode: bool = True
+    # KV page size (token slots per page) for the paged in-flight cache
+    page_size: int = 16
     device: DeviceLike = None             # None -> cuda
 
     def __post_init__(self):
@@ -195,6 +215,71 @@ class DualStreamExecutor:
         mask = vlm.mask_decode(self.params, self.pcfg, feats, seg)
         return self._split([_host(mask), _host(logits), _host(tokens)],
                            counts)
+
+    # ---- cloud side (in-flight / paged continuous batching) ----
+    #
+    # ``cloud_generate_batch`` serves a closed microbatch end to end. The
+    # stages below split that into page-table operations for the
+    # ``InflightDecoder``, which owns the allocator and prefix store
+    # (``core.paging``).
+
+    @torch.inference_mode()
+    def cloud_sam_feats(self, packet: pk.Packet) -> torch.Tensor:
+        """Per-frame Insight tail: bottleneck decode + SAM suffix -> mask
+        features, kept on the device for ``cloud_mask``."""
+        return self._sam_feats(packet.tier_name, packet.content["codes"],
+                               packet.content["scales"])
+
+    @torch.inference_mode()
+    def cloud_prefix(self, ctx, query) -> Tuple[np.ndarray, Dict]:
+        """Prefill one request's [ctx; query] prefix into KV pages. Returns
+        (first-token logits (1, V) as numpy, paged KV on the device with
+        leaves (L, n_pages, page_size, K, hd)), the unit ``pool_write``
+        consumes. One sequence per call: pool rows are per-request."""
+        query = np.asarray(query).reshape(-1, np.asarray(query).shape[-1])
+        if query.shape[0] != 1:
+            raise ValueError(
+                f"prefix prefill is per-sequence, got {query.shape[0]} rows")
+        logits0, _, paged = vlm.llm_prefill_paged(
+            self.params, self.pcfg, self._dev(ctx), self._dev(query),
+            self.page_size)
+        # one request per pool row: drop the unit batch axis
+        return _host(logits0), {"groups": [
+            {name: a[:, 0] for name, a in g.items()}
+            for g in paged["groups"]]}
+
+    @torch.inference_mode()
+    def pool_write(self, pool: Dict, paged_kv: Dict, page_ids) -> Dict:
+        """Write a prefilled prefix's pages into the shared page pool at
+        ``page_ids``, in place; returns the pool."""
+        ids = torch.as_tensor(np.asarray(page_ids, np.int64),
+                              device=self.device)
+        return _pool_write(pool, paged_kv, ids)
+
+    @torch.inference_mode()
+    def cloud_decode_rows(self, pool: Dict, page_table, positions, tokens,
+                          pos, write_slot
+                          ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+        """One paged decode step over all slots. pool {"groups": [kv]}
+        with leaves (L, P, page, K, hd); page_table (slots, n_pages) int32
+        (idle rows parked on the trash page); positions
+        (slots, n_pages*page) int32 absolute slot positions (-1 empty);
+        tokens (slots, 1) int32; pos / write_slot (slots,) int32. Idle rows
+        write into the trash page and their outputs are discarded.
+        Returns (answer_logits, seg) as numpy and the pool, updated in
+        place."""
+        i32 = [self._dev(np.asarray(a, np.int32))
+               for a in (page_table, positions, tokens, pos, write_slot)]
+        logits, seg, pool = vlm.llm_decode_step_paged(
+            self.params, self._gen_pcfg, pool, *i32)
+        return _host(logits), _host(seg), pool
+
+    @torch.inference_mode()
+    def cloud_mask(self, feats: torch.Tensor, seg) -> np.ndarray:
+        """<SEG>-conditioned mask decode from stored SAM feats (the final
+        in-flight stage for Insight requests)."""
+        return _host(vlm.mask_decode(self.params, self.pcfg, feats,
+                                     self._dev(seg)))
 
     @staticmethod
     def _same_tier(packets: Sequence[pk.Packet]) -> str:

@@ -261,6 +261,66 @@ def llm_decode_step(params: dict, pcfg: LISAPipelineConfig, cache: Dict,
     return answer_logits, seg, {"groups": [kv], "positions": pos_arr}
 
 
+def llm_prefill_paged(params: dict, pcfg: LISAPipelineConfig,
+                      ctx_tokens: torch.Tensor, query_tokens: torch.Tensor,
+                      page_size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Prefill over [ctx; query] that emits the KV cache chunked into
+    fixed-size pages, the serving path's shared-prefix unit. Returns
+    (answer_logits (B,V), seg (B,d_sam), paged_kv) with paged_kv leaves
+    (L, B, n_pages, page_size, K, hd); the zero-padded tail of the last
+    page carries no position and is masked by the caller's bookkeeping
+    (``paging.prefix_positions``)."""
+    x, kv = _llm_trunk(params, pcfg, ctx_tokens, query_tokens,
+                       want_cache=True)
+    S = x.shape[1]
+    answer_logits, seg = _llm_outputs(params, x[:, -1])
+    n_pages = -(-S // page_size)
+    paged = {}
+    for name, a in kv.items():
+        buf = a.new_zeros(a.shape[:2] + (n_pages * page_size,) + a.shape[3:])
+        buf[:, :, :S] = a
+        paged[name] = buf.reshape(a.shape[:2] + (n_pages, page_size)
+                                  + a.shape[3:])
+    return answer_logits, seg, {"groups": [paged]}
+
+
+def llm_decode_step_paged(params: dict, pcfg: LISAPipelineConfig,
+                          pool: Dict, page_table: torch.Tensor,
+                          positions: torch.Tensor, tokens: torch.Tensor,
+                          pos: torch.Tensor, write_slot: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """One in-flight decode step against the shared KV page pool.
+
+    pool {"groups": [kv]} with leaves (L, P, page, K, hd); page_table
+    (B, n_pages) int32, every entry a valid page id (idle rows park on
+    the trash page); positions (B, n_pages*page) int32 absolute position
+    in each virtual slot (-1 empty; the caller owns this bookkeeping);
+    tokens (B,1) int; pos (B,) int32 positions of the new tokens;
+    write_slot (B,) int32 virtual slot receiving each row's token.
+    Returns (answer_logits (B,V), seg (B,d_sam), pool); the pool is
+    updated IN PLACE. Decode attention runs the paged flash-decode kernel
+    when ``pcfg.llm.use_flash_decode`` is set."""
+    llm = pcfg.llm
+    p = params["llm"]
+    B = tokens.shape[0]
+    page = pool["groups"][0]["k"].shape[2]
+    x = p["embed"][tokens.long()].to(llm.adtype)
+    rows = torch.arange(B, device=x.device)
+    pos_arr = positions.clone()
+    pos_arr[rows, write_slot.long()] = pos
+    mask = cache_mask(pos_arr, pos[:, None], llm.sliding_window)
+    write_page = page_table[rows, (write_slot // page).long()].long()
+    write_off = (write_slot % page).long()
+    spec = stack.layer_groups(llm)[0]
+    x, kv = stack.group_decode_paged(p["groups"][0], llm, spec, x,
+                                     pos[:, None], pool["groups"][0],
+                                     page_table, write_page, write_off, mask)
+    x = stack.apply_norm(x, p["norm"], llm)
+    answer_logits, seg = _llm_outputs(params, x[:, -1])
+    return answer_logits, seg, {"groups": [kv]}
+
+
 def llm_generate(params: dict, pcfg: LISAPipelineConfig,
                  ctx_tokens: torch.Tensor, query_tokens: torch.Tensor,
                  max_new_tokens: int

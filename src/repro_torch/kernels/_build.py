@@ -8,9 +8,11 @@ a shared library with a plain C interface, loaded with ``ctypes``:
 
 Libraries are built at first use from the sources in the checkout, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). The
-file name carries a hash of the source and flags, so an edited kernel is
-rebuilt. The compiler log (with ptxas' register and shared-memory report)
-is kept beside the library as ``<name>-<hash>.log``.
+file name carries a hash of the source, the headers beside it and the
+flags, so an edited kernel is rebuilt. The compiler log (with ptxas'
+register and shared-memory report) is kept beside the library as
+``<name>-<hash>.log``. ``build`` starts one ``nvcc`` per missing library,
+all at once.
 """
 from __future__ import annotations
 
@@ -21,12 +23,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 _KERNELS = Path(__file__).resolve().parent
 SOURCES: Dict[str, Path] = {
     "decode_attention":
         _KERNELS / "decode_attention" / "csrc" / "decode_attention.cu",
+    "paged_decode_attention":
+        _KERNELS / "decode_attention" / "csrc" / "paged_decode_attention.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,28 +54,50 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> float:
-    """Compile the kernel's library if it is missing. Returns the seconds
-    ``nvcc`` took (0.0 when the library was already built); raises with
-    the compiler log if it fails."""
-    out = library_path(name)
-    if out.exists():
+def build(names: Optional[Iterable[str]] = None) -> float:
+    """Compile every missing library of ``names`` (default: all), one
+    ``nvcc`` each, all started together. Returns the seconds the builds
+    took (0.0 when nothing was missing); raises with the compiler log of
+    the first that fails."""
+    todo = [n for n in (SOURCES if names is None else names)
+            if not library_path(n).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    log = out.with_suffix(".log")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    with open(log, "w") as f:
-        rc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                             str(SOURCES[name])], stdout=f,
-                            stderr=subprocess.STDOUT,
-                            timeout=NVCC_TIMEOUT_S).returncode
-    if rc != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{log.read_text()}")
-    os.replace(tmp, out)
+    jobs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        log = open(out.with_suffix(".log"), "w")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                 str(SOURCES[name])], stdout=log,
+                                stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, log, proc))
+    failed = []
+    for name, out, tmp, log, proc in jobs:
+        try:
+            rc = proc.wait(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = -1
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(name)
+    if failed:
+        name = failed[0]
+        raise RuntimeError(f"nvcc failed for {failed}; log of {name}:\n"
+                           + library_path(name).with_suffix(".log")
+                           .read_text())
     return time.perf_counter() - t0
 
 
@@ -79,7 +105,7 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
+        build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

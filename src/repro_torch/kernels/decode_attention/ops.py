@@ -1,10 +1,13 @@
 """Flash-decode attention: q (B,H,hd) against a contiguous (B,W,K,hd) KV
-cache with an additive (B,W) float32 slot bias. Port of
-``repro/kernels/decode_attention/ops.py:decode_attention``.
+cache (``decode_attention``) or a shared (P,page,K,hd) page pool addressed
+through a per-row page table (``paged_decode_attention``), with an
+additive float32 slot bias. Port of
+``repro/kernels/decode_attention/ops.py``.
 
-On CUDA tensors this launches the hand-written Hopper kernel
-(``csrc/decode_attention.cu``) or raises; on CPU tensors it returns the
-plain version (``ref.decode_attention_ref``). There is no other path.
+On CUDA tensors each wrapper launches its hand-written Hopper kernel
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``) or
+raises; on CPU tensors it returns its plain version (``ref.py``). There is
+no other path.
 """
 from __future__ import annotations
 
@@ -13,28 +16,42 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset (a plain counter; chip_smoke.py sets
-# it to 0 before the main path and reads it after)
+# the paged kernel stages a row's page table in shared memory beside the
+# 33,280 bytes of its merge buffers (hd=128), within the default 48 KiB
+MAX_PAGES = 2048
+
+# kernel launches since the last reset, one plain counter per kernel
+# (chip_smoke.py sets them to 0 before the main path and reads them after)
 launches = 0
+paged_launches = 0
 
-_launch_fn = None
+# the C signature of each kernel's launch function (csrc/*.cu): pointers
+# and the stream as c_void_p, so ctypes does not cut them to 32 bits
+_ARGTYPES = {
+    "decode_attention": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                         + [ctypes.c_longlong] * 5
+                         + [ctypes.c_float, ctypes.c_void_p]),
+    "paged_decode_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                               + [ctypes.c_longlong] * 6
+                               + [ctypes.c_float, ctypes.c_void_p]),
+}
+_launch_fns = {}
 
 
-def _kernel():
-    global _launch_fn
-    if _launch_fn is None:
-        fn = _build.load("decode_attention").decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+def _kernel(name: str):
+    fn = _launch_fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        _launch_fns[name] = fn
+    return fn
 
 
 def _check(q, k, v, bias) -> None:
@@ -66,32 +83,110 @@ def _check(q, k, v, bias) -> None:
         raise ValueError("bias must be contiguous over W")
 
 
+def _device(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device of ``tensors``: cuda or cpu; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on different devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device.type}")
+    return device
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """q (B,H,hd); k/v (B,W,K,hd); bias (B,W) additive. -> (B,H,hd)."""
     global launches
-    devices = {t.device for t in (q, k, v, bias)}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v, bias on different devices: {devices}")
-    device = devices.pop()
+    device = _device("decode_attention", q, k, v, bias)
     if device.type == "cpu":
         return decode_attention_ref(q, k, v, bias)
-    if device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not "
-                         f"{device.type}")
     _check(q, k, v, bias)
     B, H, hd = q.shape
     W, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        bias.data_ptr(), out.data_ptr(),
-                        _DTYPE_CODES[q.dtype], B, H, K, W, hd,
-                        k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                        bias.stride(0), 1.0 / hd ** 0.5, stream)
+        err = _kernel("decode_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, K, W, hd,
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            bias.stride(0), 1.0 / hd ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    return out
+
+
+def _check_paged(q, k_pool, v_pool, page_table, bias) -> None:
+    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or page_table.dim() != 2:
+        raise ValueError(f"want q (B,H,hd), k/v pools (P,page,K,hd) and "
+                         f"page_table (B,n); got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}, "
+                         f"{tuple(page_table.shape)}")
+    B, H, hd = q.shape
+    P, page, K, hdk = k_pool.shape
+    n = page_table.shape[1]
+    if page_table.shape[0] != B or hdk != hd or H % K != 0 or n < 1:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)}, page_table "
+                         f"{tuple(page_table.shape)}")
+    if n > MAX_PAGES:
+        raise ValueError(f"{n} pages per row; the kernel takes at most "
+                         f"{MAX_PAGES}")
+    if page_table.dtype != torch.int32 or page_table.stride(1) != 1:
+        raise ValueError(f"page_table must be int32 with unit stride over "
+                         f"pages; got {page_table.dtype} "
+                         f"{page_table.stride()}")
+    if tuple(bias.shape) != (B, n * page) or bias.dtype != torch.float32 \
+            or bias.stride(1) != 1:
+        raise ValueError(f"bias must be float32 (B, n*page) = "
+                         f"{(B, n * page)} with unit stride; got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(f"q/k/v must share one of {list(_DTYPE_CODES)}; "
+                         f"got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.stride(3) != 1 or t.stride(2) != hd:
+            raise ValueError(f"{name} must be contiguous over (K, hd); "
+                             f"strides {t.stride()}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """q (B,H,hd); k_pool/v_pool (P,page,K,hd), the shared page pool, read
+    in place; page_table (B,n) int32, every entry a valid page id (the
+    kernel does not check: idle rows point at the trash page); bias
+    (B, n*page) additive over the row's virtual sequence. -> (B,H,hd)."""
+    global paged_launches
+    device = _device("paged_decode_attention", q, k_pool, v_pool,
+                     page_table, bias)
+    if device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
+                                          bias)
+    _check_paged(q, k_pool, v_pool, page_table, bias)
+    B, H, hd = q.shape
+    page, K = k_pool.shape[1], k_pool.shape[2]
+    n = page_table.shape[1]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _kernel("paged_decode_attention")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, H, K, n, page, hd, k_pool.stride(0),
+            k_pool.stride(1), v_pool.stride(0), v_pool.stride(1),
+            page_table.stride(0), bias.stride(0), 1.0 / hd ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_launches += 1
     return out

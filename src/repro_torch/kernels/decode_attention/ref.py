@@ -1,6 +1,6 @@
-"""Plain PyTorch version of single-token decode attention (mirror of
-``repro/kernels/decode_attention/ref.py:decode_attention_ref``). The CPU
-path of the wrapper, and the oracle the CUDA kernel is held against on the
+"""Plain PyTorch versions of single-token decode attention, contiguous and
+paged (mirrors of ``repro/kernels/decode_attention/ref.py``). The CPU path
+of the wrappers, and the oracles the CUDA kernels are held against on the
 card."""
 from __future__ import annotations
 
@@ -22,3 +22,18 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgw,bwkh->bkgh", probs, v.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               page_table: torch.Tensor,
+                               bias: torch.Tensor) -> torch.Tensor:
+    """Gather each row's pages into the contiguous (B, W, K, hd) layout,
+    then run the dense version. q (B,H,hd); k_pool/v_pool (P, page, K, hd);
+    page_table (B, n) int; bias (B, n*page)."""
+    B = q.shape[0]
+    n, page = page_table.shape[1], k_pool.shape[1]
+    idx = page_table.long()
+    k = k_pool[idx].reshape(B, n * page, *k_pool.shape[2:])
+    v = v_pool[idx].reshape(B, n * page, *v_pool.shape[2:])
+    return decode_attention_ref(q, k, v, bias)

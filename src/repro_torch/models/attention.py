@@ -1,10 +1,12 @@
 """GQA attention: full-sequence (encoders, prefill) and single-token
-decode against a ring KV cache (port of ``repro/models/attention.py``).
+decode against a ring KV cache or a shared KV page pool (port of
+``repro/models/attention.py``).
 
-Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, k stored
-post-RoPE. Slot positions live at the model level and arrive here as an
-additive mask. MLA, the Pallas full-sequence flash path (``use_flash``)
-and query chunking (``attn_chunk``) are not ported yet (ROADMAP.md).
+Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, or, for
+the page pool, {"k": (P, page, K, hd), "v": ...}; k stored post-RoPE. Slot
+positions live at the model level and arrive here as an additive mask.
+MLA, the Pallas full-sequence flash path (``use_flash``) and query
+chunking (``attn_chunk``) are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -137,6 +139,47 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, {"k": k_cache, "v": v_cache}
 
 
+def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, pool: dict,
+                     page_table: torch.Tensor, write_page: torch.Tensor,
+                     write_off: torch.Tensor,
+                     mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode against a shared KV page pool.
+
+    x (B,1,d); pool k/v (P, page, K, hd), pages shared by every live row;
+    page_table (B, n_pages) int32, every entry a valid page id (idle rows
+    point at the reserved trash page); write_page/write_off (B,) the page
+    slot receiving each row's new k/v; mask (B, n_pages*page) additive
+    over the row's virtual sequence. Returns (out, pool).
+
+    The pool is updated IN PLACE (the reference rebuilds it with
+    ``.at[].set``); the returned dict holds the same tensors. Idle rows
+    may all write the same trash-page slot: which duplicate lands does
+    not matter, since their outputs are discarded and no live row's mask
+    admits a trash slot."""
+    _check_supported(cfg)
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x)
+    q = _rope_q_or_k(cfg, q, positions)
+    k = _rope_q_or_k(cfg, k, positions)
+    k_pool, v_pool = pool["k"], pool["v"]
+    k_pool[write_page, write_off] = k[:, 0]
+    v_pool[write_page, write_off] = v[:, 0]
+    if cfg.use_flash_decode and S == 1:
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        out = decode_ops.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                                page_table, mask)[:, None]
+    else:
+        n, page = page_table.shape[1], k_pool.shape[1]
+        idx = page_table.long()
+        kg = k_pool[idx].reshape(B, n * page, *k_pool.shape[2:])
+        vg = v_pool[idx].reshape(B, n * page, *v_pool.shape[2:])
+        out = _sdpa(q, kg, vg, mask[:, None, :], 1.0 / math.sqrt(hd))
+    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    return out, {"k": k_pool, "v": v_pool}
+
+
 def gqa_empty_cache(cfg: ModelConfig, batch: int, width: int,
                     device=None) -> dict:
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -155,3 +198,11 @@ def attn_decode(p, cfg: ModelConfig, x, positions, cache, slot, mask):
     if cfg.attn_type == "mla":
         raise NotImplementedError(f"MLA attention is {_ROADMAP}")
     return gqa_decode(p, cfg, x, positions, cache, slot, mask)
+
+
+def attn_decode_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
+                      write_page, write_off, mask):
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    return gqa_decode_paged(p, cfg, x, positions, pool, page_table,
+                            write_page, write_off, mask)

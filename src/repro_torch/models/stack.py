@@ -116,6 +116,17 @@ def _dense_block_decode(p, cfg, x, positions, cache, slot, mask):
     return x, c2
 
 
+def _dense_block_decode_paged(p, cfg, x, positions, pool, page_table,
+                              write_page, write_off, mask):
+    h, c2 = attention.attn_decode_paged(p["attn"], cfg,
+                                        apply_norm(x, p["norm1"], cfg),
+                                        positions, pool, page_table,
+                                        write_page, write_off, mask)
+    x = x + h
+    x = x + moe_lib.dense_mlp(p["mlp"], cfg, apply_norm(x, p["norm2"], cfg))
+    return x, c2
+
+
 def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
                   x: torch.Tensor, positions: torch.Tensor,
                   mask: torch.Tensor, want_cache: bool = False
@@ -146,3 +157,21 @@ def group_decode(params: Any, cfg: ModelConfig, spec: GroupSpec,
         x, _ = _dense_block_decode(layer_slice(params, i), cfg, x, positions,
                                    layer_slice(cache, i), slot, mask)
     return x, cache
+
+
+def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
+                       x: torch.Tensor, positions: torch.Tensor, pool: dict,
+                       page_table: torch.Tensor, write_page: torch.Tensor,
+                       write_off: torch.Tensor, mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode through one group against a shared KV page pool
+    (leaves (count, P, page, K, hd)). Each layer gets the contiguous view
+    ``pool[l]`` (P, page, K, hd), updated in place and read in place by the
+    kernel. Returns (x, pool)."""
+    _require_dense(spec)
+    for i in range(spec.count):
+        x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
+                                         positions, layer_slice(pool, i),
+                                         page_table, write_page, write_off,
+                                         mask)
+    return x, pool

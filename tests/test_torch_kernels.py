@@ -117,3 +117,119 @@ def test_kernel_argument_checks_raise(bad):
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         ops._check(q, k, v, bias)
+
+
+# ---------------------------------------------------------------------------
+# paged_decode_attention: the shared page pool, addressed by page tables
+# ---------------------------------------------------------------------------
+
+PAGED_SHAPES = [(2, 4, 2, 64, 9, 16, 3), (1, 8, 8, 32, 5, 8, 4),
+                (3, 4, 1, 128, 12, 32, 2)]     # tests/test_kernels.py
+
+
+def _paged_inputs(B, H, K, hd, P, page, n, seed=0, lens=None):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    kp = rng.randn(P, page, K, hd).astype(np.float32)
+    vp = rng.randn(P, page, K, hd).astype(np.float32)
+    pt = rng.randint(0, P, (B, n)).astype(np.int32)
+    if lens is None:
+        lens = np.linspace(page, n * page, B).astype(int)
+    bias = np.zeros((B, n * page), np.float32)
+    for i, L in enumerate(lens):
+        bias[i, L:] = NEG_INF
+    return q, kp, vp, pt, bias
+
+
+def _paged_torch(q, kp, vp, pt, bias):
+    return (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(pt), torch.from_numpy(bias))
+
+
+def _paged_jax(q, kp, vp, pt, bias):
+    return (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(pt), jnp.asarray(bias))
+
+
+@pytest.mark.parametrize("B,H,K,hd,P,page,n", PAGED_SHAPES)
+def test_paged_plain_matches_reference_and_pallas_fp32(B, H, K, hd, P, page,
+                                                       n):
+    arrs = _paged_inputs(B, H, K, hd, P, page, n)
+    out = ref.paged_decode_attention_ref(*_paged_torch(*arrs)).numpy()
+    np.testing.assert_allclose(
+        out, np.asarray(jref.paged_decode_attention_ref(*_paged_jax(*arrs))),
+        **FP32)
+    pallas = jops.paged_decode_attention(*_paged_jax(*arrs))
+    np.testing.assert_allclose(out, np.asarray(pallas), **FP32)
+
+
+def test_paged_equals_contiguous_on_a_ring_layout():
+    """A page table that lays row b's pages out in order over a pool cut
+    from a contiguous cache gives the contiguous kernel's answer."""
+    B, H, K, hd, page, n = 2, 4, 2, 64, 16, 4
+    q, k, v, bias = _inputs(B, H, K, hd, n * page, seed=4)
+    # pool page b*n + j holds slots [j*page, (j+1)*page) of row b
+    kp = k.reshape(B * n, page, K, hd)
+    vp = v.reshape(B * n, page, K, hd)
+    pt = np.arange(B * n, dtype=np.int32).reshape(B, n)
+    paged = ref.paged_decode_attention_ref(
+        *_paged_torch(q, kp, vp, pt, bias))
+    np.testing.assert_allclose(paged.numpy(),
+                               ref.decode_attention_ref(
+                                   *_torch(q, k, v, bias)).numpy(), **FP32)
+    np.testing.assert_allclose(
+        paged.numpy(), np.asarray(jops.paged_decode_attention(
+            *_paged_jax(q, kp, vp, pt, bias))), **FP32)
+
+
+def test_paged_idle_row_beside_live_row_is_finite():
+    """An idle row (every entry on the trash page 0, every slot masked)
+    beside a live row: finite, the mean of v over its slots, and the live
+    row as the reference computes it."""
+    B, H, K, hd, P, page, n = 2, 4, 2, 64, 6, 16, 3
+    q, kp, vp, pt, bias = _paged_inputs(B, H, K, hd, P, page, n, seed=5,
+                                        lens=[0, n * page])
+    pt[0] = 0
+    pt[1] = [1, 2, 3]
+    out = ref.paged_decode_attention_ref(
+        *_paged_torch(q, kp, vp, pt, bias)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(
+        out, np.asarray(jref.paged_decode_attention_ref(
+            *_paged_jax(q, kp, vp, pt, bias))), **FP32)
+    mean_v = np.repeat(vp[0].mean(axis=0), 2, axis=0)    # (H, hd), G = 2
+    np.testing.assert_allclose(out[0], mean_v, **FP32)
+
+
+def test_paged_cpu_tensors_take_the_plain_version_without_counting():
+    t = _paged_torch(*_paged_inputs(2, 4, 2, 64, 9, 16, 3, seed=6))
+    before = (ops.launches, ops.paged_launches)
+    out = ops.paged_decode_attention(*t)
+    assert (ops.launches, ops.paged_launches) == before
+    assert torch.equal(out, ref.paged_decode_attention_ref(*t))
+    ops._check_paged(*t)              # what the CUDA path would accept
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.paged_decode_attention(*meta)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.paged_decode_attention(meta[0], *t[1:])
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "table_dtype", "bias",
+                                 "strides", "groups", "pages"])
+def test_paged_kernel_argument_checks_raise(bad):
+    """What the paged CUDA path refuses before it launches."""
+    hd = 48 if bad == "head_dim" else 64
+    n = ops.MAX_PAGES + 1 if bad == "pages" else 3
+    q, kp, vp, pt, bias = _paged_torch(*_paged_inputs(
+        2, 4 if bad != "groups" else 3, 2, hd, 9, 4, n, seed=7))
+    if bad == "dtype":
+        kp = kp.to(torch.bfloat16)
+    if bad == "table_dtype":
+        pt = pt.long()
+    if bad == "bias":
+        bias = bias[:, :-1]
+    if bad == "strides":
+        kp = kp.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops._check_paged(q, kp, vp, pt, bias)

@@ -394,6 +394,146 @@ def test_encoders(system, stage):
 
 
 # ---------------------------------------------------------------------------
+# the paged in-flight path: one bridged page pool for both packages
+# ---------------------------------------------------------------------------
+
+PAGE, N_PAGES, POOL_PAGES = 4, 6, 11
+
+
+def _paged_case(seed, B=3):
+    """A shared pool (L, P, page, K, hd), per-row page tables over it (rows
+    0 and 1 share their first two pages; the last row is idle, parked on
+    the trash page 0), slot positions with a padded prefix tail, and the
+    step's tokens, positions and write slots."""
+    llm = TP.llm
+    rng = _rng(seed)
+    shape = (llm.num_layers, POOL_PAGES, PAGE, llm.num_kv_heads,
+             llm.resolved_head_dim)
+    pool_k = rng.randn(*shape).astype(np.float32)
+    pool_v = rng.randn(*shape).astype(np.float32)
+    table = np.zeros((B, N_PAGES), np.int32)
+    table[0] = [1, 2, 3, 4, 0, 0]
+    table[1] = [1, 2, 5, 6, 7, 0]
+    positions = np.full((B, N_PAGES * PAGE), -1, np.int32)
+    positions[0, :10] = np.arange(10)       # prefix 10 in 3 pages
+    positions[0, 12:14] = [10, 11]          # two decoded tokens
+    positions[1, :9] = np.arange(9)
+    positions[1, 16:19] = [9, 10, 11]
+    pos = np.array([12, 12, 0], np.int32)
+    write_slot = np.array([14, 19, 0], np.int32)
+    tokens = rng.randint(0, llm.vocab_size, (B, 1)).astype(np.int32)
+    return pool_k, pool_v, table, positions, tokens, pos, write_slot
+
+
+def _paged_layer_inputs(case):
+    """gqa/group inputs the way ``llm_decode_step_paged`` derives them."""
+    pool_k, pool_v, table, positions, _, pos, write_slot = case
+    rows = np.arange(len(pos))
+    pos_arr = positions.copy()
+    pos_arr[rows, write_slot] = pos
+    mask = np.array(jc.cache_mask(pos_arr, pos[:, None]))
+    write_page = table[rows, write_slot // PAGE]
+    write_off = write_slot % PAGE
+    return mask, write_page, write_off
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_gqa_decode_paged(system, flash):
+    params, tparams, _, _ = system
+    case = _paged_case(20)
+    pool_k, pool_v, table, _, _, pos, _ = case
+    mask, write_page, write_off = _paged_layer_inputs(case)
+    jp = _layer(params["llm"]["groups"][0]["attn"], 0)
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 0)
+    x = _rng(21).randn(3, 1, TP.llm.d_model).astype(np.float32)
+    positions = pos[:, None]
+    jcfg = JP.llm.replace(use_flash_decode=flash)
+    tcfg = TP.llm.replace(use_flash_decode=flash)
+    jo, jpool = jattn.gqa_decode_paged(
+        jp, jcfg, x, positions, {"k": jnp.asarray(pool_k[0]),
+                                 "v": jnp.asarray(pool_v[0])},
+        jnp.asarray(table), jnp.asarray(write_page), jnp.asarray(write_off),
+        jnp.asarray(mask))
+    tpool = {"k": torch.from_numpy(pool_k[0].copy()),
+             "v": torch.from_numpy(pool_v[0].copy())}
+    to, tpool2 = tattn.gqa_decode_paged(
+        tp, tcfg, torch.from_numpy(x), torch.from_numpy(positions), tpool,
+        torch.from_numpy(table), torch.from_numpy(write_page).long(),
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+    assert tpool2["k"] is tpool["k"]            # updated in place
+    _close(jo, to)
+    _close(jpool["k"], tpool2["k"])
+    _close(jpool["v"], tpool2["v"])
+
+
+def test_group_decode_paged(system):
+    params, tparams, _, _ = system
+    case = _paged_case(23)
+    pool_k, pool_v, table, _, _, pos, _ = case
+    mask, write_page, write_off = _paged_layer_inputs(case)
+    x = _rng(24).randn(3, 1, TP.llm.d_model).astype(np.float32)
+    positions = pos[:, None]
+    spec_j, spec_t = jstack.layer_groups(JP.llm)[0], tstack.layer_groups(
+        TP.llm)[0]
+    jcfg = JP.llm.replace(use_flash_decode=True)
+    tcfg = TP.llm.replace(use_flash_decode=True)
+    jx, jpool = jstack.group_decode_paged(
+        params["llm"]["groups"][0], jcfg, spec_j, x, positions,
+        {"k": jnp.asarray(pool_k), "v": jnp.asarray(pool_v)},
+        jnp.asarray(table), jnp.asarray(write_page), jnp.asarray(write_off),
+        jnp.asarray(mask))
+    tpool = {"k": torch.from_numpy(pool_k.copy()),
+             "v": torch.from_numpy(pool_v.copy())}
+    tx, tpool = tstack.group_decode_paged(
+        tparams["llm"]["groups"][0], tcfg, spec_t, torch.from_numpy(x),
+        torch.from_numpy(positions), tpool, torch.from_numpy(table),
+        torch.from_numpy(write_page).long(),
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+    _close(jx, tx)
+    _close(jpool["k"], tpool["k"])
+    _close(jpool["v"], tpool["v"])
+    with pytest.raises(NotImplementedError):
+        tstack.group_decode_paged({}, tcfg, tstack.GroupSpec("moe", 1), tx,
+                                  None, tpool, None, None, None, None)
+
+
+def test_llm_prefill_paged(system):
+    params, tparams, _, _ = system
+    ctx, query = _ctx_query(25, B=1)
+    jl, js, jpaged = jv.llm_prefill_paged(params, JP, ctx, query, PAGE)
+    tl, ts, tpaged = tv.llm_prefill_paged(tparams, TP, torch.from_numpy(ctx),
+                                          torch.from_numpy(query), PAGE)
+    _close(jl, tl)
+    _close(js, ts)
+    for name in ("k", "v"):
+        j, t = jpaged["groups"][0][name], tpaged["groups"][0][name]
+        assert tuple(t.shape) == j.shape
+        _close(j, t)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_llm_decode_step_paged(system, flash):
+    params, tparams, _, _ = system
+    pool_k, pool_v, table, positions, tokens, pos, write_slot = \
+        _paged_case(26)
+    jcfg = dataclasses.replace(JP, llm=JP.llm.replace(use_flash_decode=flash))
+    tcfg = dataclasses.replace(TP, llm=TP.llm.replace(use_flash_decode=flash))
+    jl, js, jpool = jv.llm_decode_step_paged(
+        params, jcfg, {"groups": [{"k": jnp.asarray(pool_k),
+                                   "v": jnp.asarray(pool_v)}]},
+        table, positions, tokens, pos, write_slot)
+    tpool = {"groups": [{"k": torch.from_numpy(pool_k.copy()),
+                         "v": torch.from_numpy(pool_v.copy())}]}
+    tl, ts, tpool = tv.llm_decode_step_paged(
+        tparams, tcfg, tpool, *(torch.from_numpy(a) for a in (
+            table, positions, tokens, pos, write_slot)))
+    _close(jl, tl)
+    _close(js, ts)
+    for name in ("k", "v"):
+        _close(jpool["groups"][0][name], tpool["groups"][0][name])
+
+
+# ---------------------------------------------------------------------------
 # bottleneck
 # ---------------------------------------------------------------------------
 
