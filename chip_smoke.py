@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. report the card (name and power limit from nvidia-smi);
   2. build every CUDA kernel of the serving path from the sources in this
-     checkout (nvcc, sm_90a) and report the build time;
+     checkout (nvcc, sm_90a; one nvcc per source, all started together) and
+     report the build time and ptxas' register and spill lines;
   3. hold each kernel against its plain PyTorch version on the card, at
      the serving path's own shapes (once more with lengths spread from 1
      to W across rows) and at a small fp32 shape, and time the
@@ -36,11 +37,28 @@ Phases, each fatal on failure:
      inputs, and with the plain version in the kernel's place, and hold
      each request against the one-shot ``cloud_generate_batch``; time one
      decode step, a prefix miss and a prefix hit, and trace one step.
+  9. (spec) serve six requests from two operators through
+     ``InflightDecoder(slots=4, spec=...)`` at the full width of LISA-7B, on
+     an executor of 6 new tokens over pages of 4 slots that shares the
+     serving weights: run A drafts with the serving weights (3 drafts, one
+     request kept plain), run B with a divergent random draft (4 drafts;
+     rejections and page rollback). Each run's launch counters start at 0:
+     verify launches must be verify steps x layers, paged decode launches
+     plain steps x layers, contiguous launches draft steps x layers. Both
+     runs give the tokens of a spec=None decoder (answer logits bit-equal)
+     and of the one-shot ``cloud_generate_batch``; a replay holds every
+     verify launch against its plain version on its own inputs, another
+     puts the plain version in the kernel's place; one speculative step is
+     timed and one traced.
 
-Phase 3 holds the paged kernel too: at the three shapes of the reference's
-kernel test and at the in-flight path's shape, with rows sharing prefix
-pages, ragged lengths, an idle row parked on the trash page, and every
-page no table names filled with NaN.
+Phase 3 holds the paged kernels too: the decode kernel at the three shapes
+of the reference's kernel test and at the in-flight path's shape, the
+verify kernel at the three shapes of its reference test, one with more
+than 8 queries per kv head, and the speculative path's shapes (C = 4 and
+5, pages of 4 and 16, and C = 1 in fp32 against the paged decode kernel);
+with rows sharing prefix pages, ragged lengths, a plain row's pad queries,
+an idle row parked on the trash page, and every page no table names filled
+with NaN.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -91,6 +109,8 @@ REPLACES = {  # the TPU kernel each CUDA kernel replaces
         "src/repro/kernels/decode_attention/decode_attention.py:246",
     "paged_decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:66",
+    "paged_verify_attention":
+        "src/repro/kernels/decode_attention/decode_attention.py:158",
 }
 # the in-flight phase: slots of the decoder, and eight requests from two
 # operators in three waves: (operator, kind, frame). A frame number names
@@ -105,6 +125,19 @@ INFLIGHT_WAVES = (
     (("uav-B", "context", 5), ("uav-A", "context", 6)),
 )
 PUMPS = (1, 2, 0)
+# the spec phase: an executor of 6 new tokens over pages of 4 slots (draft
+# overhangs cross pages, so rollback fires), and six requests from two
+# operators over phase 8's frames in two waves: (operator, frame, drafts).
+# uav-A sends frame 0 twice (a prefix hit, and a reuse of the draft's
+# prefix row); uav-B's frame 3 rides the verify batches without drafting.
+# One step between the waves, then drain.
+SPEC_PAGE = 4
+SPEC_MAX_NEW_TOKENS = 6
+SPEC_WAVES = (
+    (("uav-A", 0, True), ("uav-B", 1, True), ("uav-A", 0, True),
+     ("uav-B", 3, False)),
+    (("uav-A", 4, True), ("uav-B", 5, True)),
+)
 
 
 def log(msg: str) -> None:
@@ -405,6 +438,175 @@ def paged_cases(pcfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: paged_verify_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def verify_inputs(rng, case, dev):
+    """q (B,C,H,hd), k/v pools, page table and per-query bias of one verify
+    case. ``valid`` (B, C, n*page) marks each query's attended slots; every
+    pool page that no table names is NaN."""
+    B, C, H, K, hd, P, page = (case[k] for k in ("B", "C", "H", "K", "hd",
+                                                 "P", "page"))
+    table, valid = case["table"], case["valid"]
+    q = rng.randn(B, C, H, hd).astype(np.float32)
+    kp = rng.randn(P, page, K, hd).astype(np.float32)
+    vp = rng.randn(P, page, K, hd).astype(np.float32)
+    unnamed = np.setdiff1d(np.arange(P), table)
+    kp[unnamed] = np.nan
+    vp[unnamed] = np.nan
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)
+    dtype = case["dtype"]
+    return (torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(kp).to(dev, dtype),
+            torch.from_numpy(vp).to(dev, dtype),
+            torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(bias).to(dev))
+
+
+def verify_bytes_flops(case, es):
+    """What the kernel must move and compute on these inputs: q and the
+    output, each distinct page a table names (k and v, read once however
+    many rows share it), the tables and the per-query bias; 4 flops per
+    (query, head, slot, head-dim element)."""
+    B, C, H, K, hd, page = (case[k] for k in ("B", "C", "H", "K", "hd",
+                                              "page"))
+    table = case["table"]
+    n = table.shape[1]
+    pages = len(np.unique(table))
+    nbytes = (2 * B * C * H * hd + 2 * pages * page * K * hd) * es \
+        + B * C * n * page * 4 + B * n * 4
+    return nbytes, 4 * B * C * H * n * page * hd
+
+
+def check_paged_verify_attention(rng, case, dev, timed):
+    from repro_torch.kernels.decode_attention import ops, ref
+    args = verify_inputs(rng, case, dev)
+    out = ops.paged_verify_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_verify_attention_ref(*args)
+    max_err = held_against(f"paged_verify_attention {case['name']}", out,
+                           want)
+    dtype = case["dtype"]
+    rtol, atol = TOL[dtype]
+    B, C, H, K, hd, page = (case[k] for k in ("B", "C", "H", "K", "hd",
+                                              "page"))
+    n = case["table"].shape[1]
+    res = {"case": case["name"], "B": B, "C": C, "H": H, "K": K, "hd": hd,
+           "P": case["P"], "page": page, "n": n,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+    msg = (f"[kernel] paged_verify_attention {case['name']}: B={B} C={C} "
+           f"H={H} K={K} hd={hd} P={case['P']} page={page} n={n} "
+           f"{res['dtype']} max_abs_err={max_err:.3g} (rtol {rtol}, atol "
+           f"{atol})")
+    if C == 1:
+        # column 0 of a C=1 call is the paged decode kernel's answer
+        q, kp, vp, table, bias = args
+        dec = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, table,
+                                         bias[:, 0].contiguous())
+        torch.cuda.synchronize()
+        diff = float((out[:, 0].float() - dec.float()).abs().max())
+        if not diff <= 1e-6:
+            raise AssertionError(f"paged_verify_attention {case['name']}: "
+                                 f"C=1 off the paged decode kernel by "
+                                 f"{diff:.3g}, limit 1e-6")
+        res["max_abs_diff_paged_decode"] = diff
+        msg += f"; column 0 vs the paged decode kernel {diff:.3g}"
+    if timed:
+        nbytes, flops = verify_bytes_flops(case, torch.finfo(dtype).bits // 8)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dtype]
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [args] + [verify_inputs(rng, case, dev)
+                         for _ in range(copies - 1)]
+        G = H // K
+
+        def gather_sdpa(q, kp, vp, table, bias):
+            # two library calls: the page gather, then SDPA with the
+            # C queries of each kv head's G heads as its query rows
+            idx = table.long()
+            kg = kp[idx].reshape(B, n * page, K, hd).transpose(1, 2)
+            vg = vp[idx].reshape(B, n * page, K, hd).transpose(1, 2)
+            qg = q.reshape(B, C, K, G, hd).permute(0, 2, 3, 1, 4) \
+                .reshape(B, K, G * C, hd)
+            mask = bias[:, None, None].expand(B, 1, G, C, n * page) \
+                .reshape(B, 1, G * C, n * page).to(q.dtype)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask)
+
+        res.update({
+            "ms": device_ms(ops.paged_verify_attention, sets),
+            "plain_ms": device_ms(ref.paged_verify_attention_ref, sets),
+            "gather_sdpa_ms": device_ms(gather_sdpa, sets),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "distinct_pages": int(len(np.unique(case["table"])))})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" gather_sdpa_ms={res['gather_sdpa_ms']:.4f} bound_ms="
+                f"{res['bound_ms']:.5f} ({res['bound_by']}, "
+                f"{res['distinct_pages']} distinct pages)")
+    log(msg)
+    return res
+
+
+def verify_cases(pcfg):
+    """The three shapes of the reference's verify kernel test (fp32, random
+    tables, per-query ragged lengths), one with G*C > 8 queries per kv
+    head (split over CTAs), and the speculative path's shapes: B = slots,
+    the LLM's heads, C = 4 and 5 (3 and 4 drafts), the 204-token prefix in
+    51 pages of 4 slots + 2 private pages (phase 9's pages) or 13 pages of
+    16 + 1. Rows 0 and 1 share their prefix pages and draft (each at its
+    own step, causal within the chunk); row 2 is a plain row riding the
+    batch, its chunk one real entry and pad queries; row 3 is idle (every
+    entry on the trash page 0, every slot masked). Then C=1 in fp32, held
+    also against the paged decode kernel."""
+    rng = np.random.RandomState(2)
+    cases = []
+    for B, C, H, K, hd, P, page, n in ((2, 4, 4, 2, 64, 9, 16, 3),
+                                       (1, 3, 8, 8, 32, 5, 8, 4),
+                                       (3, 2, 4, 1, 128, 12, 32, 2),
+                                       (2, 5, 8, 2, 64, 9, 16, 3)):
+        table = rng.randint(0, P, (B, n))
+        lens = rng.randint(1, n * page + 1, (B, C))
+        valid = np.arange(n * page)[None, None] < lens[..., None]
+        cases.append(dict(name=f"fp32_B{B}_C{C}_G{H // K}_page{page}", B=B,
+                          C=C, H=H, K=K, hd=hd, P=P, page=page, table=table,
+                          valid=valid, dtype=torch.float32))
+    llm = pcfg.llm
+    prefix = pcfg.clip_tokens + QUERY_LEN
+    B = INFLIGHT_SLOTS
+    for page, C, dtype in ((SPEC_PAGE, 4, llm.adtype),
+                           (SPEC_PAGE, 5, llm.adtype),
+                           (16, 4, llm.adtype), (16, 1, torch.float32)):
+        n_pre = -(-prefix // page)
+        n_priv = -(-SPEC_MAX_NEW_TOKENS // page)
+        n = n_pre + n_priv
+        base = n_pre * page
+        pre = [list(range(1 + i * n_pre, 1 + (i + 1) * n_pre))
+               for i in (0, 0, 1)]
+        priv = 1 + 2 * n_pre + np.arange(3 * n_priv).reshape(3, n_priv)
+        table = np.zeros((B, n), int)
+        valid = np.zeros((B, C, n * page), bool)
+        for r, done in enumerate((1, 2, 3)):     # tokens emitted so far
+            table[r] = pre[r] + priv[r].tolist()
+            valid[r, :, :prefix] = True
+            for c in range(C):
+                # chunk token c sits at slot base + done - 1 + c; row 2's
+                # pad queries (c >= 1) see what its real entry sees
+                last = base + done - 1 + (c if r < 2 else 0)
+                valid[r, c, base:last + 1] = True
+        name = (f"main_B{B}_C{C}_page{page}"
+                + ("" if dtype == llm.adtype else "_fp32"))
+        cases.append(dict(name=name, B=B, C=C, H=llm.num_heads,
+                          K=llm.num_kv_heads, hd=llm.resolved_head_dim,
+                          P=int(table.max()) + 3, page=page, table=table,
+                          valid=valid, dtype=dtype))
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
@@ -678,15 +880,19 @@ def _submissions():
             for operator, kind, f in wave]
 
 
-def check_inflight_outputs(pcfg, results, dec):
+def check_inflight_outputs(pcfg, results, dec, kinds=None,
+                           new_tokens=MAX_NEW_TOKENS):
     """Every output finite with the expected shape; a prefix hit, a join
     after step 0 and slot reuse happened; the pool's invariants hold and
-    only the stored prefixes' pages stay in use."""
+    only the stored prefixes' pages stay in use. ``kinds``: each result's
+    request kind (default: phase 8's submissions)."""
     g = pcfg.image_size // pcfg.patch_size \
         * int(round(max(1, pcfg.mask_pixels_per_patch) ** 0.5))
-    for (_, kind, _), r in zip(_submissions(), results):
+    if kinds is None:
+        kinds = [kind for _, kind, _ in _submissions()]
+    for kind, r in zip(kinds, results):
         arrs = [r["answer_logits"], r["tokens"]]
-        if r["tokens"].shape != (1, MAX_NEW_TOKENS) or \
+        if r["tokens"].shape != (1, new_tokens) or \
                 r["answer_logits"].shape != (1, pcfg.llm.vocab_size):
             raise AssertionError(f"seq {r['seq_id']}: bad output shapes")
         if kind == "insight":
@@ -716,7 +922,7 @@ def check_inflight_outputs(pcfg, results, dec):
             "pool": acct, "pool_stats": stats}
 
 
-def compare_inflight(results, other, limits, label):
+def compare_inflight(results, other, limits, label, tag="inflight"):
     """Hold the in-flight results against another run's on the same
     requests: tokens equal, answer and mask logits within ``limits``
     (key -> norm-wise relative error; 0 means bit-equal)."""
@@ -736,7 +942,7 @@ def compare_inflight(results, other, limits, label):
                 raise AssertionError(f"seq {a['seq_id']}: {key} off the "
                                      f"{label} by {rel:.3g} (norm-wise), "
                                      f"limit {limit}")
-    log(f"[inflight] lisa-7b: vs {label} on {len(other)} requests: tokens "
+    log(f"[{tag}] lisa-7b: vs {label} on {len(other)} requests: tokens "
         f"equal; norm-wise relative error "
         + ", ".join(f"{k} {v:.3g} (limit {limits[k]})"
                     for k, v in worst.items()))
@@ -844,10 +1050,30 @@ def inflight_timings(executor, frames):
     return {k: v for k, v in out.items() if not k.startswith("fill_")}
 
 
+KERNELS = ("paged_verify_attention", "paged_decode_attention",
+           "decode_attention")
+
+
+def _launch_counts():
+    """Each kernel wrapper's launch counter."""
+    from repro_torch.kernels.decode_attention import ops
+    return {"decode_attention": ops.launches,
+            "paged_decode_attention": ops.paged_launches,
+            "paged_verify_attention": ops.verify_launches}
+
+
+def _reset_launch_counts():
+    from repro_torch.kernels.decode_attention import ops
+    ops.launches = ops.paged_launches = ops.verify_launches = 0
+
+
 def _kernel_class(name: str) -> str:
+    """The port kernel a traced kernel name belongs to (checked longest
+    name first: one is a suffix of another), else a library class."""
+    for k in KERNELS:
+        if f"{k}_kernel" in name:
+            return k
     low = name.lower()
-    if "decode_attention" in low:
-        return "decode_attention"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     if "softmax" in low:
@@ -861,23 +1087,23 @@ def trace(label, fn):
     lost while the tracer starts), then once recorded. Reports the recorded
     run's traced wall time, device time by kernel class, the top kernels,
     and the device's idle share (1 - kernel time / traced wall). Fails if
-    the trace holds another count of decode-attention kernels than the
-    wrappers launched in the recorded run (the profiler dropped events), or
-    more kernel time than the traced wall (it counted a span as a kernel)."""
+    the trace holds another count of any port kernel than its wrapper
+    launched in the recorded run (the profiler dropped events), or more
+    kernel time than the traced wall (it counted a span as a kernel)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    from repro_torch.kernels.decode_attention import ops
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         fn()
         prof.step()
-        made = ops.launches + ops.paged_launches
+        before = _launch_counts()
         t0 = _sync_s()
         fn()
         traced = _sync_s() - t0
-        made = ops.launches + ops.paged_launches - made
+        made = {k: v - before[k] for k, v in _launch_counts().items()}
         prof.step()
-    by_class, top, seen = {}, [], 0
+    by_class, top = {}, []
+    seen = {k: 0 for k in KERNELS}
     for e in prof.key_averages():
         dev_us = e.self_device_time_total
         if (dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
@@ -886,11 +1112,12 @@ def trace(label, fn):
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
         top.append((dev_us / 1e3, e.count, e.key[:90]))
-        seen += e.count if cls == "decode_attention" else 0
+        if cls in seen:
+            seen[cls] += e.count
     if seen != made:
         raise AssertionError(
-            f"{label}: the trace holds {seen} decode-attention kernels but "
-            f"{made} were launched; the profiler dropped events")
+            f"{label}: the trace holds port kernels {seen} but {made} were "
+            f"launched; the profiler dropped events")
     busy = sum(by_class.values())
     if not 0 < busy <= traced * 1e3:
         raise AssertionError(f"{label}: the profiler recorded {busy:.2f} ms "
@@ -904,7 +1131,7 @@ def trace(label, fn):
         log(f"[profile]   {t:8.3f} ms  x{c:<5d} {n}")
     return {"traced_wall_ms": traced * 1e3, "device_ms": busy,
             "idle_share": 1.0 - busy / (traced * 1e3),
-            "decode_attention_kernels_traced": seen,
+            "port_kernels_traced": seen,
             "device_ms_by_class": by_class,
             "top_kernels": [{"ms": t, "count": c, "name": n}
                             for t, c, n in top[:10]]}
@@ -936,16 +1163,15 @@ def profile_microbatches(executor, reqs):
 def inflight_phase(executor, pcfg, seed):
     """Phase 8: the paged in-flight path at LISA-7B's full width, with the
     launch counters set to 0 just before its counted run and read just
-    after, then its parity checks and timings."""
-    from repro_torch.kernels.decode_attention import ops as decode_ops
+    after, then its parity checks and timings. Returns (report, the
+    edge-encoded frames)."""
     timings, steps = [], []
     frames = inflight_requests(executor, pcfg, seed, timings)
-    decode_ops.launches = decode_ops.paged_launches = 0
+    _reset_launch_counts()
     t0 = _sync_s()
     results, dec = serve_inflight(executor, frames, steps)
     wall = _sync_s() - t0
-    launches = {"decode_attention": decode_ops.launches,
-                "paged_decode_attention": decode_ops.paged_launches}
+    launches = _launch_counts()
     expect = dec.n_steps * pcfg.llm.num_layers
     log(f"[inflight] {len(results)} requests on {INFLIGHT_SLOTS} slots in "
         f"{dec.n_steps} decode steps (mean live slots "
@@ -954,9 +1180,10 @@ def inflight_phase(executor, pcfg, seed):
         f"{[int(r['prefix_hit']) for r in results]}; launches {launches} "
         f"(paged expected {expect})")
     if launches["paged_decode_attention"] != expect or expect == 0 \
-            or launches["decode_attention"]:
+            or launches["decode_attention"] \
+            or launches["paged_verify_attention"]:
         raise AssertionError(f"in-flight path launches {launches}, expected "
-                             f"{expect} paged and no contiguous ones")
+                             f"{expect} paged and no others")
     shape = check_inflight_outputs(pcfg, results, dec)
     log(f"[inflight] outputs finite with expected shapes; pool "
         f"{shape['pool']}, {shape['pool_stats']['prefix_entries']} prefixes "
@@ -973,6 +1200,278 @@ def inflight_phase(executor, pcfg, seed):
            "steps": steps, "step_wall_ms_full": step_ms, **shape}
     out["parity"] = inflight_parity(executor, frames, results, expect)
     out["timings"] = inflight_timings(executor, frames)
+    return out, frames
+
+
+# ---------------------------------------------------------------------------
+# phase 9 (spec): speculative decoding in the in-flight decoder
+# ---------------------------------------------------------------------------
+
+
+def _spec_submissions(frames):
+    """(operator, kind, frame, drafts) of every SPEC_WAVES request."""
+    return [(op, frames[f][0], f, drafts) for wave in SPEC_WAVES
+            for op, f, drafts in wave]
+
+
+def serve_spec(executor, frames, spec, step_times=None):
+    """Submit SPEC_WAVES to a fresh InflightDecoder(slots=4, spec=spec),
+    one step after the first wave, then drain. Returns (results in
+    submission order, the decoder, the number of verify and of plain
+    decode steps). With ``step_times`` each step's host wall time (ending
+    in the device-to-host copy of its logits) is appended, with its stage
+    and live rows."""
+    from repro_torch.core.intent import Intent
+    from repro_torch.engine import InflightDecoder
+    dec = InflightDecoder(executor, slots=INFLIGHT_SLOTS, spec=spec)
+    calls = {"cloud_verify_rows": 0, "cloud_decode_rows": 0}
+
+    def counted(name):
+        stage = getattr(executor, name)
+
+        def run(*args):
+            calls[name] += 1
+            t0 = _sync_s() if step_times is not None else 0.0
+            out = stage(*args)
+            if step_times is not None:
+                step_times.append({"stage": name, "live": len(dec.active),
+                                   "wall_ms": (_sync_s() - t0) * 1e3})
+            return out
+        return run
+
+    for name in calls:
+        setattr(executor, name, counted(name))
+    done = {}
+    seq = 0
+    try:
+        for w, wave in enumerate(SPEC_WAVES):
+            for operator, f, drafts in wave:
+                kind, pkt, query = frames[f]
+                dec.submit(seq, Intent(kind), pkt, query,
+                           lambda r: done.__setitem__(r["seq_id"], r),
+                           operator_id=operator,
+                           speculative=None if drafts else False)
+                seq += 1
+            if w == 0:
+                dec.pump(1)
+        dec.drain()
+    finally:
+        for name in calls:
+            delattr(executor, name)
+    failed = [r for r in done.values() if "failure" in r]
+    if len(done) != seq or failed:
+        raise AssertionError(f"spec run served {len(done)} of {seq} "
+                             f"requests; failures {failed}")
+    return [done[i] for i in range(seq)], dec, calls
+
+
+def spec_run(executor, pcfg, frames, spec, label, step_times=None):
+    """One counted run: launch counters set to 0 just before, read just
+    after; verify launches must be verify steps x layers, paged decode
+    launches plain steps x layers, contiguous launches the draft model's
+    decode steps x layers."""
+    _reset_launch_counts()
+    t0 = _sync_s()
+    results, dec, calls = serve_spec(executor, frames, spec, step_times)
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    L = pcfg.llm.num_layers
+    draft_steps = dec.draft.n_steps if dec.draft is not None else 0
+    expect = {"paged_verify_attention": calls["cloud_verify_rows"] * L,
+              "paged_decode_attention": calls["cloud_decode_rows"] * L,
+              "decode_attention": draft_steps * L}
+    stats = dec.spec_stats.as_dict()
+    log(f"[spec] {label}: {len(results)} requests on {INFLIGHT_SLOTS} slots "
+        f"in {calls['cloud_verify_rows']} verify and "
+        f"{calls['cloud_decode_rows']} plain steps, {draft_steps} draft "
+        f"steps, {dec.draft.n_prefills if dec.draft else 0} draft prefills,"
+        f" wall {wall:.2f} s; launches {launches} (expected {expect}); "
+        f"joined at steps {[r['joined_step'] for r in results]}, prefix "
+        f"hits {[int(r['prefix_hit']) for r in results]}")
+    log(f"[spec] {label}: SpecStats {json.dumps(stats)}")
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    kinds = [kind for _, kind, _, _ in _spec_submissions(frames)]
+    shape = check_inflight_outputs(pcfg, results, dec, kinds,
+                                   SPEC_MAX_NEW_TOKENS)
+    log(f"[spec] {label}: outputs finite with expected shapes; pool "
+        f"{shape['pool']}; tokens {[r['tokens'].tolist()[0] for r in results]}")
+    return results, dec, {"wall_s": wall, "launches": launches,
+                          "expected_launches": expect, "steps": calls,
+                          "draft_steps": draft_steps,
+                          "draft_prefills": dec.draft.n_prefills
+                          if dec.draft else 0,
+                          "spec_stats": stats, **shape}
+
+
+def spec_parity(executor, frames, spec, results, expect):
+    """(a) Replay run A with every verify launch held against the plain
+    version on that launch's own inputs (the real pool views, page tables
+    and per-query masks of every layer and step); (b) replay it with the
+    plain version in the kernel's place: tokens and answer logits equal,
+    mask logits within PATH_RTOL."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    launch, errs, n_diff, n_out = ops.paged_verify_attention, [], 0, 0
+
+    def checked(*args):
+        nonlocal n_diff, n_out
+        out = launch(*args)
+        want = ref.paged_verify_attention_ref(*args)
+        errs.append(held_against("paged_verify_attention on the spec "
+                                 "path's inputs", out, want))
+        n_diff += int((out != want).sum())
+        n_out += out.numel()
+        return out
+
+    ops.paged_verify_attention = checked
+    try:
+        serve_spec(executor, frames, spec)
+    finally:
+        ops.paged_verify_attention = launch
+    if len(errs) != expect:
+        raise AssertionError(f"held {len(errs)} verify launches against the "
+                             f"plain version, expected {expect}")
+    log(f"[spec] lisa-7b: {len(errs)} verify kernel launches on the spec "
+        f"path's own inputs agree with the plain version; max abs err "
+        f"{max(errs):.3g} (rtol {TOL[torch.bfloat16][0]}, atol "
+        f"{TOL[torch.bfloat16][1]}); {n_diff} of {n_out} output elements "
+        f"not bit-equal")
+    ops.paged_verify_attention = ref.paged_verify_attention_ref
+    try:
+        plain, _, _ = serve_spec(executor, frames, spec)
+    finally:
+        ops.paged_verify_attention = launch
+    rel = compare_inflight(results, plain,
+                           {"answer_logits": 0.0, "mask_logits": PATH_RTOL},
+                           "spec path with the verify kernel's plain version",
+                           tag="spec")
+    return {"launches_checked": len(errs), "max_abs_err": max(errs),
+            "elements_not_bit_equal": n_diff, "elements": n_out,
+            "rel_err_plain_kernel": rel}
+
+
+def spec_timings(executor, frames, spec):
+    """Three decoders with every slot live and speculating (Context frames
+    of uav-C, their draft prefix rows shared): the wall time of one step
+    (draft rounds + verify, ending in a synchronise) on the first, then
+    one traced step on the third, the second's step being the trace's
+    warm-up. Each is its decoder's first step: full chunks of k+1."""
+    from repro_torch.core.intent import Intent
+    from repro_torch.core.paging import PagePool
+    from repro_torch.engine import InflightDecoder
+    contexts = [f for f, (kind, _, _) in sorted(frames.items())
+                if kind == "context"][:INFLIGHT_SLOTS]
+    pool, rows, decs = PagePool(page_size=SPEC_PAGE), {}, []
+    for _ in range(3):
+        dec = InflightDecoder(executor, slots=INFLIGHT_SLOTS, pool=pool,
+                              spec=spec, spec_prefix_rows=rows)
+        for i, f in enumerate(contexts):
+            _, pkt, query = frames[f]
+            dec.submit(i, Intent.CONTEXT, pkt, query, lambda r: None,
+                       operator_id="uav-C")
+        if len(dec.active) != INFLIGHT_SLOTS:
+            raise AssertionError("timing decoder has idle slots")
+        decs.append(dec)
+    t0 = _sync_s()
+    decs[0].step()
+    step_ms = (_sync_s() - t0) * 1e3
+    log(f"[spec] one speculative step (draft + verify) with "
+        f"{INFLIGHT_SLOTS} live rows: wall {step_ms:.1f} ms")
+    queue = decs[1:]
+    traced = trace(f"speculative step ({INFLIGHT_SLOTS} live rows)",
+                   lambda: queue.pop(0).step())
+    want = executor.pcfg.llm.num_layers
+    if traced["port_kernels_traced"]["paged_verify_attention"] != want:
+        raise AssertionError(f"the traced step holds "
+                             f"{traced['port_kernels_traced']} port kernels;"
+                             f" expected {want} verify kernels")
+    for dec in decs:
+        dec.drain()
+    return {"step_wall_ms": step_ms, "step_traced": traced}
+
+
+def spec_phase(executor, pcfg, seed, frames):
+    """Phase 9: speculative decoding at LISA-7B's full width on an executor
+    of 6 new tokens over pages of 4 that shares the serving executor's
+    weight tensors. Run A drafts with the serving weights (3 drafts), run
+    B with a divergent draft (4 drafts; the LLM and seg_proj of a second
+    random LISA-7B from ``seed``+1). Each counts its launches from 0; both
+    must give the tokens of a spec=None decoder (answer logits bit-equal)
+    and of the one-shot cloud_generate_batch."""
+    from repro_torch.core import vlm
+    from repro_torch.core.streams import DualStreamExecutor
+    from repro_torch.engine.speculative import SpeculativeConfig
+    dev = executor.device
+    sx = DualStreamExecutor(pcfg=pcfg, params=executor.params,
+                            bottlenecks=executor.bottlenecks,
+                            lut=executor.lut,
+                            max_new_tokens=SPEC_MAX_NEW_TOKENS,
+                            flash_decode=True, page_size=SPEC_PAGE,
+                            device=dev)
+    if sx.params["llm"]["embed"] is not executor.params["llm"]["embed"]:
+        raise AssertionError("the spec executor copied the weights")
+    out = {}
+    step_times = []
+    spec_a = SpeculativeConfig(draft_tokens=3)
+    res_a, dec_a, out["run_a"] = spec_run(sx, pcfg, frames, spec_a,
+                                          "run A (shared draft, k=3)",
+                                          step_times)
+    if not (out["run_a"]["steps"]["cloud_verify_rows"]
+            and out["run_a"]["steps"]["cloud_decode_rows"]
+            and out["run_a"]["draft_prefills"] < sum(
+                d for *_, d in _spec_submissions(frames))):
+        raise AssertionError("run A did not exercise verify steps, plain "
+                             "steps and the draft's prefix-row reuse")
+    full = [t["wall_ms"] for t in step_times
+            if t["stage"] == "cloud_verify_rows"
+            and t["live"] == INFLIGHT_SLOTS]
+    out["run_a"]["stage_walls"] = step_times
+    out["run_a"]["verify_wall_ms_full"] = float(np.median(full)) \
+        if full else None
+    log(f"[spec] cloud_verify_rows wall with {INFLIGHT_SLOTS} live rows: "
+        f"median {out['run_a']['verify_wall_ms_full']} ms over {len(full)} "
+        f"steps; all stage calls "
+        f"{[(t['stage'][6:12], t['live'], round(t['wall_ms'], 1)) for t in step_times]}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    other = vlm.init_lisa(pcfg, gen, dev)
+    draft = {"llm": other["llm"], "seg_proj": other["seg_proj"]}
+    del other
+    spec_b = SpeculativeConfig(draft_tokens=4, draft_params=draft)
+    res_b, dec_b, out["run_b"] = spec_run(sx, pcfg, frames, spec_b,
+                                          "run B (divergent draft, k=4)")
+    st = dec_b.spec_stats
+    if not (st.acceptance_rate < 1.0 and st.pages_rolled_back > 0):
+        raise AssertionError(f"run B shows no rejection and rollback: "
+                             f"{st.as_dict()}")
+    del dec_b, spec_b, draft
+    torch.cuda.empty_cache()
+
+    plain, _, _ = serve_spec(sx, frames, None)
+    oracle = []
+    for (_, kind, f, _), r in zip(_spec_submissions(frames), res_a):
+        _, pkt, query = frames[f]
+        o = sx.cloud_generate_batch([pkt], [query])[0]
+        oracle.append({"seq_id": r["seq_id"], "tokens": o[-1],
+                       "answer_logits": o[-2],
+                       "mask_logits": o[0] if kind == "insight" else None})
+    for label, res in (("run A", res_a), ("run B", res_b)):
+        out[label.replace(" ", "_").lower()]["rel_err_spec_none"] = \
+            compare_inflight(res, plain, {"answer_logits": 0.0,
+                                          "mask_logits": SDPA_PATH_RTOL},
+                             f"spec=None decoder ({label})", tag="spec")
+        out[label.replace(" ", "_").lower()]["rel_err_generate_batch"] = \
+            compare_inflight(res, oracle,
+                             {"answer_logits": SDPA_PATH_RTOL,
+                              "mask_logits": SDPA_PATH_RTOL},
+                             f"one-shot cloud_generate_batch ({label})",
+                             tag="spec")
+    out["parity"] = spec_parity(
+        sx, frames, spec_a, res_a,
+        out["run_a"]["launches"]["paged_verify_attention"])
+    out["timings"] = spec_timings(sx, frames, spec_a)
     return out
 
 
@@ -990,7 +1489,6 @@ def main() -> int:
     from repro_torch.configs import get_lisa_config
     from repro_torch.core.streams import DualStreamExecutor
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import ops as decode_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -1002,7 +1500,7 @@ def main() -> int:
         f"cuda {report['cuda']})")
 
     t0 = time.perf_counter()
-    _build.build()                      # one nvcc per source, in parallel
+    _build.build()          # one nvcc per source, all started together
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(_build.SOURCES)} in {report['build_s']:.1f} s")
     for name in _build.SOURCES:
@@ -1022,7 +1520,12 @@ def main() -> int:
               "paged_decode_attention": [
                   check_paged_decode_attention(
                       rng, c, dev, timed=c["name"] == paged_main)
-                  for c in paged_cases(pcfg)]}
+                  for c in paged_cases(pcfg)],
+              "paged_verify_attention": [
+                  check_paged_verify_attention(
+                      rng, c, dev, timed=c["name"].startswith("main")
+                      and c["dtype"] == pcfg.llm.adtype)
+                  for c in verify_cases(pcfg)]}
     report.update(checks)
     report["small_input"] = small_input_check(args.seed, dev)
 
@@ -1039,13 +1542,15 @@ def main() -> int:
 
     timings = []
     torch.cuda.reset_peak_memory_stats()
-    decode_ops.launches = decode_ops.paged_launches = 0
+    _reset_launch_counts()
     t0 = _sync_s()
     reqs, results, sched = serve(executor, pcfg, args.seed, timings)
     wall = _sync_s() - t0
-    launches = decode_ops.launches
-    if decode_ops.paged_launches:
-        raise AssertionError("the microbatch path launched the paged kernel")
+    counts = _launch_counts()
+    launches = counts["decode_attention"]
+    if counts["paged_decode_attention"] or counts["paged_verify_attention"]:
+        raise AssertionError(f"the microbatch path launched a paged kernel: "
+                             f"{counts}")
     n_gen = sched.n_microbatches
     expect = n_gen * MAX_NEW_TOKENS * pcfg.llm.num_layers
     for t in timings:
@@ -1083,17 +1588,23 @@ def main() -> int:
 
     report["parity"] = full_width_parity(executor, reqs, results, expect)
     report["profile"] = profile_microbatches(executor, reqs)
-    report["inflight"] = inflight_phase(executor, pcfg, args.seed)
+    report["inflight"], frames = inflight_phase(executor, pcfg, args.seed)
+    report["spec"] = spec_phase(executor, pcfg, args.seed, frames)
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape
     main_case = {"decode_attention": "main_B4",
-                 "paged_decode_attention": paged_main}
+                 "paged_decode_attention": paged_main,
+                 "paged_verify_attention": f"main_B{INFLIGHT_SLOTS}_C4_page"
+                                           f"{SPEC_PAGE}"}
     launched = {"decode_attention": report["serve"]["launches"],
-                "paged_decode_attention": report["inflight"]["launches"]}
+                "paged_decode_attention": report["inflight"]["launches"],
+                "paged_verify_attention": report["spec"]["run_a"]["launches"]}
     path_err = {"decode_attention": report["parity"]["max_abs_err"],
                 "paged_decode_attention":
-                    report["inflight"]["parity"]["max_abs_err"]}
+                    report["inflight"]["parity"]["max_abs_err"],
+                "paged_verify_attention":
+                    report["spec"]["parity"]["max_abs_err"]}
     kernels = []
     for name, src in _build.SOURCES.items():
         main_check = next(c for c in checks[name]
@@ -1108,8 +1619,9 @@ def main() -> int:
             "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
             "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"],
-            # no one PyTorch call computes paged attention; its yardstick
-            # is the page gather + SDPA, two library calls
+            # no one PyTorch call computes paged attention; the paged
+            # kernels' yardstick is the page gather + SDPA, two library
+            # calls
             "library_ms": main_check.get("library_ms"),
             **({"gather_sdpa_ms": main_check["gather_sdpa_ms"]}
                if "gather_sdpa_ms" in main_check else {})})

@@ -1,11 +1,12 @@
 """LISA pipeline config registry."""
 from __future__ import annotations
 
-from repro_torch.configs import lisa7b, lisa_mini
+from repro_torch.configs import lisa7b, lisa_mini, lisa_nano
 
 LISA_REGISTRY = {
     lisa7b.CONFIG.name: lisa7b.CONFIG,
     lisa_mini.CONFIG.name: lisa_mini.CONFIG,
+    lisa_nano.CONFIG.name: lisa_nano.CONFIG,
 }
 
 

@@ -15,8 +15,11 @@ The in-flight stages serve the paged shared-prefix cache instead:
 ``pool_write`` writes them into the shared page pool, and
 ``cloud_decode_rows`` advances every live slot one token through per-row
 page tables (``vlm.llm_decode_step_paged``, whose decode attention runs
-the paged flash-decode CUDA kernel). The pool and the SAM features stay on
-the device; logits, <SEG> states and masks come back as numpy.
+the paged flash-decode CUDA kernel), and ``cloud_verify_rows`` scores a
+chunk of tokens per slot in one pass for speculative decoding
+(``vlm.llm_verify_step_paged``, the paged verify CUDA kernel). The pool
+and the SAM features stay on the device; logits, <SEG> states and masks
+come back as numpy.
 """
 from __future__ import annotations
 
@@ -271,6 +274,24 @@ class DualStreamExecutor:
         i32 = [self._dev(np.asarray(a, np.int32))
                for a in (page_table, positions, tokens, pos, write_slot)]
         logits, seg, pool = vlm.llm_decode_step_paged(
+            self.params, self._gen_pcfg, pool, *i32)
+        return _host(logits), _host(seg), pool
+
+    @torch.inference_mode()
+    def cloud_verify_rows(self, pool: Dict, page_table, positions, tokens,
+                          pos, write_slot, chunk_len
+                          ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+        """One speculative verify step over all slots: tokens (slots, C)
+        int32 chunks (last accepted token + drafts, padded past
+        ``chunk_len``); pos / write_slot (slots,) int32 starts; chunk_len
+        (slots,) int32 real entries per row (pad entries write to the trash
+        page and their logits are discarded). Returns (answer_logits
+        (slots, C, V), seg (slots, C, d_sam)) as numpy and the pool,
+        updated in place."""
+        i32 = [self._dev(np.asarray(a, np.int32))
+               for a in (page_table, positions, tokens, pos, write_slot,
+                         chunk_len)]
+        logits, seg, pool = vlm.llm_verify_step_paged(
             self.params, self._gen_pcfg, pool, *i32)
         return _host(logits), _host(seg), pool
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.lisa7b import LISAPipelineConfig
+from repro_torch.core.paging import TRASH_PAGE
 from repro_torch.models import stack
 from repro_torch.models.common import (cache_mask, causal_mask, fan_in_init,
                                        gelu, linear, normal_init)
@@ -183,7 +184,7 @@ def _llm_trunk(params: dict, pcfg: LISAPipelineConfig,
 def _llm_outputs(params: dict, x_last: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Answer logits + <SEG> embedding from the hidden state at one
-    position (B, d_llm)."""
+    position (B, d_llm), or at every chunk position (B, C, d_llm)."""
     answer_logits = linear(x_last, params["llm"]["answer_head"])
     seg = linear(x_last, params["seg_proj"])
     return answer_logits, seg
@@ -318,6 +319,57 @@ def llm_decode_step_paged(params: dict, pcfg: LISAPipelineConfig,
                                      page_table, write_page, write_off, mask)
     x = stack.apply_norm(x, p["norm"], llm)
     answer_logits, seg = _llm_outputs(params, x[:, -1])
+    return answer_logits, seg, {"groups": [kv]}
+
+
+def llm_verify_step_paged(params: dict, pcfg: LISAPipelineConfig,
+                          pool: Dict, page_table: torch.Tensor,
+                          positions: torch.Tensor, tokens: torch.Tensor,
+                          pos: torch.Tensor, write_slot: torch.Tensor,
+                          chunk_len: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """One speculative verify step: a chunk of C tokens per row (the row's
+    last accepted token, then drafted continuations) scored through the
+    serving model in one paged multi-token pass.
+
+    pool/page_table/positions as in ``llm_decode_step_paged`` (positions
+    is not written: the caller owns it); tokens (B, C) int occupying
+    virtual slots ``write_slot .. write_slot+C-1`` at positions
+    ``pos .. pos+C-1`` (both (B,) starts); chunk_len (B,) the number of
+    real leading entries. Pad entries write their k/v to the trash page,
+    record no position, and give logits the caller ignores. Chunk token i
+    attends [cache; chunk tokens <= i]. Returns (answer_logits (B, C, V),
+    seg (B, C, d_sam), pool); the pool is updated IN PLACE. Attention runs
+    the paged verify kernel when ``pcfg.llm.use_flash_decode`` is set."""
+    llm = pcfg.llm
+    p = params["llm"]
+    B, C = tokens.shape
+    page = pool["groups"][0]["k"].shape[2]
+    n_slots = positions.shape[1]
+    x = p["embed"][tokens.long()].to(llm.adtype)
+    dev = x.device
+    offs = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    valid = offs < chunk_len.to(dev, torch.int32)[:, None]
+    pos_c = pos.to(dev, torch.int32)[:, None] + offs             # (B, C)
+    ws = write_slot.to(dev, torch.int32)[:, None] + offs         # (B, C)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, C)
+    # only the real entries inside the row record a position (the
+    # reference scatters the rest out of bounds, where JAX drops them)
+    keep = valid & (ws < n_slots)
+    pos_arr = positions.clone()
+    pos_arr[rows[keep], ws[keep].long()] = pos_c[keep]
+    mask = cache_mask(pos_arr[:, None, :], pos_c[:, :, None],
+                      llm.sliding_window)                        # (B, C, W)
+    ws_in = ws.clamp(max=n_slots - 1).long()
+    write_page = torch.where(valid, page_table[rows, ws_in // page].long(),
+                             TRASH_PAGE)
+    write_off = ws_in % page
+    spec = stack.layer_groups(llm)[0]
+    x, kv = stack.group_verify_paged(p["groups"][0], llm, spec, x, pos_c,
+                                     pool["groups"][0], page_table,
+                                     write_page, write_off, mask)
+    x = stack.apply_norm(x, p["norm"], llm)
+    answer_logits, seg = _llm_outputs(params, x)
     return answer_logits, seg, {"groups": [kv]}
 
 

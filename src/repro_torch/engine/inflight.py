@@ -21,9 +21,18 @@ default; ``QoSScheduler`` adds classes, weighted-fair pops and preemption,
 which parks a victim (pages rolled back, tokens carried along) that later
 resumes token-exactly by replaying them.
 
-Speculative decoding (``spec``), the metrics registry, the stage profiler
-and the cost ledger are not ported yet (ROADMAP.md, Queue 1): passing any
-of them raises.
+With a ``SpeculativeConfig`` (``spec``) the decoder runs the draft/verify
+loop (``engine.speculative``): each step first lets the ``DraftModel``
+propose k tokens per speculating row, then scores every row's chunk (its
+last accepted token plus the drafts; plain rows a chunk of one) in one
+paged multi-token pass, ``cloud_verify_rows``. Rows advance by 1..k+1
+tokens a step; decode pages are allocated ahead for the draft overhang and
+roll back past the accepted length (``PagePool.grow_to``/``rollback_to``).
+Output stays token-exact with the plain path: a draft is kept only where
+it equals the serving model's own greedy pick.
+
+The metrics registry, the stage profiler and the cost ledger are not
+ported yet (ROADMAP.md, Queue 1): passing any of them raises.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ from repro_torch.core.paging import (TRASH_PAGE, PagePool, pages_for,
 from repro_torch.engine.faults import CloudStageError
 from repro_torch.engine.observability import Tracer
 from repro_torch.engine.scheduler import FifoScheduler
+from repro_torch.engine.speculative import (DraftModel, SpecStats,
+                                            SpeculativeConfig, greedy_accept)
 
 _ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1"
 
@@ -52,6 +63,7 @@ class _PendingRequest:
     query: np.ndarray
     on_done: Callable[[Dict[str, Any]], None]
     operator_id: str = ""
+    speculative: Optional[bool] = None   # None -> decoder default
     # scheduling state (see engine.scheduler)
     priority: int = 0                 # strict band; higher admits first
     deadline: Optional[float] = None  # mission-clock expiry
@@ -73,6 +85,7 @@ class _SlotState:
     prefix_ids: Tuple[int, ...]       # shared prefix pages (one ref held)
     private_ids: List[int]            # this slot's decode pages
     prefix_hit: bool
+    speculative: bool = False         # drafting enabled for this row
     seg: Optional[np.ndarray] = None  # <SEG> state once the final token fed
     steps_done: int = 0
     batch_acc: int = 0                # sum of co-active slots over steps
@@ -92,15 +105,16 @@ class InflightDecoder:
 
     def __init__(self, executor, slots: int = 8,
                  pool: Optional[PagePool] = None,
-                 spec: Optional[Any] = None,
+                 spec: Optional[SpeculativeConfig] = None,
+                 spec_gate: Optional[Callable[[SpecStats], bool]] = None,
+                 spec_prefix_rows: Optional[Dict[Any, Any]] = None,
                  scheduler: Optional[Any] = None,
                  clock: Optional[Callable[[], float]] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[Any] = None,
                  profiler: Optional[Any] = None,
                  cost: Optional[Any] = None):
-        for name, value in (("speculative decoding (spec)", spec),
-                            ("the metrics registry (metrics)", metrics),
+        for name, value in (("the metrics registry (metrics)", metrics),
                             ("the stage profiler (profiler)", profiler),
                             ("the cost ledger (cost)", cost)):
             if value is not None:
@@ -118,6 +132,14 @@ class InflightDecoder:
             raise ValueError(
                 f"pool page_size {self.pool.page_size} != executor "
                 f"page_size {executor.page_size}")
+        # speculative decoding: config + the policy's drafting gate; the
+        # DraftModel is built lazily once the prefix geometry is known
+        self.spec = spec
+        self.spec_gate = spec_gate or (lambda stats: True)
+        self.spec_stats = SpecStats()
+        # draft prefill rows shared across decoders (None -> private)
+        self.spec_prefix_rows = spec_prefix_rows
+        self.draft: Optional[DraftModel] = None
         self.active: Dict[int, _SlotState] = {}
         self.qlen: Optional[int] = None
         # per-slot paging state, shaped once qlen is known
@@ -159,10 +181,16 @@ class InflightDecoder:
     def submit(self, seq_id: int, intent: Intent, packet: pk.Packet, query,
                on_done: Callable[[Dict[str, Any]], None],
                operator_id: str = "",
+               speculative: Optional[bool] = None,
                priority: int = 0,
                deadline: Optional[float] = None,
                t_submit: Optional[float] = None) -> None:
-        """``priority``/``deadline``/``t_submit`` feed the scheduler:
+        """``speculative``: per-request drafting override. None follows
+        the decoder (drafting iff it has a ``SpeculativeConfig``); False
+        keeps the row plain on a speculating decoder (plain and
+        speculating rows share the verify batch).
+
+        ``priority``/``deadline``/``t_submit`` feed the scheduler:
         strict band, mission-clock expiry (expired items resolve
         ``failure="deadline"`` before paying a prefill), and the enqueue
         timestamp. A bounded scheduler may shed the request here:
@@ -179,7 +207,8 @@ class InflightDecoder:
                 f"decoder serves qlen={self.qlen}, got {query.shape[-1]}")
         now = self._clock()
         item = _PendingRequest(seq_id, intent, packet, query, on_done,
-                               operator_id, priority=int(priority),
+                               operator_id, speculative=speculative,
+                               priority=int(priority),
                                deadline=deadline,
                                t_enqueue=t_submit if t_submit is not None
                                else now)
@@ -309,7 +338,13 @@ class InflightDecoder:
         except Exception:
             self.pool.release(entry.page_ids)
             raise
-        private = self.pool.alloc(self.n_private_pages)
+        speculative = (self.spec is not None
+                       and item.speculative is not False)
+        # speculating rows allocate decode pages lazily per verify chunk
+        # (grown ahead of acceptance, rolled back on rejection); plain rows
+        # take the whole answer's pages up front
+        private = ([] if speculative
+                   else self.pool.alloc(self.n_private_pages))
         slot = min(set(range(self.slots)) - set(self.active))
         if self.page_tables is None:
             n_pages = self.n_prefix_pages + self.n_private_pages
@@ -317,15 +352,24 @@ class InflightDecoder:
                                        TRASH_PAGE, np.int32)
             self.positions = np.full((self.slots, self.width), -1,
                                      np.int32)
-        self.page_tables[slot] = list(entry.page_ids) + private
+        self.page_tables[slot] = (list(entry.page_ids) + private
+                                  + [TRASH_PAGE] * (self.n_private_pages
+                                                    - len(private)))
         self.positions[slot] = -1
         self.positions[slot, :self.n_prefix_pages * page] = \
             prefix_positions(self.prefix_len, self.n_prefix_pages, page)
+        if speculative:
+            if self.draft is None:
+                self.draft = self._make_draft()
+            # the serving prefix store's key: repeat-prefix frames skip the
+            # draft prefill too (honouring the pool's sharing knob)
+            self.draft.admit(slot, ctx, item.query,
+                             key=key if self.pool.share_prefixes else None)
         st = _SlotState(
             req=item, tokens=[int(np.argmax(entry.logits0[0]))],
             logits0=entry.logits0, feats=feats, pos=self.prefix_len,
             joined_step=self.step_idx, prefix_ids=entry.page_ids,
-            private_ids=private, prefix_hit=hit)
+            private_ids=private, prefix_hit=hit, speculative=speculative)
         if item.resume_tokens:
             # a parked victim resumes from its prefix: token 0 re-emerges
             # from the prefix logits, the rest replay through the decode
@@ -352,17 +396,47 @@ class InflightDecoder:
                 return True
         return False
 
+    def _make_draft(self) -> DraftModel:
+        cfg = self.spec
+        return DraftModel(
+            cfg.draft_params or self.executor.params,
+            cfg.draft_pcfg or self.executor.pcfg,
+            slots=self.slots, prefix_len=self.prefix_len,
+            max_new_tokens=self.T, draft_tokens=cfg.draft_tokens,
+            flash_decode=getattr(self.executor, "flash_decode", False),
+            prefix_rows=self.spec_prefix_rows,
+            prefix_cap=self.pool.max_prefixes,
+            fns_factory=getattr(self.executor, "draft_fns", None),
+            device=self.executor.device)
+
     # ---- the lockstep decode step ----
 
     def step(self) -> int:
-        """Advance every live slot one token (no-op when idle); returns
-        the number of requests that finished on this step."""
+        """Advance every live slot (no-op when idle); returns the number
+        of requests that finished on this step. Plain rows advance one
+        token; speculating rows advance by however many drafted tokens the
+        serving model accepts (1..k+1), sharing one verify batch."""
         if not self.active:
             return 0
+        draft_rows = {}
+        if self.spec is not None and self.draft is not None:
+            # resumed rows replay their parked tokens through the plain
+            # path first; they rejoin drafting once the replay drains
+            candidates = {s: st for s, st in self.active.items()
+                          if st.speculative and len(st.tokens) < self.T
+                          and not st.replay}
+            if candidates and self.spec_gate(self.spec_stats):
+                draft_rows = candidates
+            elif candidates:
+                self.spec_stats.disabled_steps += 1
+        if draft_rows:
+            return self._step_verify(draft_rows)
         return self._step_plain()
 
     def _step_plain(self) -> int:
-        """One single-token decode step over all live rows."""
+        """One single-token decode step over all live rows (also serves
+        speculating rows whose drafting the policy vetoed, and rows that
+        only need their final <SEG> read)."""
         base = self.n_prefix_pages * self.pool.page_size
         toks = np.zeros((self.slots, 1), np.int32)
         # free rows decode garbage through the trash page (their page
@@ -370,6 +444,8 @@ class InflightDecoder:
         pos = np.zeros((self.slots,), np.int32)
         write_slot = np.zeros((self.slots,), np.int32)
         for s, st in self.active.items():
+            # speculating rows manage decode pages lazily: cover the slot
+            # being written (a no-op for plain rows)
             self._grow_private(s, st, len(st.tokens))
             toks[s, 0] = st.tokens[-1]
             pos[s] = st.pos
@@ -412,10 +488,101 @@ class InflightDecoder:
             self.admit()              # freed slots let queued requests in
         return finished
 
+    def _step_verify(self, draft_rows: Dict[int, _SlotState]) -> int:
+        """One speculative verify step: drafting rows carry their last
+        accepted token plus k drafts, every other live row a chunk of one;
+        a single paged multi-token pass scores them all, greedy acceptance
+        advances each row, and decode pages past each row's accepted
+        length roll back."""
+        k = self.spec.draft_tokens
+        C = k + 1
+        base = self.n_prefix_pages * self.pool.page_size
+        proposals = self.draft.draft(
+            {s: st.tokens for s, st in draft_rows.items()}, k,
+            budgets={s: self.T - len(st.tokens)
+                     for s, st in draft_rows.items()})
+        toks = np.zeros((self.slots, C), np.int32)
+        pos = np.zeros((self.slots,), np.int32)
+        write_slot = np.zeros((self.slots,), np.int32)
+        clens = np.ones((self.slots,), np.int32)
+        n_drafted: Dict[int, int] = {}
+        for s, st in self.active.items():
+            n = len(st.tokens)
+            toks[s, 0] = st.tokens[-1]
+            pos[s] = st.pos
+            write_slot[s] = base + n - 1
+            if s in proposals:
+                j = min(k, self.T - n)        # never draft past the answer
+                n_drafted[s] = j
+                toks[s, 1:1 + j] = proposals[s][:j]
+                clens[s] = 1 + j
+            # cover the chunk (the draft overhang too) with decode pages
+            self._grow_private(s, st, n - 1 + int(clens[s]))
+        try:
+            logits, seg, self.pool.kv = self.executor.cloud_verify_rows(
+                self.pool.kv, self.page_tables, self.positions, toks, pos,
+                write_slot, clens)
+        except CloudStageError as e:
+            return self._fail_step(e)
+        live = len(self.active)
+        self.n_steps += 1
+        self.n_slot_steps += live
+        now = self._clock()
+        finished = 0
+        for s, st in list(self.active.items()):
+            n = len(st.tokens)
+            j = n_drafted.get(s, 0)
+            # greedy[i]: the serving model's own pick after chunk token i
+            greedy = np.argmax(logits[s, :1 + j], axis=-1)
+            m = greedy_accept(toks[s, 1:1 + j], greedy) if j else 0
+            # chunk tokens 0..m are now committed: the real last token
+            # plus m accepted drafts
+            for i in range(m + 1):
+                self.positions[s, base + n - 1 + i] = st.pos + i
+            new = [int(g) for g in greedy[:m + 1]][:self.T - n]
+            st.tokens.extend(new)
+            st.pos += len(new)
+            if st.replay:
+                # a resumed row riding someone else's verify batch advances
+                # by the model's own greedy picks, identical to the parked
+                # tokens, so its replay drains in step
+                for _ in new:
+                    if st.replay:
+                        st.replay.popleft()
+                        self.scheduler.note_replayed()
+            st.steps_done += 1
+            st.batch_acc += live
+            if self.tracer.enabled:
+                self.tracer.point(st.req.seq_id, "verify_step", now,
+                                  slot=s, step=self.step_idx,
+                                  drafted=j, accepted=int(m))
+            if j:
+                # accepted drafts the draft model fed itself (d_1..d_{j-1};
+                # the j-th came off the last feed's logits) already sit in
+                # its cache at their committed positions
+                self.draft.commit(s, n + min(m, j - 1))
+                self.spec_stats.note_chunk(j, m, len(new))
+                # rollback: free decode pages past the accepted length
+                dropped = self.pool.rollback_to(st.private_ids, n + m)
+                if dropped:
+                    self.spec_stats.pages_rolled_back += len(dropped)
+                    lo = self.n_prefix_pages + len(st.private_ids)
+                    self.page_tables[s, lo:lo + len(dropped)] = TRASH_PAGE
+            if n - 1 + m >= self.T - 1:
+                # the answer's final token was fed and accepted in this
+                # chunk: its hidden state is the <SEG> read
+                st.seg = seg[s, self.T - n]
+                finished += self._finish_slot(s, st)
+        self.step_idx += 1
+        if finished:
+            self.admit()
+        return finished
+
     def _grow_private(self, slot: int, st: _SlotState, tokens: int) -> None:
         """Extend one row's private decode pages to cover ``tokens``
-        virtual slots and map the fresh pages into its page table (a
-        no-op for rows whose pages were allocated at admission)."""
+        virtual slots (for speculating rows, ahead of acceptance) and map
+        the fresh pages into its page table (a no-op for plain rows, whose
+        pages were allocated at admission)."""
         lo = self.n_prefix_pages + len(st.private_ids)
         fresh = self.pool.grow_to(st.private_ids, tokens)
         if fresh:
@@ -469,7 +636,7 @@ class InflightDecoder:
             "batch_size": st.batch_acc / max(1, st.steps_done),
             "joined_step": st.joined_step,
             "prefix_hit": st.prefix_hit,
-            "speculative": False,
+            "speculative": st.speculative,
             "preemptions": st.req.resumes,
             "queue_wait": st.req.queue_wait,
             "t_first_token": st.req.t_first_token,
@@ -487,6 +654,8 @@ class InflightDecoder:
         self.pool.release(st.private_ids)
         self.page_tables[slot] = TRASH_PAGE
         self.positions[slot] = -1
+        if st.speculative and self.draft is not None:
+            self.draft.release(slot)
         del self.active[slot]
 
     def _park_slot(self, slot: int, st: _SlotState) -> None:
@@ -505,6 +674,8 @@ class InflightDecoder:
         self.pool.release(st.prefix_ids)
         self.page_tables[slot] = TRASH_PAGE
         self.positions[slot] = -1
+        if st.speculative and self.draft is not None:
+            self.draft.release(slot)
         del self.active[slot]
         item = st.req
         item.resume_tokens = list(st.tokens)

@@ -11,8 +11,8 @@ Libraries are built at first use from the sources in the checkout, into
 file name carries a hash of the source, the headers beside it and the
 flags, so an edited kernel is rebuilt. The compiler log (with ptxas'
 register and shared-memory report) is kept beside the library as
-``<name>-<hash>.log``. ``build`` starts one ``nvcc`` per missing library,
-all at once.
+``<name>-<hash>.log``. ``build`` runs one ``nvcc`` per missing library,
+all started together, each under its own time limit.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -31,6 +32,8 @@ SOURCES: Dict[str, Path] = {
         _KERNELS / "decode_attention" / "csrc" / "decode_attention.cu",
     "paged_decode_attention":
         _KERNELS / "decode_attention" / "csrc" / "paged_decode_attention.cu",
+    "paged_verify_attention":
+        _KERNELS / "decode_attention" / "csrc" / "paged_verify_attention.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,6 +62,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _compile(nvcc: str, name: str) -> bool:
+    """One ``nvcc`` run for ``name``, its log beside the library; the
+    library appears under its final name only once it is complete."""
+    out = library_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    with open(out.with_suffix(".log"), "w") as log:
+        try:
+            rc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                 str(SOURCES[name])], stdout=log,
+                                stderr=subprocess.STDOUT,
+                                timeout=NVCC_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = -1
+    if rc == 0:
+        os.replace(tmp, out)
+    return rc == 0
+
+
 def build(names: Optional[Iterable[str]] = None) -> float:
     """Compile every missing library of ``names`` (default: all), one
     ``nvcc`` each, all started together. Returns the seconds the builds
@@ -71,28 +92,9 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    jobs = []
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        log = open(out.with_suffix(".log"), "w")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                                 str(SOURCES[name])], stdout=log,
-                                stderr=subprocess.STDOUT)
-        jobs.append((name, out, tmp, log, proc))
-    failed = []
-    for name, out, tmp, log, proc in jobs:
-        try:
-            rc = proc.wait(timeout=NVCC_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = -1
-        log.close()
-        if rc == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(name)
+    with ThreadPoolExecutor(len(todo)) as pool:
+        ok = list(pool.map(lambda n: _compile(nvcc, n), todo))
+    failed = [n for n, good in zip(todo, ok) if not good]
     if failed:
         name = failed[0]
         raise RuntimeError(f"nvcc failed for {failed}; log of {name}:\n"

@@ -56,8 +56,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float scale) {
   const int b = blockIdx.y;
   const RingRows rows{b, k_sb, k_st, v_sb, v_st};
-  attend_row<T, HD>(q, k, v, bias + (long long)b * bias_sb, out, H, K, W,
-                    rows, scale);
+  attend<T, HD>(q, k, v, out, W, rows,
+                decode_heads(H, K, bias + (long long)b * bias_sb), scale);
 }
 
 template <typename T>

@@ -42,21 +42,6 @@ namespace {
 
 using namespace flash_decode;
 
-// Slot t of a row whose page ids sit in `table` (shared memory).
-struct PagedRows {
-  const int* table;
-  int page;
-  long long k_sp, k_ss, v_sp, v_ss;
-  __device__ __forceinline__ long long k(int t) const {
-    const int pg = t / page;
-    return (long long)table[pg] * k_sp + (long long)(t - pg * page) * k_ss;
-  }
-  __device__ __forceinline__ long long v(int t) const {
-    const int pg = t / page;
-    return (long long)table[pg] * v_sp + (long long)(t - pg * page) * v_ss;
-  }
-};
-
 // q (B, H, HD) contiguous; k_pool/v_pool (P, page, K, HD) with unit stride
 // over HD and stride HD over K; table (B, n_pages) int32 with unit stride
 // over pages; bias (B, n_pages * page) float32 with unit stride over slots;
@@ -75,13 +60,10 @@ paged_decode_attention_kernel(const T* __restrict__ q,
                               float scale) {
   extern __shared__ int sm_table[];
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < n_pages; i += blockDim.x) {
-    sm_table[i] = table[(long long)b * table_sb + i];
-  }
-  __syncthreads();
+  stage_table(sm_table, table + (long long)b * table_sb, n_pages);
   const PagedRows rows{sm_table, page, k_sp, k_ss, v_sp, v_ss};
-  attend_row<T, HD>(q, k_pool, v_pool, bias + (long long)b * bias_sb, out, H,
-                    K, n_pages * page, rows, scale);
+  attend<T, HD>(q, k_pool, v_pool, out, n_pages * page, rows,
+                decode_heads(H, K, bias + (long long)b * bias_sb), scale);
 }
 
 template <typename T>

@@ -1,13 +1,15 @@
 """Flash-decode attention: q (B,H,hd) against a contiguous (B,W,K,hd) KV
 cache (``decode_attention``) or a shared (P,page,K,hd) page pool addressed
-through a per-row page table (``paged_decode_attention``), with an
+through a per-row page table (``paged_decode_attention``), and C chunk
+queries per row against the page pool with a per-query bias
+(``paged_verify_attention``, the speculative verify step), with an
 additive float32 slot bias. Port of
 ``repro/kernels/decode_attention/ops.py``.
 
 On CUDA tensors each wrapper launches its hand-written Hopper kernel
-(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``) or
-raises; on CPU tensors it returns its plain version (``ref.py``). There is
-no other path.
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``,
+``csrc/paged_verify_attention.cu``) or raises; on CPU tensors it returns
+its plain version (``ref.py``). There is no other path.
 """
 from __future__ import annotations
 
@@ -17,19 +19,21 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_ref, paged_decode_attention_ref)
+    decode_attention_ref, paged_decode_attention_ref,
+    paged_verify_attention_ref)
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the paged kernel stages a row's page table in shared memory beside the
-# 33,280 bytes of its merge buffers (hd=128), within the default 48 KiB
+# the paged kernels stage a row's page table in shared memory beside the
+# 33,280 bytes of their merge buffers (hd=128), within the default 48 KiB
 MAX_PAGES = 2048
 
 # kernel launches since the last reset, one plain counter per kernel
 # (chip_smoke.py sets them to 0 before the main path and reads them after)
 launches = 0
 paged_launches = 0
+verify_launches = 0
 
 # the C signature of each kernel's launch function (csrc/*.cu): pointers
 # and the stream as c_void_p, so ctypes does not cut them to 32 bits
@@ -39,6 +43,9 @@ _ARGTYPES = {
                          + [ctypes.c_float, ctypes.c_void_p]),
     "paged_decode_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                + [ctypes.c_longlong] * 6
+                               + [ctypes.c_float, ctypes.c_void_p]),
+    "paged_verify_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                               + [ctypes.c_longlong] * 7
                                + [ctypes.c_float, ctypes.c_void_p]),
 }
 _launch_fns = {}
@@ -120,13 +127,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_paged(q, k_pool, v_pool, page_table, bias) -> None:
-    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
-            or page_table.dim() != 2:
-        raise ValueError(f"want q (B,H,hd), k/v pools (P,page,K,hd) and "
-                         f"page_table (B,n); got {tuple(q.shape)}, "
-                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}, "
-                         f"{tuple(page_table.shape)}")
-    B, H, hd = q.shape
+    """What the paged kernels take. q (B,H,hd) with bias (B, n*page), or
+    q (B,C,H,hd) with a per-query bias (B, C, n*page)."""
+    chunk = q.dim() == 4
+    if q.dim() not in (3, 4) or k_pool.dim() != 4 \
+            or k_pool.shape != v_pool.shape or page_table.dim() != 2:
+        raise ValueError(f"want q (B,H,hd) or (B,C,H,hd), k/v pools "
+                         f"(P,page,K,hd) and page_table (B,n); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}, {tuple(page_table.shape)}")
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     P, page, K, hdk = k_pool.shape
     n = page_table.shape[1]
     if page_table.shape[0] != B or hdk != hd or H % K != 0 or n < 1:
@@ -140,11 +150,12 @@ def _check_paged(q, k_pool, v_pool, page_table, bias) -> None:
         raise ValueError(f"page_table must be int32 with unit stride over "
                          f"pages; got {page_table.dtype} "
                          f"{page_table.stride()}")
-    if tuple(bias.shape) != (B, n * page) or bias.dtype != torch.float32 \
-            or bias.stride(1) != 1:
-        raise ValueError(f"bias must be float32 (B, n*page) = "
-                         f"{(B, n * page)} with unit stride; got "
-                         f"{bias.dtype} {tuple(bias.shape)}")
+    want = (B, q.shape[1], n * page) if chunk else (B, n * page)
+    if tuple(bias.shape) != want or bias.dtype != torch.float32 \
+            or bias.stride(-1) != 1:
+        raise ValueError(f"bias must be float32 {want} with unit stride "
+                         f"over slots; got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
     if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise ValueError(f"q/k/v must share one of {list(_DTYPE_CODES)}; "
@@ -172,6 +183,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
                                           bias)
+    if q.dim() != 3:
+        raise ValueError(f"want q (B,H,hd); got {tuple(q.shape)}")
     _check_paged(q, k_pool, v_pool, page_table, bias)
     B, H, hd = q.shape
     page, K = k_pool.shape[1], k_pool.shape[2]
@@ -189,4 +202,41 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
     paged_launches += 1
+    return out
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """q (B,C,H,hd), C chunk queries per row; k_pool/v_pool (P,page,K,hd),
+    read in place; page_table (B,n) int32, every entry a valid page id;
+    bias (B, C, n*page) additive per query over the row's virtual
+    sequence (slot validity and causal-within-chunk). -> (B,C,H,hd).
+    Column 0 of a C=1 call is ``paged_decode_attention``'s answer."""
+    global verify_launches
+    device = _device("paged_verify_attention", q, k_pool, v_pool,
+                     page_table, bias)
+    if device.type == "cpu":
+        return paged_verify_attention_ref(q, k_pool, v_pool, page_table,
+                                          bias)
+    if q.dim() != 4:
+        raise ValueError(f"want q (B,C,H,hd); got {tuple(q.shape)}")
+    _check_paged(q, k_pool, v_pool, page_table, bias)
+    B, C, H, hd = q.shape
+    page, K = k_pool.shape[1], k_pool.shape[2]
+    n = page_table.shape[1]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _kernel("paged_verify_attention")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, C, H, K, n, page, hd,
+            k_pool.stride(0), k_pool.stride(1), v_pool.stride(0),
+            v_pool.stride(1), page_table.stride(0), bias.stride(0),
+            bias.stride(1), 1.0 / hd ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"paged_verify_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    verify_launches += 1
     return out

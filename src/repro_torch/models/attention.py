@@ -1,5 +1,6 @@
-"""GQA attention: full-sequence (encoders, prefill) and single-token
-decode against a ring KV cache or a shared KV page pool (port of
+"""GQA attention: full-sequence (encoders, prefill), single-token decode
+against a ring KV cache or a shared KV page pool, and multi-token
+(speculative verify) decode against the page pool (port of
 ``repro/models/attention.py``).
 
 Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, or, for
@@ -180,6 +181,46 @@ def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, {"k": k_pool, "v": v_pool}
 
 
+def gqa_verify_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, pool: dict,
+                     page_table: torch.Tensor, write_page: torch.Tensor,
+                     write_off: torch.Tensor,
+                     mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Multi-token decode against the shared KV page pool, the speculative
+    verify step.
+
+    x (B, C, d), each row's chunk of C tokens (last accepted token and
+    drafted continuations, ascending positions); positions (B, C);
+    write_page/write_off (B, C) the page slot receiving each chunk token's
+    k/v (pad tokens target the trash page, where duplicate writes do not
+    matter: no trash slot carries a valid position); mask (B, C,
+    n_pages*page) additive per query, carrying slot validity and
+    causal-within-chunk. The chunk's k/v are written IN PLACE before
+    attention, so chunk token i attends chunk tokens <= i through the pool
+    as C successive decode steps would. Returns (out, pool)."""
+    _check_supported(cfg)
+    B, C, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, cfg, x)
+    q = _rope_q_or_k(cfg, q, positions)
+    k = _rope_q_or_k(cfg, k, positions)
+    k_pool, v_pool = pool["k"], pool["v"]
+    k_pool[write_page, write_off] = k
+    v_pool[write_page, write_off] = v
+    if cfg.use_flash_decode:
+        from repro_torch.kernels.decode_attention import ops as decode_ops
+        out = decode_ops.paged_verify_attention(q, k_pool, v_pool,
+                                                page_table, mask)
+    else:
+        n, page = page_table.shape[1], k_pool.shape[1]
+        idx = page_table.long()
+        kg = k_pool[idx].reshape(B, n * page, *k_pool.shape[2:])
+        vg = v_pool[idx].reshape(B, n * page, *v_pool.shape[2:])
+        out = _sdpa(q, kg, vg, mask, 1.0 / math.sqrt(hd))
+    out = linear(out.reshape(B, C, H * hd), p["wo"])
+    return out, {"k": k_pool, "v": v_pool}
+
+
 def gqa_empty_cache(cfg: ModelConfig, batch: int, width: int,
                     device=None) -> dict:
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -205,4 +246,12 @@ def attn_decode_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
     if cfg.attn_type == "mla":
         raise NotImplementedError(f"MLA attention is {_ROADMAP}")
     return gqa_decode_paged(p, cfg, x, positions, pool, page_table,
+                            write_page, write_off, mask)
+
+
+def attn_verify_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
+                      write_page, write_off, mask):
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    return gqa_verify_paged(p, cfg, x, positions, pool, page_table,
                             write_page, write_off, mask)

@@ -117,11 +117,11 @@ def _dense_block_decode(p, cfg, x, positions, cache, slot, mask):
 
 
 def _dense_block_decode_paged(p, cfg, x, positions, pool, page_table,
-                              write_page, write_off, mask):
-    h, c2 = attention.attn_decode_paged(p["attn"], cfg,
-                                        apply_norm(x, p["norm1"], cfg),
-                                        positions, pool, page_table,
-                                        write_page, write_off, mask)
+                              write_page, write_off, mask,
+                              attn_fn=attention.attn_decode_paged):
+    h, c2 = attn_fn(p["attn"], cfg, apply_norm(x, p["norm1"], cfg),
+                    positions, pool, page_table, write_page, write_off,
+                    mask)
     x = x + h
     x = x + moe_lib.dense_mlp(p["mlp"], cfg, apply_norm(x, p["norm2"], cfg))
     return x, c2
@@ -174,4 +174,24 @@ def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
                                          positions, layer_slice(pool, i),
                                          page_table, write_page, write_off,
                                          mask)
+    return x, pool
+
+
+def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
+                       x: torch.Tensor, positions: torch.Tensor, pool: dict,
+                       page_table: torch.Tensor, write_page: torch.Tensor,
+                       write_off: torch.Tensor, mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Multi-token (speculative verify) decode through one group against
+    the shared KV page pool: x (B, C, d) chunk tokens, positions /
+    write_page / write_off (B, C), mask (B, C, n_pages*page). The layer
+    loop of ``group_decode_paged`` with the multi-query attention body.
+    Returns (x, pool), the pool updated in place."""
+    _require_dense(spec)
+    for i in range(spec.count):
+        x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
+                                         positions, layer_slice(pool, i),
+                                         page_table, write_page, write_off,
+                                         mask,
+                                         attn_fn=attention.attn_verify_paged)
     return x, pool

@@ -233,3 +233,106 @@ def test_paged_kernel_argument_checks_raise(bad):
         kp = kp.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         ops._check_paged(q, kp, vp, pt, bias)
+
+
+# ---------------------------------------------------------------------------
+# paged_verify_attention: C chunk queries per row against the page pool
+# ---------------------------------------------------------------------------
+
+VERIFY_SHAPES = [(2, 4, 4, 2, 64, 9, 16, 3), (1, 3, 8, 8, 32, 5, 8, 4),
+                 (3, 2, 4, 1, 128, 12, 32, 2)]   # tests/test_kernels.py
+
+
+def _verify_inputs(B, C, H, K, hd, P, page, n, seed=0):
+    """Random pool and tables, and a per-query ragged validity bias, as
+    the reference's kernel test makes them."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, C, H, hd).astype(np.float32)
+    kp = rng.randn(P, page, K, hd).astype(np.float32)
+    vp = rng.randn(P, page, K, hd).astype(np.float32)
+    pt = rng.randint(0, P, (B, n)).astype(np.int32)
+    lens = rng.randint(1, n * page + 1, (B, C))
+    bias = np.where(np.arange(n * page)[None, None] < lens[..., None], 0.0,
+                    NEG_INF).astype(np.float32)
+    return q, kp, vp, pt, bias
+
+
+@pytest.mark.parametrize("B,C,H,K,hd,P,page,n", VERIFY_SHAPES)
+def test_verify_plain_matches_reference_and_pallas_fp32(B, C, H, K, hd, P,
+                                                        page, n):
+    arrs = _verify_inputs(B, C, H, K, hd, P, page, n)
+    out = ref.paged_verify_attention_ref(*_paged_torch(*arrs)).numpy()
+    assert out.shape == (B, C, H, hd)
+    np.testing.assert_allclose(
+        out, np.asarray(jref.paged_verify_attention_ref(*_paged_jax(*arrs))),
+        **FP32)
+    pallas = jops.paged_verify_attention(*_paged_jax(*arrs))
+    np.testing.assert_allclose(out, np.asarray(pallas), **FP32)
+
+
+def test_verify_idle_row_and_pad_queries_match_reference():
+    """Row 0 idle (every entry on the trash page 0, every query masked)
+    beside a live row whose chunk has two real entries and two pad
+    queries (which attend the cache up to their own position): finite,
+    the idle row the mean of v over its slots, and both rows as the
+    Pallas kernel computes them."""
+    B, C, H, K, hd, P, page, n = 2, 4, 4, 2, 64, 6, 16, 3
+    q, kp, vp, pt, bias = _verify_inputs(B, C, H, K, hd, P, page, n, seed=8)
+    pt[0] = 0
+    pt[1] = [1, 2, 3]
+    bias[0] = NEG_INF
+    # live row: 30 cached slots, chunk at slots 30.. (causal within chunk)
+    bias[1] = np.where(np.arange(n * page)[None] <= 30 + np.arange(C)[:, None],
+                       0.0, NEG_INF)
+    out = ref.paged_verify_attention_ref(*_paged_torch(q, kp, vp, pt,
+                                                       bias)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(
+        out, np.asarray(jops.paged_verify_attention(
+            *_paged_jax(q, kp, vp, pt, bias))), **FP32)
+    mean_v = np.repeat(vp[0].mean(axis=0), 2, axis=0)    # (H, hd), G = 2
+    for c in range(C):
+        np.testing.assert_allclose(out[0, c], mean_v, **FP32)
+
+
+def test_verify_single_query_equals_paged_decode():
+    """Column 0 of a C=1 verify call is the paged decode answer."""
+    q, kp, vp, pt, bias = _verify_inputs(2, 1, 4, 2, 64, 9, 16, 3, seed=9)
+    t = _paged_torch(q, kp, vp, pt, bias)
+    out = ops.paged_verify_attention(*t)
+    dec = ops.paged_decode_attention(t[0][:, 0], t[1], t[2], t[3],
+                                     t[4][:, 0])
+    np.testing.assert_allclose(out[:, 0].numpy(), dec.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_verify_cpu_tensors_take_the_plain_version_without_counting():
+    t = _paged_torch(*_verify_inputs(2, 3, 4, 2, 64, 9, 16, 3, seed=10))
+    before = (ops.launches, ops.paged_launches, ops.verify_launches)
+    out = ops.paged_verify_attention(*t)
+    assert (ops.launches, ops.paged_launches, ops.verify_launches) == before
+    assert torch.equal(out, ref.paged_verify_attention_ref(*t))
+    ops._check_paged(*t)              # what the CUDA path would accept
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.paged_verify_attention(*meta)
+
+
+@pytest.mark.parametrize("bad", ["bias_shape", "bias_stride", "table_dtype",
+                                 "dtype", "strides"])
+def test_verify_kernel_argument_checks_raise(bad):
+    """What the verify CUDA path refuses before it launches."""
+    q, kp, vp, pt, bias = _paged_torch(*_verify_inputs(
+        2, 3, 4, 2, 64, 9, 4, 3, seed=11))
+    if bad == "bias_shape":
+        bias = bias[:, :-1]
+    if bad == "bias_stride":
+        bias = bias.transpose(1, 2).contiguous().transpose(1, 2)
+    if bad == "table_dtype":
+        pt = pt.long()
+    if bad == "dtype":
+        vp = vp.to(torch.bfloat16)
+    if bad == "strides":
+        kp = kp.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        ops._check_paged(q, kp, vp, pt, bias)

@@ -17,6 +17,7 @@ import torch
 
 from repro.configs.lisa7b import CONFIG as J7B
 from repro.configs.lisa_mini import CONFIG as JP
+from repro.configs.lisa_nano import CONFIG as JNANO
 from repro.core import bottleneck as jbn
 from repro.core import intent as jintent
 from repro.core import lut as jlut
@@ -75,9 +76,9 @@ def _tlayer(tree, i):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["lisa-7b", "lisa-mini"])
+@pytest.mark.parametrize("name", ["lisa-7b", "lisa-mini", "lisa-nano"])
 def test_configs_match_field_for_field(name):
-    ref = J7B if name == "lisa-7b" else JP
+    ref = {"lisa-7b": J7B, "lisa-mini": JP, "lisa-nano": JNANO}[name]
     port = get_lisa_config(name)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert (port.sam_tokens, port.clip_tokens) == (ref.sam_tokens,
@@ -531,6 +532,144 @@ def test_llm_decode_step_paged(system, flash):
     _close(js, ts)
     for name in ("k", "v"):
         _close(jpool["groups"][0][name], tpool["groups"][0][name])
+
+
+C_VERIFY = 3
+
+
+def _verify_case(seed):
+    """The paged case as a verify step: row 0 a full chunk of C_VERIFY
+    tokens (its page table grown to cover the overhang), row 1 one real
+    entry and two pad entries, row 2 idle on the trash page."""
+    pool_k, pool_v, table, positions, _, pos, write_slot = _paged_case(seed)
+    table[0, 4] = 8
+    tokens = _rng(seed + 1).randint(0, TP.llm.vocab_size,
+                                    (3, C_VERIFY)).astype(np.int32)
+    chunk_len = np.array([C_VERIFY, 1, 1], np.int32)
+    return pool_k, pool_v, table, positions, tokens, pos, write_slot, \
+        chunk_len
+
+
+def _verify_layer_inputs(case):
+    """gqa/group inputs the way ``llm_verify_step_paged`` derives them."""
+    _, _, table, positions, _, pos, write_slot, chunk_len = case
+    B, W = positions.shape
+    offs = np.arange(C_VERIFY)[None]
+    valid = offs < chunk_len[:, None]
+    pos_c = (pos[:, None] + offs).astype(np.int32)
+    ws = write_slot[:, None] + offs
+    pos_arr = positions.copy()
+    for b, c in zip(*np.nonzero(valid)):
+        pos_arr[b, ws[b, c]] = pos_c[b, c]
+    mask = np.array(jc.cache_mask(pos_arr[:, None, :], pos_c[:, :, None]))
+    ws_in = np.minimum(ws, W - 1)
+    rows = np.arange(B)[:, None]
+    write_page = np.where(valid, table[rows, ws_in // PAGE], 0)
+    return pos_c, mask, write_page, ws_in % PAGE
+
+
+def _close_live(a, b, chunk_len, rows=(0, 1)):
+    """Valid chunk entries of the live rows only (pad and idle entries are
+    garbage the caller drops)."""
+    for r in rows:
+        _close(np.asarray(a)[r, :chunk_len[r]],
+               b[r, :chunk_len[r]].detach().numpy())
+
+
+def _close_pool(j, t):
+    """Every page but the trash page 0, where duplicate pad writes land in
+    an order neither framework fixes."""
+    _close(np.asarray(j)[:, 1:] if np.ndim(j) == 5 else np.asarray(j)[1:],
+           (t[:, 1:] if t.dim() == 5 else t[1:]).detach().numpy())
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_gqa_verify_paged(system, flash):
+    params, tparams, _, _ = system
+    case = _verify_case(30)
+    pool_k, pool_v, table, *_, chunk_len = case
+    pos_c, mask, write_page, write_off = _verify_layer_inputs(case)
+    jp = _layer(params["llm"]["groups"][0]["attn"], 1)
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 1)
+    x = _rng(31).randn(3, C_VERIFY, TP.llm.d_model).astype(np.float32)
+    jcfg = JP.llm.replace(use_flash_decode=flash)
+    tcfg = TP.llm.replace(use_flash_decode=flash)
+    jo, jpool = jattn.gqa_verify_paged(
+        jp, jcfg, x, pos_c, {"k": jnp.asarray(pool_k[0]),
+                             "v": jnp.asarray(pool_v[0])},
+        jnp.asarray(table), jnp.asarray(write_page), jnp.asarray(write_off),
+        jnp.asarray(mask))
+    tpool = {"k": torch.from_numpy(pool_k[0].copy()),
+             "v": torch.from_numpy(pool_v[0].copy())}
+    to, tpool2 = tattn.gqa_verify_paged(
+        tp, tcfg, torch.from_numpy(x), torch.from_numpy(pos_c), tpool,
+        torch.from_numpy(table), torch.from_numpy(write_page).long(),
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+    assert tpool2["k"] is tpool["k"]            # updated in place
+    _close_live(jo, to, chunk_len)
+    _close_pool(jpool["k"], tpool2["k"])
+    _close_pool(jpool["v"], tpool2["v"])
+
+
+def test_group_verify_paged(system):
+    params, tparams, _, _ = system
+    case = _verify_case(32)
+    pool_k, pool_v, table, *_, chunk_len = case
+    pos_c, mask, write_page, write_off = _verify_layer_inputs(case)
+    x = _rng(33).randn(3, C_VERIFY, TP.llm.d_model).astype(np.float32)
+    spec_j, spec_t = jstack.layer_groups(JP.llm)[0], tstack.layer_groups(
+        TP.llm)[0]
+    jcfg = JP.llm.replace(use_flash_decode=True)
+    tcfg = TP.llm.replace(use_flash_decode=True)
+    jx, jpool = jstack.group_verify_paged(
+        params["llm"]["groups"][0], jcfg, spec_j, x, pos_c,
+        {"k": jnp.asarray(pool_k), "v": jnp.asarray(pool_v)},
+        jnp.asarray(table), jnp.asarray(write_page), jnp.asarray(write_off),
+        jnp.asarray(mask))
+    tpool = {"k": torch.from_numpy(pool_k.copy()),
+             "v": torch.from_numpy(pool_v.copy())}
+    tx, tpool = tstack.group_verify_paged(
+        tparams["llm"]["groups"][0], tcfg, spec_t, torch.from_numpy(x),
+        torch.from_numpy(pos_c), tpool, torch.from_numpy(table),
+        torch.from_numpy(write_page).long(),
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+    _close_live(jx, tx, chunk_len)
+    _close_pool(jpool["k"], tpool["k"])
+    _close_pool(jpool["v"], tpool["v"])
+    with pytest.raises(NotImplementedError):
+        tstack.group_verify_paged({}, tcfg, tstack.GroupSpec("moe", 1), tx,
+                                  None, tpool, None, None, None, None)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_llm_verify_step_paged(system, flash):
+    """One full row, one padded row and an idle row on the same pool,
+    tables and positions as the reference: valid logits and seg within
+    fp32 tolerance, the written pages equal, and the caller's positions
+    array untouched (on CPU a tensor made from numpy shares its memory)."""
+    params, tparams, _, _ = system
+    case = _verify_case(34)
+    pool_k, pool_v, table, positions, tokens, pos, write_slot, chunk_len = \
+        case
+    jcfg = dataclasses.replace(JP, llm=JP.llm.replace(use_flash_decode=flash))
+    tcfg = dataclasses.replace(TP, llm=TP.llm.replace(use_flash_decode=flash))
+    jl, js, jpool = jv.llm_verify_step_paged(
+        params, jcfg, {"groups": [{"k": jnp.asarray(pool_k),
+                                   "v": jnp.asarray(pool_v)}]},
+        table, positions, tokens, pos, write_slot, chunk_len)
+    host = positions.copy()
+    tpool = {"groups": [{"k": torch.from_numpy(pool_k.copy()),
+                         "v": torch.from_numpy(pool_v.copy())}]}
+    tl, ts, tpool = tv.llm_verify_step_paged(
+        tparams, tcfg, tpool, *(torch.from_numpy(a) for a in (
+            table, positions, tokens, pos, write_slot, chunk_len)))
+    np.testing.assert_array_equal(positions, host)
+    assert tuple(tl.shape) == (3, C_VERIFY, TP.llm.vocab_size)
+    assert tuple(ts.shape) == (3, C_VERIFY, TP.sam.d_model)
+    _close_live(jl, tl, chunk_len)
+    _close_live(js, ts, chunk_len)
+    for name in ("k", "v"):
+        _close_pool(jpool["groups"][0][name], tpool["groups"][0][name])
 
 
 # ---------------------------------------------------------------------------
