@@ -50,6 +50,23 @@ Phases, each fatal on failure:
      verify launch against its plain version on its own inputs, another
      puts the plain version in the kernel's place; one speculative step is
      timed and one traced.
+ 10. (split) on an executor with ``llm.use_flash=True`` that shares the
+     serving weights, each run's launch counters set to 0 just before it:
+     (a) phase 5's requests through the microbatch scheduler: one flash
+     launch per layer and microbatch, tokens equal to phase 5's, logits
+     and masks within SDPA_PATH_RTOL of it, and within PATH_RTOL of a
+     replay with the flash kernel's plain version in its place; (b) phase
+     8's schedule through ``InflightDecoder(slots=4)``: one flash launch
+     per layer and prefix miss, phase 8's paged launches and tokens;
+     (c) one Insight frame per tier through the split point with both
+     switches on (SAM head, ``bn.encode(use_kernel=True)``, the packet,
+     ``bn.decode(use_kernel=True)``, SAM tail, ``llm_generate``, mask):
+     one encode and one decode launch per frame, every launch held
+     against its plain version on its own inputs, and the mask logits
+     against a replay with each kernel kind's plain version in its place,
+     one kind at a time (flash, then the bottleneck pair), each reading
+     on its own line beside its limit; one frame's encode and decode
+     timed.
 
 Phase 3 holds the paged kernels too: the decode kernel at the three shapes
 of the reference's kernel test and at the in-flight path's shape, the
@@ -58,7 +75,13 @@ than 8 queries per kv head, and the speculative path's shapes (C = 4 and
 5, pages of 4 and 16, and C = 1 in fp32 against the paged decode kernel);
 with rows sharing prefix pages, ragged lengths, a plain row's pad queries,
 an idle row parked on the trash page, and every page no table names filled
-with NaN.
+with NaN. It holds the flash kernel at the five shapes of the reference's
+test (causal and not, fp32 and bf16), at the LLM prefill's (B = 1 and 4,
+S = 204, bf16), once more with q, k and v as views of buffers whose
+rows past S are NaN, and at sequences of 1,500 and 3,000 (the online
+kernel); the bottleneck encode and decode kernels at the
+reference test's shapes and at the split point's (one frame of 4096
+tokens x 1280, the three tiers' ranks).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -75,6 +98,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -111,6 +135,10 @@ REPLACES = {  # the TPU kernel each CUDA kernel replaces
         "src/repro/kernels/decode_attention/decode_attention.py:66",
     "paged_verify_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:158",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:71",
+    "bottleneck_encode": "src/repro/kernels/bottleneck/bottleneck.py:32",
+    "bottleneck_decode": "src/repro/kernels/bottleneck/bottleneck.py:63",
 }
 # the in-flight phase: slots of the decoder, and eight requests from two
 # operators in three waves: (operator, kind, frame). A frame number names
@@ -205,10 +233,11 @@ def decode_inputs(rng, B, H, K, hd, W, dtype, lens, dev):
             torch.from_numpy(bias).to(dev))
 
 
-def held_against(name, out, want):
+def held_against(name, out, want, tol=None):
     """Max abs error of a kernel's output against its plain version's;
-    raises if it is not finite or beyond TOL for its dtype."""
-    rtol, atol = TOL[want.dtype]
+    raises if it is not finite or beyond ``tol`` (default TOL for its
+    dtype)."""
+    rtol, atol = tol or TOL[want.dtype]
     err = (out.float() - want.float()).abs()
     max_err = float(err.max())
     excess = float((err - rtol * want.float().abs()).max())
@@ -607,6 +636,316 @@ def verify_cases(pcfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(rng, case, dev):
+    """q (B,S,H,hd), k/v (B,S,K,hd). With ``pad`` each is a view of a
+    (B, S + pad, heads, hd) buffer whose rows past S are NaN: a kernel that
+    reads a key or query past S fails."""
+    B, S, H, K, hd, pad, dtype = (case[k] for k in ("B", "S", "H", "K", "hd",
+                                                    "pad", "dtype"))
+
+    def buf(heads):
+        a = rng.randn(B, S + pad, heads, hd).astype(np.float32)
+        a[:, S:] = np.nan
+        return torch.from_numpy(a).to(dev, dtype)[:, :S]
+
+    return buf(H), buf(K), buf(K)
+
+
+def flash_bytes_flops(case, es):
+    """q, k, v read once and the output written once; 4 flops per (query
+    head, attended key, head-dim element), the causal triangle only when
+    causal."""
+    B, S, H, K, hd = (case[k] for k in ("B", "S", "H", "K", "hd"))
+    pairs = S * (S + 1) // 2 if case["causal"] else S * S
+    return (2 * B * S * H * hd + 2 * B * S * K * hd) * es, \
+        4 * B * H * hd * pairs
+
+
+def check_flash_attention(rng, case, dev, timed):
+    from repro_torch.kernels.flash_attention import ops, ref
+    causal = case["causal"]
+    args = flash_inputs(rng, case, dev)
+    out = ops.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(*args, causal=causal)
+    max_err = held_against(f"flash_attention {case['name']}", out, want)
+    dtype = case["dtype"]
+    rtol, atol = TOL[dtype]
+    B, S, H, K, hd = (case[k] for k in ("B", "S", "H", "K", "hd"))
+    res = {"case": case["name"], "B": B, "S": S, "H": H, "K": K, "hd": hd,
+           "causal": causal, "nan_past_S": case["pad"] > 0,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+    msg = (f"[kernel] flash_attention {case['name']}: B={B} S={S} H={H} "
+           f"K={K} hd={hd} causal={causal} {res['dtype']} max_abs_err="
+           f"{max_err:.3g} (rtol {rtol}, atol {atol})")
+    if timed:
+        nbytes, flops = flash_bytes_flops(case, torch.finfo(dtype).bits // 8)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [args] + [flash_inputs(rng, case, dev)
+                         for _ in range(copies - 1)]
+        gqa = {"enable_gqa": True} if K != H else {}
+
+        def library(q, k, v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, **gqa)
+
+        res.update({
+            "ms": device_ms(lambda q, k, v: ops.flash_attention(
+                q, k, v, causal=causal), sets),
+            "plain_ms": device_ms(lambda q, k, v: ref.attention_ref(
+                q, k, v, causal=causal), sets),
+            "library_ms": device_ms(library, sets),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" library_ms={res['library_ms']:.4f} bound_ms="
+                f"{res['bound_ms']:.5f} ({res['bound_by']})")
+    log(msg)
+    return res
+
+
+def flash_cases(pcfg):
+    """The five shapes of the reference's flash test, causal and not, in
+    fp32 and bf16; the LLM prefill's shapes (B = 1 and 4, S = clip tokens
+    + query, bf16, causal); the B = 4 prefill once more with q, k and v as
+    views of buffers whose rows past S are NaN; and sequences whose score
+    rows do not fit shared memory, which take the online kernel."""
+    cases = []
+    for B, S, H, K, hd in ((2, 128, 4, 2, 64), (1, 200, 4, 4, 32),
+                           (2, 64, 8, 2, 64), (1, 256, 4, 1, 128),
+                           (1, 96, 6, 3, 32)):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append(dict(
+                    name=f"{str(dtype).replace('torch.', '')}_B{B}_S{S}_G"
+                         f"{H // K}_hd{hd}_{'causal' if causal else 'full'}",
+                    B=B, S=S, H=H, K=K, hd=hd, causal=causal, dtype=dtype,
+                    pad=0))
+    llm = pcfg.llm
+    for B in (1, 4):
+        cases.append(dict(name=f"main_B{B}", B=B,
+                          S=pcfg.clip_tokens + QUERY_LEN, H=llm.num_heads,
+                          K=llm.num_kv_heads, hd=llm.resolved_head_dim,
+                          causal=True, dtype=llm.adtype, pad=0))
+    cases.append(dict(cases[-1], name="main_B4_nan_past_S", pad=52))
+    # sequences whose 32 score rows do not fit shared memory: the online
+    # kernel, causal and not, with NaN past S
+    cases.append(dict(name="bf16_B1_S1500_G2_hd128_causal_online", B=1,
+                      S=1500, H=4, K=2, hd=128, causal=True,
+                      dtype=torch.bfloat16, pad=0))
+    cases.append(dict(name="float32_B2_S3000_G4_hd64_full_online", B=2,
+                      S=3000, H=8, K=2, hd=64, causal=False,
+                      dtype=torch.float32, pad=40))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3: bottleneck_encode / bottleneck_decode against their plain versions
+# ---------------------------------------------------------------------------
+
+# encode: scales in float32 to summation order (the reference's test);
+# codes within 1 where a sum order moves z / s across a .5 tie, on fewer
+# than CODES_OFF_FRAC of entries
+SCALES_TOL = (1e-5, 1e-7)
+CODES_OFF_FRAC = 1e-3
+# decode: the output rounded once to bf16, or float32 summation order over
+# the rank (the reference's own test)
+DECODE_TOL = {torch.bfloat16: (8e-3, 1e-3), torch.float32: (1e-5, 1e-4)}
+
+
+def codes_held_against(name, codes, scales, want_codes, want_scales):
+    """Encode output against the plain version's: scales within
+    SCALES_TOL, codes within 1 on fewer than CODES_OFF_FRAC of entries.
+    Returns (max code difference, fraction of codes off, max scale
+    error)."""
+    s_err = held_against(f"{name} scales", scales, want_scales, SCALES_TOL)
+    diff = (codes.int() - want_codes.int()).abs()
+    max_diff = int(diff.max())
+    off = float((diff > 0).float().mean())
+    if codes.dtype != torch.int8 or max_diff > 1 or off >= CODES_OFF_FRAC:
+        raise AssertionError(f"{name}: codes {codes.dtype} off the plain "
+                             f"version by up to {max_diff} on {off:.3g} of "
+                             f"entries (limit 1 on < {CODES_OFF_FRAC})")
+    return max_diff, off, s_err
+
+
+def encode_inputs(rng, case, dev):
+    x = rng.randn(*case["lead"], case["d"]).astype(np.float32)
+    w = (rng.randn(case["d"], case["r"]) * case["w_scale"]).astype(np.float32)
+    return (torch.from_numpy(x).to(dev, case["x_dtype"]),
+            torch.from_numpy(w).to(dev, case["w_dtype"]))
+
+
+def decode_inputs_bn(rng, case, dev):
+    codes = rng.randint(-127, 128, (*case["lead"], case["r"])).astype(np.int8)
+    scales = rng.uniform(0.01, 0.1, (*case["lead"], 1)).astype(np.float32)
+    w = (rng.randn(case["r"], case["d"]) * case["w_scale"]).astype(np.float32)
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(scales).to(dev),
+            torch.from_numpy(w).to(dev, case["w_dtype"]))
+
+
+def bottleneck_cases(pcfg, ranks):
+    """Encode: the four shapes of the reference's test in fp32 and bf16
+    (x and w of one dtype), its batched (2, 37, 64) -> 16, a rank too wide
+    for 16 rows a CTA, and the split
+    point's shapes: one frame's SAM boundary (1, 4096, 1280) in bf16 with
+    the float32 weight of each tier's rank. Decode: the reference's two
+    shapes with fp32 and bf16 weights into fp32, its batched shape, and
+    the split point's (codes of each rank back to 1280, bf16 out)."""
+    enc, dec = [], []
+    for T, d, r in ((128, 128, 32), (64, 256, 100), (100, 64, 16),
+                    (256, 1280, 638)):
+        for dt in (torch.float32, torch.bfloat16):
+            enc.append(dict(name=f"{str(dt).replace('torch.', '')}_T{T}_d{d}"
+                                 f"_r{r}", lead=(T,), d=d, r=r, x_dtype=dt,
+                            w_dtype=dt, w_scale=0.05))
+    enc.append(dict(name="batched_2x37_d64_r16", lead=(2, 37), d=64, r=16,
+                    x_dtype=torch.float32, w_dtype=torch.float32,
+                    w_scale=0.1))
+    # a rank whose z fits 8 rows a CTA, not 16
+    enc.append(dict(name="float32_T40_d64_r3500_8_rows", lead=(40,), d=64,
+                    r=3500, x_dtype=torch.float32, w_dtype=torch.float32,
+                    w_scale=0.1))
+    for T, d, r in ((128, 128, 32), (64, 256, 100)):
+        for dt in (torch.float32, torch.bfloat16):
+            dec.append(dict(name=f"w{str(dt).replace('torch.', '')}_T{T}_r{r}"
+                                 f"_d{d}", lead=(T,), d=d, r=r, w_dtype=dt,
+                            out_dtype=torch.float32, w_scale=0.05))
+    dec.append(dict(name="batched_2x37_r16_d64", lead=(2, 37), d=64, r=16,
+                    w_dtype=torch.float32, out_dtype=torch.float32,
+                    w_scale=0.1))
+    d, T = pcfg.sam.d_model, pcfg.sam_tokens
+    for r in ranks:
+        enc.append(dict(name=f"main_r{r}", lead=(1, T), d=d, r=r,
+                        x_dtype=pcfg.sam.adtype, w_dtype=torch.float32,
+                        w_scale=d ** -0.5))
+        dec.append(dict(name=f"main_r{r}", lead=(1, T), d=d, r=r,
+                        w_dtype=torch.float32, out_dtype=pcfg.sam.adtype,
+                        w_scale=r ** -0.5))
+    return enc, dec
+
+
+def _bn_bound(nbytes, flops):
+    """Least time for these bytes and float32 operations (the products are
+    taken in float32 whatever the inputs' dtype)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
+        torch.float32]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_bottleneck_encode(rng, case, dev, timed):
+    from repro_torch.kernels.bottleneck import ops, ref
+    x, w = encode_inputs(rng, case, dev)
+    codes, scales = ops.bottleneck_encode(x, w)
+    torch.cuda.synchronize()
+    d, r = case["d"], case["r"]
+    want_c, want_s = ref.encode_ref(x.reshape(-1, d), w)
+    if tuple(codes.shape) != (*case["lead"], r) or \
+            tuple(scales.shape) != (*case["lead"], 1):
+        raise AssertionError(f"bottleneck_encode {case['name']}: shapes "
+                             f"{tuple(codes.shape)}, {tuple(scales.shape)}")
+    max_diff, off, s_err = codes_held_against(
+        f"bottleneck_encode {case['name']}", codes.reshape(-1, r),
+        scales.reshape(-1, 1), want_c, want_s)
+    T = int(np.prod(case["lead"]))
+    res = {"case": case["name"], "T": T, "d": d, "r": r,
+           "x_dtype": str(case["x_dtype"]).replace("torch.", ""),
+           "w_dtype": str(case["w_dtype"]).replace("torch.", ""),
+           "max_abs_err": max_diff, "codes_off_frac": off,
+           "scales_max_abs_err": s_err}
+    msg = (f"[kernel] bottleneck_encode {case['name']}: T={T} d={d} r={r} "
+           f"x {res['x_dtype']} w {res['w_dtype']}: codes off by <= "
+           f"{max_diff} on {off:.3g} of entries (limit 1 on < "
+           f"{CODES_OFF_FRAC}); scales max abs err {s_err:.3g} (rtol "
+           f"{SCALES_TOL[0]}, atol {SCALES_TOL[1]})")
+    if timed:
+        nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() \
+            + T * r + T * 4
+        res.update(_bn_bound(nbytes, 2 * T * d * r))
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [(x, w)] + [encode_inputs(rng, case, dev)
+                           for _ in range(copies - 1)]
+
+        def matmul_quant(xx, ww):
+            # ten library calls: cast, matmul, abs, amax, div, add, div,
+            # round, clamp, cast
+            z = torch.matmul(xx.float(), ww)
+            s = torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
+            return torch.clamp(torch.round(z / s), -127, 127).to(torch.int8), s
+
+        res.update({
+            "ms": device_ms(ops.bottleneck_encode, sets),
+            "plain_ms": device_ms(
+                lambda xx, ww: ref.encode_ref(xx.reshape(-1, d), ww), sets),
+            "matmul_quant_ms": device_ms(matmul_quant, sets),
+            "matmul_quant_calls": 10})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" matmul_quant_ms={res['matmul_quant_ms']:.4f} (10 calls)"
+                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    log(msg)
+    return res
+
+
+def check_bottleneck_decode(rng, case, dev, timed):
+    from repro_torch.kernels.bottleneck import ops, ref
+    codes, scales, w = decode_inputs_bn(rng, case, dev)
+    out_dtype = case["out_dtype"]
+    out = ops.bottleneck_decode(codes, scales, w, out_dtype)
+    torch.cuda.synchronize()
+    d, r = case["d"], case["r"]
+    want = ref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1), w,
+                          out_dtype)
+    if tuple(out.shape) != (*case["lead"], d) or out.dtype != out_dtype:
+        raise AssertionError(f"bottleneck_decode {case['name']}: "
+                             f"{out.dtype} {tuple(out.shape)}")
+    tol = DECODE_TOL[out_dtype]
+    max_err = held_against(f"bottleneck_decode {case['name']}",
+                           out.reshape(-1, d), want, tol)
+    T = int(np.prod(case["lead"]))
+    res = {"case": case["name"], "T": T, "r": r, "d": d,
+           "w_dtype": str(case["w_dtype"]).replace("torch.", ""),
+           "out_dtype": str(out_dtype).replace("torch.", ""),
+           "max_abs_err": max_err, "rtol": tol[0], "atol": tol[1]}
+    msg = (f"[kernel] bottleneck_decode {case['name']}: T={T} r={r} d={d} "
+           f"w {res['w_dtype']} -> {res['out_dtype']} max_abs_err="
+           f"{max_err:.3g} (rtol {tol[0]}, atol {tol[1]})")
+    if timed:
+        nbytes = T * r + T * 4 + w.numel() * w.element_size() \
+            + T * d * out.element_size()
+        res.update(_bn_bound(nbytes, 2 * T * r * d))
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [(codes, scales, w)] + [decode_inputs_bn(rng, case, dev)
+                                       for _ in range(copies - 1)]
+
+        def dequant_matmul(c, s, ww):
+            # four library calls: cast, mul, matmul, cast
+            return torch.matmul(c.float() * s, ww).to(out_dtype)
+
+        res.update({
+            "ms": device_ms(lambda c, s, ww: ops.bottleneck_decode(
+                c, s, ww, out_dtype), sets),
+            "plain_ms": device_ms(lambda c, s, ww: ref.decode_ref(
+                c.reshape(-1, r), s.reshape(-1, 1), ww, out_dtype), sets),
+            "dequant_matmul_ms": device_ms(dequant_matmul, sets),
+            "dequant_matmul_calls": 4})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" dequant_matmul_ms={res['dequant_matmul_ms']:.4f} (4 calls)"
+                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+    log(msg)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
@@ -712,6 +1051,12 @@ def small_input_check(seed, dev):
     return {"requests": len(outs[True]), "max_abs_diff": worst}
 
 
+def _rel(a, b):
+    """Norm-wise relative error of ``a`` against ``b``."""
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
 def compare_paths(results, other, limit, label):
     """Hold the main path's results against another path's on the same
     requests: greedy tokens equal, answer and mask logits within ``limit``
@@ -725,8 +1070,7 @@ def compare_paths(results, other, limit, label):
             x, y = getattr(a, key), getattr(b, key)
             if x is None:
                 continue
-            y = y.astype(np.float64)
-            rel = float(np.linalg.norm(x - y) / np.linalg.norm(y))
+            rel = _rel(x, y)
             worst[key] = max(worst[key], rel)
             if not rel <= limit:
                 raise AssertionError(f"seq {a.seq_id}: {key} of the kernel "
@@ -935,8 +1279,7 @@ def compare_inflight(results, other, limits, label, tag="inflight"):
             x, y = a[key], b[key]
             if x is None:
                 continue
-            y = np.asarray(y, np.float64)
-            rel = float(np.linalg.norm(x - y) / np.linalg.norm(y))
+            rel = _rel(x, y)
             worst[key] = max(worst[key], rel)
             if not rel <= limit:
                 raise AssertionError(f"seq {a['seq_id']}: {key} off the "
@@ -1051,20 +1394,36 @@ def inflight_timings(executor, frames):
 
 
 KERNELS = ("paged_verify_attention", "paged_decode_attention",
-           "decode_attention")
+           "decode_attention", "flash_attention", "bottleneck_encode",
+           "bottleneck_decode")
 
 
 def _launch_counts():
     """Each kernel wrapper's launch counter."""
+    from repro_torch.kernels.bottleneck import ops as bops
     from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.flash_attention import ops as fops
     return {"decode_attention": ops.launches,
             "paged_decode_attention": ops.paged_launches,
-            "paged_verify_attention": ops.verify_launches}
+            "paged_verify_attention": ops.verify_launches,
+            "flash_attention": fops.flash_launches,
+            "bottleneck_encode": bops.encode_launches,
+            "bottleneck_decode": bops.bottleneck_decode_launches}
 
 
 def _reset_launch_counts():
+    from repro_torch.kernels.bottleneck import ops as bops
     from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.flash_attention import ops as fops
     ops.launches = ops.paged_launches = ops.verify_launches = 0
+    fops.flash_launches = 0
+    bops.encode_launches = bops.bottleneck_decode_launches = 0
+
+
+def _only(**want):
+    """The launch counts of a run that launches the kernels named (with
+    these counts) and no other."""
+    return {k: want.get(k, 0) for k in KERNELS}
 
 
 def _kernel_class(name: str) -> str:
@@ -1179,9 +1538,7 @@ def inflight_phase(executor, pcfg, seed):
         f"{[r['joined_step'] for r in results]}, prefix hits "
         f"{[int(r['prefix_hit']) for r in results]}; launches {launches} "
         f"(paged expected {expect})")
-    if launches["paged_decode_attention"] != expect or expect == 0 \
-            or launches["decode_attention"] \
-            or launches["paged_verify_attention"]:
+    if launches != _only(paged_decode_attention=expect) or expect == 0:
         raise AssertionError(f"in-flight path launches {launches}, expected "
                              f"{expect} paged and no others")
     shape = check_inflight_outputs(pcfg, results, dec)
@@ -1200,7 +1557,7 @@ def inflight_phase(executor, pcfg, seed):
            "steps": steps, "step_wall_ms_full": step_ms, **shape}
     out["parity"] = inflight_parity(executor, frames, results, expect)
     out["timings"] = inflight_timings(executor, frames)
-    return out, frames
+    return out, frames, results
 
 
 # ---------------------------------------------------------------------------
@@ -1277,9 +1634,9 @@ def spec_run(executor, pcfg, frames, spec, label, step_times=None):
     launches = _launch_counts()
     L = pcfg.llm.num_layers
     draft_steps = dec.draft.n_steps if dec.draft is not None else 0
-    expect = {"paged_verify_attention": calls["cloud_verify_rows"] * L,
-              "paged_decode_attention": calls["cloud_decode_rows"] * L,
-              "decode_attention": draft_steps * L}
+    expect = _only(paged_verify_attention=calls["cloud_verify_rows"] * L,
+                   paged_decode_attention=calls["cloud_decode_rows"] * L,
+                   decode_attention=draft_steps * L)
     stats = dec.spec_stats.as_dict()
     log(f"[spec] {label}: {len(results)} requests on {INFLIGHT_SLOTS} slots "
         f"in {calls['cloud_verify_rows']} verify and "
@@ -1475,6 +1832,345 @@ def spec_phase(executor, pcfg, seed, frames):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10 (split): the LLM prefill through flash_attention (llm.use_flash)
+# and the Insight split point through the bottleneck kernels (use_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _flash_plain(q, k, v, causal=True, block_q=128, block_k=128):
+    from repro_torch.kernels.flash_attention import ref
+    return ref.attention_ref(q, k, v, causal=causal)
+
+
+def split_microbatch(fx, reqs, base_results):
+    """10a: phase 5's requests through MicrobatchScheduler(generate=True)
+    on the use_flash executor, counters from 0: one flash launch per layer
+    and microbatch (the prefill of each cloud_*_gen call), the decode
+    steps' launches as in phase 5. Tokens equal to phase 5's, logits and
+    masks within SDPA_PATH_RTOL of it (its _sdpa rounds P to bf16, the
+    kernel does not); a replay with the flash kernel's plain version in
+    its place within PATH_RTOL."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    L = fx.pcfg.llm.num_layers
+    _reset_launch_counts()
+    t0 = _sync_s()
+    results, sched = serve_requests(fx, reqs)
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    n = sched.n_microbatches
+    expect = _only(flash_attention=n * L,
+                   decode_attention=n * MAX_NEW_TOKENS * L)
+    log(f"[split] microbatch: {len(results)} requests in {n} microbatches, "
+        f"wall {wall:.2f} s; launches {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"use_flash microbatch launches {launches}, "
+                             f"expected {expect}")
+    out = {"wall_s": wall, "microbatches": n, "launches": launches,
+           "expected_launches": expect}
+    out["rel_err_use_flash_false"] = compare_paths(
+        results, base_results, SDPA_PATH_RTOL,
+        "use_flash=False path (phase 5)")
+    with mock.patch.object(fops, "flash_attention", _flash_plain):
+        plain, _ = serve_requests(fx, reqs)
+    out["rel_err_plain_kernel"] = compare_paths(
+        results, plain, PATH_RTOL, "path with the flash kernel's plain "
+        "version")
+    return out
+
+
+def split_inflight(fx, frames, base_results, base_paged):
+    """10b: phase 8's schedule through InflightDecoder(slots=4) on the
+    use_flash executor, counters from 0: one flash launch per layer and
+    prefix miss (cloud_prefix), the paged launches of phase 8. Tokens
+    equal to phase 8's, logits and masks within SDPA_PATH_RTOL."""
+    L = fx.pcfg.llm.num_layers
+    _reset_launch_counts()
+    t0 = _sync_s()
+    results, dec = serve_inflight(fx, frames)
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    misses = sum(not r["prefix_hit"] for r in results)
+    expect = _only(flash_attention=misses * L,
+                   paged_decode_attention=dec.n_steps * L)
+    log(f"[split] in-flight: {len(results)} requests, {misses} prefix "
+        f"misses, {dec.n_steps} decode steps, wall {wall:.2f} s; launches "
+        f"{launches} (expected {expect}; phase 8 paged {base_paged})")
+    if launches != expect or dec.n_steps * L != base_paged:
+        raise AssertionError(f"use_flash in-flight launches {launches}, "
+                             f"expected {expect} with {base_paged} paged")
+    rel = compare_inflight(results, base_results,
+                           {"answer_logits": SDPA_PATH_RTOL,
+                            "mask_logits": SDPA_PATH_RTOL},
+                           "use_flash=False in-flight run (phase 8)",
+                           tag="split")
+    return {"wall_s": wall, "prefix_misses": misses, "n_steps": dec.n_steps,
+            "launches": launches, "expected_launches": expect,
+            "rel_err_use_flash_false": rel}
+
+
+def split_frames(fx, pcfg, seed):
+    """One Insight frame per tier: a seeded image and query, and its CLIP
+    features (the edge's Context pass, which the packet carries)."""
+    from repro_torch.core import vlm
+    rng = np.random.RandomState(seed + 2)
+    frames = []
+    for tier in fx.lut.tiers:
+        img = torch.from_numpy(rng.rand(1, pcfg.image_size, pcfg.image_size,
+                                        3).astype(np.float32)).to(fx.device)
+        query = torch.from_numpy(rng.randint(
+            0, pcfg.llm.vocab_size, (1, QUERY_LEN)).astype(np.int32)
+        ).to(fx.device)
+        with torch.inference_mode():
+            ctx = vlm.clip_encode(fx.params, pcfg, img)
+        frames.append((tier, img, query, ctx))
+    return frames
+
+
+@torch.inference_mode()
+def split_point(fx, frame, i):
+    """One Insight frame through the reference's edge_insight and
+    cloud_insight_gen stage bodies with both switches on: SAM head,
+    bn.encode(use_kernel=True), the packet, bn.decode(use_kernel=True),
+    SAM tail, llm_generate on the use_flash config, mask decode. Returns
+    (mask_logits, answer_logits, tokens) as numpy, and the packet."""
+    from repro_torch.core import bottleneck as bn
+    from repro_torch.core import packets as pk
+    from repro_torch.core import vlm
+    from repro_torch.core.streams import _host
+    tier, img, query, ctx = frame
+    pcfg, p, bp = fx.pcfg, fx.params, fx.bottlenecks[tier.name]
+    a = vlm.sam_head(p, pcfg, img)
+    codes, scales = bn.encode(bp, a, use_kernel=True)
+    pkt = pk.make_insight_packet(i, 0.0, tier.name, _host(codes),
+                                 _host(scales), clip_feats=_host(ctx))
+    a = bn.decode(bp, fx._dev(pkt.content["codes"]),
+                  fx._dev(pkt.content["scales"]), out_dtype=pcfg.sam.adtype,
+                  use_kernel=True)
+    feats = vlm.sam_tail(p, pcfg, a)
+    tokens, logits0, seg = vlm.llm_generate(p, fx._gen_pcfg, ctx, query,
+                                            MAX_NEW_TOKENS)
+    mask = vlm.mask_decode(p, pcfg, feats, seg)
+    return (_host(mask), _host(logits0), _host(tokens)), pkt
+
+
+def _split_run(fx, frames):
+    return [split_point(fx, f, i)[0] for i, f in enumerate(frames)]
+
+
+def split_point_phase(fx, pcfg, seed):
+    """10c: one frame per tier through the split point with both switches
+    on, counters from 0: exactly one encode and one decode launch per
+    frame, one flash launch per layer and frame. Then (a) a replay with
+    every launch of the three kernels held against its plain version on
+    that launch's own inputs (outputs bit-equal to the counted run's);
+    (b) a replay with flash's plain version in its place, and (c) one with
+    the bottleneck pair's plain versions in theirs: mask logits within
+    PATH_RTOL of the counted run's, each reading on its own. Times one
+    frame's edge encode and cloud decode."""
+    from repro_torch.core import bottleneck as bn
+    from repro_torch.core import vlm
+    from repro_torch.kernels.bottleneck import ops as bops
+    from repro_torch.kernels.bottleneck import ref as bref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    L = pcfg.llm.num_layers
+    frames = split_frames(fx, pcfg, seed)
+    n = len(frames)
+    _reset_launch_counts()
+    t0 = _sync_s()
+    outs = _split_run(fx, frames)
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    expect = _only(bottleneck_encode=n, bottleneck_decode=n,
+                   flash_attention=n * L,
+                   decode_attention=n * MAX_NEW_TOKENS * L)
+    log(f"[split] split point: {n} Insight frames (ranks "
+        f"{[fx.bottlenecks[f[0].name]['enc'].shape[1] for f in frames]}), "
+        f"wall {wall:.2f} s; launches {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"split-point launches {launches}, expected "
+                             f"{expect}")
+    g = pcfg.image_size // pcfg.patch_size \
+        * int(round(max(1, pcfg.mask_pixels_per_patch) ** 0.5))
+    for i, (mask, logits, tokens) in enumerate(outs):
+        if (mask.shape != (1, g, g)
+                or logits.shape != (1, pcfg.llm.vocab_size)
+                or tokens.shape != (1, MAX_NEW_TOKENS)):
+            raise AssertionError(f"split frame {i}: bad output shapes")
+        if not all(np.isfinite(a).all() for a in (mask, logits)):
+            raise AssertionError(f"split frame {i}: non-finite output")
+    out = {"wall_s": wall, "launches": launches, "expected_launches": expect,
+           "tokens": [o[2].tolist()[0] for o in outs]}
+
+    # (a) every launch against its plain version on its own inputs
+    errs = {"flash_attention": [], "bottleneck_encode": [],
+            "bottleneck_decode": []}
+    # output elements not bit-equal to the plain version's, and elements
+    not_equal = {k: [0, 0] for k in errs}
+    enc, dec, fl = (bops.bottleneck_encode, bops.bottleneck_decode,
+                    fops.flash_attention)
+
+    def count(name, out, want):
+        not_equal[name][0] += int((out != want).sum())
+        not_equal[name][1] += out.numel()
+
+    def enc_checked(x, w):
+        codes, scales = enc(x, w)
+        r = w.shape[1]
+        want_c, want_s = bref.encode_ref(x.reshape(-1, x.shape[-1]), w)
+        errs["bottleneck_encode"].append(codes_held_against(
+            "bottleneck_encode on the split point's inputs",
+            codes.reshape(-1, r), scales.reshape(-1, 1), want_c, want_s))
+        count("bottleneck_encode", codes.reshape(-1, r), want_c)
+        return codes, scales
+
+    def dec_checked(codes, scales, w, out_dtype=torch.float32):
+        y = dec(codes, scales, w, out_dtype)
+        d, r = w.shape[1], w.shape[0]
+        want = bref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1),
+                               w, out_dtype)
+        errs["bottleneck_decode"].append(held_against(
+            "bottleneck_decode on the split point's inputs",
+            y.reshape(-1, d), want, DECODE_TOL[out_dtype]))
+        count("bottleneck_decode", y.reshape(-1, d), want)
+        return y
+
+    def flash_checked(q, k, v, causal=True, block_q=128, block_k=128):
+        o = fl(q, k, v, causal=causal)
+        want = fref.attention_ref(q, k, v, causal=causal)
+        errs["flash_attention"].append(held_against(
+            "flash_attention on the split point's inputs", o, want))
+        count("flash_attention", o, want)
+        return o
+
+    with mock.patch.object(bops, "bottleneck_encode", enc_checked), \
+            mock.patch.object(bops, "bottleneck_decode", dec_checked), \
+            mock.patch.object(fops, "flash_attention", flash_checked):
+        checked = _split_run(fx, frames)
+    if [len(v) for v in errs.values()] != [n * L, n, n]:
+        raise AssertionError(f"held {[len(v) for v in errs.values()]} "
+                             f"launches against their plain versions, "
+                             f"expected {[n * L, n, n]}")
+    for a, b in zip(outs, checked):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("the checked replay's outputs differ from "
+                                 "the counted run's")
+    enc_worst = max(e[1] for e in errs["bottleneck_encode"])
+    log(f"[split] every launch on its own inputs agrees with its plain "
+        f"version: flash {len(errs['flash_attention'])} launches, max abs "
+        f"err {max(errs['flash_attention']):.3g}; encode {n}: codes off by "
+        f"<= {max(e[0] for e in errs['bottleneck_encode'])} on <= "
+        f"{enc_worst:.3g} of entries, scales max abs err "
+        f"{max(e[2] for e in errs['bottleneck_encode']):.3g}; decode {n}: "
+        f"max abs err {max(errs['bottleneck_decode']):.3g}; output elements "
+        f"not bit-equal: " + ", ".join(f"{k} {a} of {b}" for k, (a, b) in
+                                       not_equal.items()))
+    out["launches_checked"] = {k: len(v) for k, v in errs.items()}
+    out["elements_not_bit_equal"] = not_equal
+    out["max_abs_err"] = {
+        "flash_attention": max(errs["flash_attention"]),
+        "bottleneck_encode": max(e[0] for e in errs["bottleneck_encode"]),
+        "bottleneck_decode": max(errs["bottleneck_decode"])}
+    out["encode_codes_off_frac"] = enc_worst
+    out["encode_scales_max_abs_err"] = max(
+        e[2] for e in errs["bottleneck_encode"])
+
+    # (b), (c): each kernel kind's plain version in its place, on its own
+    def plain_enc(x, w):
+        r = w.shape[1]
+        c, sc = bref.encode_ref(x.reshape(-1, x.shape[-1]), w)
+        return c.reshape(*x.shape[:-1], r), sc.reshape(*x.shape[:-1], 1)
+
+    def plain_dec(codes, scales, w, out_dtype=torch.float32):
+        r, d = w.shape
+        return bref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1),
+                               w, out_dtype).reshape(*codes.shape[:-1], d)
+
+    with mock.patch.object(fops, "flash_attention", _flash_plain):
+        flash_plain = _split_run(fx, frames)
+    with mock.patch.object(bops, "bottleneck_encode", plain_enc), \
+            mock.patch.object(bops, "bottleneck_decode", plain_dec):
+        bn_plain = _split_run(fx, frames)
+    failed = []
+    for label, other in (("flash_attention", flash_plain),
+                         ("bottleneck pair", bn_plain)):
+        per_frame = [{"mask_logits": _rel(a[0], b[0]),
+                      "answer_logits": _rel(a[1], b[1]),
+                      "tokens_equal": bool(np.array_equal(a[2], b[2]))}
+                     for a, b in zip(outs, other)]
+        worst = max(f["mask_logits"] for f in per_frame)
+        out[f"rel_err_plain_{label.replace(' ', '_')}"] = per_frame
+        log(f"[split] plain {label} in its place: mask_logits norm-wise "
+            f"relative error {worst:.3g} (limit {PATH_RTOL}); per frame "
+            + ", ".join(f"{f['mask_logits']:.3g}" for f in per_frame)
+            + "; answer_logits per frame "
+            + ", ".join(f"{f['answer_logits']:.3g}" for f in per_frame)
+            + f"; tokens equal {[f['tokens_equal'] for f in per_frame]}")
+        if not (worst <= PATH_RTOL and all(f["tokens_equal"]
+                                           for f in per_frame)):
+            failed.append(f"{label}: mask_logits off by {worst:.3g} (limit "
+                          f"{PATH_RTOL}) or tokens differ")
+    if failed:
+        raise AssertionError(f"split point against each kernel kind's plain "
+                             f"version: {failed}")
+
+    # one frame's edge encode and cloud decode, warm, host wall to a sync
+    tier, img, _, _ = frames[0]
+    bp = fx.bottlenecks[tier.name]
+    with torch.inference_mode():
+        a = vlm.sam_head(fx.params, pcfg, img)
+        times = {}
+        for _ in range(2):
+            t0 = _sync_s()
+            codes, scales = bn.encode(bp, a, use_kernel=True)
+            times["encode_ms"] = (_sync_s() - t0) * 1e3
+            t0 = _sync_s()
+            bn.decode(bp, codes, scales, out_dtype=pcfg.sam.adtype,
+                      use_kernel=True)
+            times["decode_ms"] = (_sync_s() - t0) * 1e3
+    out["frame_wall_ms"] = dict(times, rank=int(bp["enc"].shape[1]))
+    log(f"[split] one frame at rank {bp['enc'].shape[1]}, warm: edge encode "
+        f"{times['encode_ms']:.3f} ms, cloud decode {times['decode_ms']:.3f} "
+        f"ms (host wall to a synchronise)")
+    return out
+
+
+def split_phase(executor, pcfg, seed, reqs, results, frames,
+                inflight_results, inflight_paged):
+    """Phase 10: LISA-7B at full width on an executor with
+    ``llm.use_flash=True`` that shares the serving executor's weight
+    tensors: 10a microbatch, 10b in-flight, 10c split point."""
+    from repro_torch.core.streams import DualStreamExecutor
+    fcfg = dataclasses.replace(pcfg, llm=pcfg.llm.replace(use_flash=True))
+    fx = DualStreamExecutor(pcfg=fcfg, params=executor.params,
+                            bottlenecks=executor.bottlenecks,
+                            lut=executor.lut, max_new_tokens=MAX_NEW_TOKENS,
+                            flash_decode=True, device=executor.device)
+    if fx.params["llm"]["embed"] is not executor.params["llm"]["embed"]:
+        raise AssertionError("the use_flash executor copied the weights")
+    return {"microbatch": split_microbatch(fx, reqs, results),
+            "inflight": split_inflight(fx, frames, inflight_results,
+                                       inflight_paged),
+            "split_point": split_point_phase(fx, fcfg, seed)}
+
+
+def ptxas_lines(log_path):
+    """ptxas' report per kernel instantiation, one line each: the template
+    arguments of the (mangled) entry name, its stack, spills and
+    registers."""
+    out, fn, spill = [], "?", ""
+    for ln in log_path.read_text().splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+            fn = name.split("_kernel", 1)[-1][:40]
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1487,6 +2183,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_lisa_config
+    from repro_torch.core.bottleneck import rank_for_ratio
+    from repro_torch.core.lut import paper_lut
     from repro_torch.core.streams import DualStreamExecutor
     from repro_torch.kernels import _build
 
@@ -1503,11 +2201,11 @@ def main() -> int:
     _build.build()          # one nvcc per source, all started together
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(_build.SOURCES)} in {report['build_s']:.1f} s")
+    report["ptxas"] = {}
     for name in _build.SOURCES:
-        ptxas = [ln.strip() for ln in _build.library_path(name)
-                 .with_suffix(".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        for ln in ptxas:
+        lines = ptxas_lines(_build.library_path(name).with_suffix(".log"))
+        report["ptxas"][name] = lines
+        for ln in lines:
             log(f"[build] {name}: {ln}")
 
     pcfg = get_lisa_config("lisa-7b")
@@ -1525,7 +2223,22 @@ def main() -> int:
                   check_paged_verify_attention(
                       rng, c, dev, timed=c["name"].startswith("main")
                       and c["dtype"] == pcfg.llm.adtype)
-                  for c in verify_cases(pcfg)]}
+                  for c in verify_cases(pcfg)],
+              "flash_attention": [
+                  check_flash_attention(
+                      rng, c, dev, timed=c["name"] in (
+                          "main_B1", "main_B4",
+                          "bf16_B1_S1500_G2_hd128_causal_online"))
+                  for c in flash_cases(pcfg)]}
+    d_sam = pcfg.sam.d_model
+    ranks = [rank_for_ratio(d_sam, t.ratio, 4) for t in paper_lut().tiers]
+    enc_cases, dec_cases = bottleneck_cases(pcfg, ranks)
+    checks["bottleneck_encode"] = [
+        check_bottleneck_encode(rng, c, dev, timed=c["name"].startswith(
+            "main")) for c in enc_cases]
+    checks["bottleneck_decode"] = [
+        check_bottleneck_decode(rng, c, dev, timed=c["name"].startswith(
+            "main")) for c in dec_cases]
     report.update(checks)
     report["small_input"] = small_input_check(args.seed, dev)
 
@@ -1548,9 +2261,9 @@ def main() -> int:
     wall = _sync_s() - t0
     counts = _launch_counts()
     launches = counts["decode_attention"]
-    if counts["paged_decode_attention"] or counts["paged_verify_attention"]:
-        raise AssertionError(f"the microbatch path launched a paged kernel: "
-                             f"{counts}")
+    if counts != _only(decode_attention=launches):
+        raise AssertionError(f"the microbatch path launched another kernel "
+                             f"than decode_attention: {counts}")
     n_gen = sched.n_microbatches
     expect = n_gen * MAX_NEW_TOKENS * pcfg.llm.num_layers
     for t in timings:
@@ -1588,23 +2301,40 @@ def main() -> int:
 
     report["parity"] = full_width_parity(executor, reqs, results, expect)
     report["profile"] = profile_microbatches(executor, reqs)
-    report["inflight"], frames = inflight_phase(executor, pcfg, args.seed)
+    report["inflight"], frames, inflight_results = inflight_phase(
+        executor, pcfg, args.seed)
     report["spec"] = spec_phase(executor, pcfg, args.seed, frames)
+    report["split"] = split_phase(
+        executor, pcfg, args.seed, reqs, results, frames, inflight_results,
+        report["inflight"]["launches"]["paged_decode_attention"])
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape
     main_case = {"decode_attention": "main_B4",
                  "paged_decode_attention": paged_main,
                  "paged_verify_attention": f"main_B{INFLIGHT_SLOTS}_C4_page"
-                                           f"{SPEC_PAGE}"}
+                                           f"{SPEC_PAGE}",
+                 "flash_attention": "main_B4",
+                 "bottleneck_encode": f"main_r{max(ranks)}",
+                 "bottleneck_decode": f"main_r{max(ranks)}"}
+    split = report["split"]
     launched = {"decode_attention": report["serve"]["launches"],
                 "paged_decode_attention": report["inflight"]["launches"],
-                "paged_verify_attention": report["spec"]["run_a"]["launches"]}
+                "paged_verify_attention": report["spec"]["run_a"]["launches"],
+                "flash_attention": split["microbatch"]["launches"],
+                "bottleneck_encode": split["split_point"]["launches"],
+                "bottleneck_decode": split["split_point"]["launches"]}
     path_err = {"decode_attention": report["parity"]["max_abs_err"],
                 "paged_decode_attention":
                     report["inflight"]["parity"]["max_abs_err"],
                 "paged_verify_attention":
-                    report["spec"]["parity"]["max_abs_err"]}
+                    report["spec"]["parity"]["max_abs_err"],
+                **split["split_point"]["max_abs_err"]}
+    # yardsticks beside library_ms where no one PyTorch call computes the
+    # function: page gather + SDPA (two calls) for the paged kernels, the
+    # matmul + quantisation chain (ten calls) for encode, the
+    # dequantisation + matmul chain (four calls) for decode
+    extra = ("gather_sdpa_ms", "matmul_quant_ms", "dequant_matmul_ms")
     kernels = []
     for name, src in _build.SOURCES.items():
         main_check = next(c for c in checks[name]
@@ -1619,12 +2349,8 @@ def main() -> int:
             "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
             "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"],
-            # no one PyTorch call computes paged attention; the paged
-            # kernels' yardstick is the page gather + SDPA, two library
-            # calls
             "library_ms": main_check.get("library_ms"),
-            **({"gather_sdpa_ms": main_check["gather_sdpa_ms"]}
-               if "gather_sdpa_ms" in main_check else {})})
+            **{k: main_check[k] for k in extra if k in main_check}})
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -1,10 +1,12 @@
 """Learned bottleneck compression for split activations (port of
-``repro/core/bottleneck.py``, its plain path: the reference serves with
-``use_kernel=False`` everywhere).
+``repro/core/bottleneck.py``).
 
 The edge projects the (B, T, d) boundary activation to a low-rank code and
 int8-quantises it with a per-token absmax scale; the cloud dequantises and
-projects back.
+projects back. With ``use_kernel`` each side runs its fused CUDA kernel
+(``repro_torch.kernels.bottleneck``), as the reference's ``use_kernel``
+runs its Pallas kernels; the default is the plain path, as in the
+reference, whose serving stages never set it.
 """
 from __future__ import annotations
 
@@ -45,9 +47,15 @@ def init_bottleneck(generator: torch.Generator, spec: BottleneckSpec,
     }
 
 
-def encode(params: dict, x: torch.Tensor
+def encode(params: dict, x: torch.Tensor, use_kernel: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (..., d) -> (codes int8 (..., rank), scales f32 (..., 1))."""
+    """x (..., d) -> (codes int8 (..., rank), scales f32 (..., 1)).
+
+    The plain path multiplies in x's dtype, as the reference's does; the
+    kernel multiplies in float32, as the reference's kernel does."""
+    if use_kernel:
+        from repro_torch.kernels.bottleneck import ops as bops
+        return bops.bottleneck_encode(x, params["enc"])
     z = (x @ params["enc"].to(x.dtype)).float()
     s = torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
     # torch.round, like jnp.round, rounds half to even
@@ -56,7 +64,12 @@ def encode(params: dict, x: torch.Tensor
 
 
 def decode(params: dict, codes: torch.Tensor, scales: torch.Tensor,
-           out_dtype=torch.float32) -> torch.Tensor:
+           out_dtype=torch.float32, use_kernel: bool = False
+           ) -> torch.Tensor:
+    if use_kernel:
+        from repro_torch.kernels.bottleneck import ops as bops
+        return bops.bottleneck_decode(codes, scales, params["dec"],
+                                      out_dtype)
     z = codes.float() * scales
     return (z @ params["dec"].float()).to(out_dtype)
 

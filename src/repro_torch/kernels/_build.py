@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel's source under ``<kernel>/csrc/`` is compiled by ``nvcc`` into
 a shared library with a plain C interface, loaded with ``ctypes``:
@@ -13,6 +13,12 @@ flags, so an edited kernel is rebuilt. The compiler log (with ptxas'
 register and shared-memory report) is kept beside the library as
 ``<name>-<hash>.log``. ``build`` runs one ``nvcc`` per missing library,
 all started together, each under its own time limit.
+
+The kernel wrappers (``<kernel>/ops.py``) share the rest: ``launcher``
+gives a kernel's C launch function with its signature set, ``device_of``
+the one device of a wrapper's inputs (a CPU tensor takes the plain
+version, a CUDA tensor the kernel), and ``DTYPE_CODES`` the dtype codes
+the launch functions take.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
 
 _KERNELS = Path(__file__).resolve().parent
 SOURCES: Dict[str, Path] = {
@@ -34,13 +42,23 @@ SOURCES: Dict[str, Path] = {
         _KERNELS / "decode_attention" / "csrc" / "paged_decode_attention.cu",
     "paged_verify_attention":
         _KERNELS / "decode_attention" / "csrc" / "paged_verify_attention.cu",
+    "flash_attention":
+        _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "bottleneck_encode":
+        _KERNELS / "bottleneck" / "csrc" / "bottleneck_encode.cu",
+    "bottleneck_decode":
+        _KERNELS / "bottleneck" / "csrc" / "bottleneck_decode.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
 
+# the dtype codes of the launch functions' ``dtype`` arguments
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+_launchers: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -111,3 +129,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def launcher(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The kernel's C function ``{name}_launch`` with its argument types
+    set (pointers and the stream as ``c_void_p``, so ctypes does not cut
+    them to 32 bits); it returns the launch's CUDA error, 0 on success."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _launchers[name] = fn
+    return fn
+
+
+def device_of(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device of a wrapper's inputs: cuda or cpu; raises
+    otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on different devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device.type}")
+    return device

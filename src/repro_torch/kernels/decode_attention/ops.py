@@ -18,12 +18,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref,
     paged_verify_attention_ref)
 
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the paged kernels stage a row's page table in shared memory beside the
 # 33,280 bytes of their merge buffers (hd=128), within the default 48 KiB
@@ -48,17 +48,10 @@ _ARGTYPES = {
                                + [ctypes.c_longlong] * 7
                                + [ctypes.c_float, ctypes.c_void_p]),
 }
-_launch_fns = {}
 
 
 def _kernel(name: str):
-    fn = _launch_fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load(name), f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _launch_fns[name] = fn
-    return fn
+    return _build.launcher(name, _ARGTYPES[name])
 
 
 def _check(q, k, v, bias) -> None:
@@ -74,9 +67,9 @@ def _check(q, k, v, bias) -> None:
     if tuple(bias.shape) != (B, W) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32 (B, W) = {(B, W)}; got "
                          f"{bias.dtype} {tuple(bias.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v must share one of {list(_DTYPE_CODES)}; "
+        raise ValueError(f"q/k/v must share one of {list(DTYPE_CODES)}; "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
@@ -90,22 +83,11 @@ def _check(q, k, v, bias) -> None:
         raise ValueError("bias must be contiguous over W")
 
 
-def _device(name: str, *tensors: torch.Tensor) -> torch.device:
-    """The one device of ``tensors``: cuda or cpu; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on different devices: {devices}")
-    device = devices.pop()
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {device.type}")
-    return device
-
-
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """q (B,H,hd); k/v (B,W,K,hd); bias (B,W) additive. -> (B,H,hd)."""
     global launches
-    device = _device("decode_attention", q, k, v, bias)
+    device = _build.device_of("decode_attention", q, k, v, bias)
     if device.type == "cpu":
         return decode_attention_ref(q, k, v, bias)
     _check(q, k, v, bias)
@@ -116,7 +98,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(device):
         err = _kernel("decode_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, K, W, hd,
+            out.data_ptr(), DTYPE_CODES[q.dtype], B, H, K, W, hd,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             bias.stride(0), 1.0 / hd ** 0.5, stream)
     if err != 0:
@@ -156,9 +138,9 @@ def _check_paged(q, k_pool, v_pool, page_table, bias) -> None:
         raise ValueError(f"bias must be float32 {want} with unit stride "
                          f"over slots; got {bias.dtype} "
                          f"{tuple(bias.shape)}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
+    if q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
-        raise ValueError(f"q/k/v must share one of {list(_DTYPE_CODES)}; "
+        raise ValueError(f"q/k/v must share one of {list(DTYPE_CODES)}; "
                          f"got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
@@ -178,7 +160,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     kernel does not check: idle rows point at the trash page); bias
     (B, n*page) additive over the row's virtual sequence. -> (B,H,hd)."""
     global paged_launches
-    device = _device("paged_decode_attention", q, k_pool, v_pool,
+    device = _build.device_of("paged_decode_attention", q, k_pool, v_pool,
                      page_table, bias)
     if device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
@@ -195,7 +177,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         err = _kernel("paged_decode_attention")(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, K, n, page, hd, k_pool.stride(0),
+            DTYPE_CODES[q.dtype], B, H, K, n, page, hd, k_pool.stride(0),
             k_pool.stride(1), v_pool.stride(0), v_pool.stride(1),
             page_table.stride(0), bias.stride(0), 1.0 / hd ** 0.5, stream)
     if err != 0:
@@ -214,7 +196,7 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     sequence (slot validity and causal-within-chunk). -> (B,C,H,hd).
     Column 0 of a C=1 call is ``paged_decode_attention``'s answer."""
     global verify_launches
-    device = _device("paged_verify_attention", q, k_pool, v_pool,
+    device = _build.device_of("paged_verify_attention", q, k_pool, v_pool,
                      page_table, bias)
     if device.type == "cpu":
         return paged_verify_attention_ref(q, k_pool, v_pool, page_table,
@@ -231,7 +213,7 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
         err = _kernel("paged_verify_attention")(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, C, H, K, n, page, hd,
+            DTYPE_CODES[q.dtype], B, C, H, K, n, page, hd,
             k_pool.stride(0), k_pool.stride(1), v_pool.stride(0),
             v_pool.stride(1), page_table.stride(0), bias.stride(0),
             bias.stride(1), 1.0 / hd ** 0.5, stream)

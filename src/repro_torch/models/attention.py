@@ -6,8 +6,11 @@ against a ring KV cache or a shared KV page pool, and multi-token
 Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, or, for
 the page pool, {"k": (P, page, K, hd), "v": ...}; k stored post-RoPE. Slot
 positions live at the model level and arrive here as an additive mask.
-MLA, the Pallas full-sequence flash path (``use_flash``) and query
-chunking (``attn_chunk``) are not ported yet (ROADMAP.md).
+With ``use_flash`` a causal full-sequence pass without a sliding window
+runs the flash-attention CUDA kernel (``kernels/flash_attention``), as the
+reference routes it to its Pallas kernel. MLA, query chunking
+(``attn_chunk``), the scores stub and ``shard_cache_hd`` are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -80,27 +83,38 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.use_flash:
-        raise NotImplementedError(f"use_flash (flash_call) is {_ROADMAP}")
-    if cfg.attn_chunk:
-        raise NotImplementedError(f"attn_chunk is {_ROADMAP}")
-    if cfg.attn_scores_stub or cfg.shard_cache_hd:
-        raise NotImplementedError(
-            f"attn_scores_stub / shard_cache_hd are {_ROADMAP}")
+def _check_decode_supported(cfg: ModelConfig) -> None:
+    """The decode paths read ``shard_cache_hd`` alone of the unported
+    switches; like the reference's, they ignore ``use_flash``,
+    ``attn_chunk`` and ``attn_scores_stub``, which only the full-sequence
+    pass reads."""
+    if cfg.shard_cache_hd:
+        raise NotImplementedError(f"shard_cache_hd is {_ROADMAP}")
 
 
 def gqa_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor,
              mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence GQA. Returns (out, cache_contents)."""
-    _check_supported(cfg)
+    """Full-sequence GQA. Returns (out, cache_contents).
+
+    The branches follow the reference's order: the scores stub, then the
+    flash kernel (``use_flash``, causal, no sliding window; it builds the
+    causal mask itself and ignores ``mask``, as the reference's does),
+    then query chunking, then ``_sdpa``."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
     q = _rope_q_or_k(cfg, q, positions)
     k = _rope_q_or_k(cfg, k, positions)
-    out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+    if cfg.attn_scores_stub:
+        raise NotImplementedError(f"attn_scores_stub is {_ROADMAP}")
+    elif cfg.use_flash and cfg.causal and cfg.sliding_window is None:
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        out = flash_ops.flash_attention(q, k, v, causal=True)
+    elif cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
+        raise NotImplementedError(f"attn_chunk is {_ROADMAP}")
+    else:
+        out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
     out = linear(out.reshape(B, S, H * hd), p["wo"])
     return out, {"k": k, "v": v}
 
@@ -115,7 +129,7 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     The cache is updated IN PLACE (the reference rebuilds it with
     ``dynamic_update_slice``/``.at[].set``); the returned dict holds the
     same tensors."""
-    _check_supported(cfg)
+    _check_decode_supported(cfg)
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -158,7 +172,7 @@ def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     may all write the same trash-page slot: which duplicate lands does
     not matter, since their outputs are discarded and no live row's mask
     admits a trash slot."""
-    _check_supported(cfg)
+    _check_decode_supported(cfg)
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -198,7 +212,7 @@ def gqa_verify_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     causal-within-chunk. The chunk's k/v are written IN PLACE before
     attention, so chunk token i attends chunk tokens <= i through the pool
     as C successive decode steps would. Returns (out, pool)."""
-    _check_supported(cfg)
+    _check_decode_supported(cfg)
     B, C, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)

@@ -1,19 +1,28 @@
-"""The port's decode-attention kernel module, held against the reference.
+"""The port's kernel modules (decode attention, flash attention, the
+bottleneck pair), held against the reference.
 
-On the CPU the wrapper (``repro_torch.kernels.decode_attention.ops``) takes
-the plain PyTorch version; these tests hold that version against the JAX
-plain reference and against the Pallas kernel in interpret mode, and check
-the wrapper's dispatch and validation. The CUDA kernel itself is held
-against the plain version on the card by ``chip_smoke.py``.
+On the CPU each wrapper (``repro_torch.kernels.*.ops``) takes its plain
+PyTorch version; these tests hold that version against the JAX plain
+reference and against the Pallas kernel in interpret mode, and check the
+wrappers' dispatch and validation. The CUDA kernels themselves are held
+against their plain versions on the card by ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.bottleneck import ops as jbops
+from repro.kernels.bottleneck import ref as jbref
 from repro.kernels.decode_attention import ops as jops
 from repro.kernels.decode_attention import ref as jref
+from repro.kernels.flash_attention import ops as jfops
+from repro.kernels.flash_attention import ref as jfref
+from repro_torch.kernels.bottleneck import ops as bops
+from repro_torch.kernels.bottleneck import ref as bref
 from repro_torch.kernels.decode_attention import ops, ref
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 
 torch.set_num_threads(1)
 
@@ -336,3 +345,226 @@ def test_verify_kernel_argument_checks_raise(bad):
         kp = kp.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         ops._check_paged(q, kp, vp, pt, bias)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: full-sequence GQA (the prefill's attention)
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [(2, 128, 4, 2, 64), (1, 200, 4, 4, 32), (2, 64, 8, 2, 64),
+                (1, 256, 4, 1, 128), (1, 96, 6, 3, 32)]  # tests/test_kernels.py
+
+
+def _flash_inputs(B, S, H, K, hd, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, S, H, hd).astype(np.float32),
+            rng.randn(B, S, K, hd).astype(np.float32),
+            rng.randn(B, S, K, hd).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,K,hd", FLASH_SHAPES)
+def test_flash_matches_reference_and_pallas_fp32(B, S, H, K, hd, causal):
+    q, k, v = _flash_inputs(B, S, H, K, hd)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out = fops.flash_attention(*t, causal=causal).numpy()
+    np.testing.assert_allclose(
+        out, np.asarray(jfref.attention_ref(q, k, v, causal=causal)), **FP32)
+    pallas = jfops.flash_attention(q, k, v, causal=causal, block_q=64,
+                                   block_k=64)
+    np.testing.assert_allclose(out, np.asarray(pallas), **FP32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,K,hd", FLASH_SHAPES)
+def test_flash_matches_reference_bf16(B, S, H, K, hd, causal):
+    q, k, v = _flash_inputs(B, S, H, K, hd, seed=1)
+    out = fops.flash_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                                 for a in (q, k, v)), causal=causal)
+    assert out.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    for want in (jfref.attention_ref(jq, jk, jv, causal=causal),
+                 jfops.flash_attention(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16)
+
+
+def test_flash_reads_nothing_past_s():
+    """q, k and v as views of buffers whose rows past S are NaN (strided
+    over batch): the result is finite and that of the contiguous inputs."""
+    B, S, H, K, hd, pad = 2, 40, 4, 2, 32, 9
+    rng = np.random.RandomState(2)
+    bufs = []
+    for heads in (H, K, K):
+        a = rng.randn(B, S + pad, heads, hd).astype(np.float32)
+        a[:, S:] = np.nan
+        bufs.append(torch.from_numpy(a)[:, :S])
+    out = fops.flash_attention(*bufs, causal=True)
+    assert torch.isfinite(out).all()
+    fops._check(*bufs)                  # what the CUDA path would accept
+    want = fops.flash_attention(*(b.contiguous() for b in bufs), causal=True)
+    assert torch.equal(out, want)
+
+
+def test_flash_cpu_tensors_take_the_plain_version_without_counting():
+    t = [torch.from_numpy(a) for a in _flash_inputs(1, 24, 4, 2, 32, 3)]
+    before = fops.flash_launches
+    out = fops.flash_attention(*t, causal=True, block_q=8, block_k=16)
+    assert fops.flash_launches == before
+    assert torch.equal(out, fref.attention_ref(*t, causal=True))
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fops.flash_attention(*meta)
+    with pytest.raises(ValueError, match="different devices"):
+        fops.flash_attention(meta[0], *t[1:])
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "groups", "length",
+                                 "strides"])
+def test_flash_kernel_argument_checks_raise(bad):
+    """What the flash CUDA path refuses before it launches."""
+    hd = 48 if bad == "head_dim" else 32
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(
+        1, 16, 3 if bad == "groups" else 4, 2, hd, seed=4))
+    if bad == "dtype":
+        v = v.to(torch.bfloat16)
+    if bad == "length":
+        k, v = k[:, :-1], v[:, :-1]
+    if bad == "strides":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        fops._check(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# bottleneck_encode / bottleneck_decode: the split point's fused pair
+# ---------------------------------------------------------------------------
+
+
+def _codes_close(codes, want):
+    """Codes within 1, on fewer than 1e-3 of entries, where summation order
+    moves z / s across a .5 tie (tests/test_kernels.py)."""
+    diff = np.abs(np.asarray(codes, np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,d,r", [(128, 128, 32), (64, 256, 100),
+                                   (100, 64, 16), (256, 1280, 638)])
+def test_bottleneck_encode_matches_reference_and_pallas(T, d, r, dtype):
+    rng = np.random.RandomState(5)
+    x = rng.randn(T, d).astype(np.float32)
+    w = (rng.randn(d, r) * 0.05).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tx, tw = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    codes, scales = bops.bottleneck_encode(tx, tw)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    assert tuple(codes.shape) == (T, r) and tuple(scales.shape) == (T, 1)
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    for want_c, want_s in (jbref.encode_ref(jx, jw),
+                           jbops.bottleneck_encode(jx, jw)):
+        np.testing.assert_allclose(scales.numpy(), np.asarray(want_s),
+                                   rtol=1e-5, atol=1e-7)
+        _codes_close(codes.numpy(), want_c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,d,r", [(128, 128, 32), (64, 256, 100)])
+def test_bottleneck_decode_matches_reference_and_pallas(T, d, r, dtype):
+    rng = np.random.RandomState(6)
+    codes = rng.randint(-127, 128, (T, r)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.1, (T, 1)).astype(np.float32)
+    w = (rng.randn(r, d) * 0.05).astype(np.float32)
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    jw = jnp.asarray(w, getattr(jnp, dtype))
+    out = bops.bottleneck_decode(torch.from_numpy(codes),
+                                 torch.from_numpy(scales), tw)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (T, d)
+    for want in (jbref.decode_ref(codes, scales, jw),
+                 jbops.bottleneck_decode(codes, scales, jw)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+    bf = bops.bottleneck_decode(torch.from_numpy(codes),
+                                torch.from_numpy(scales), tw, torch.bfloat16)
+    assert bf.dtype == torch.bfloat16
+    assert torch.equal(bf, out.to(torch.bfloat16))
+
+
+def test_bottleneck_batched_shapes_match_reference():
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 37, 64).astype(np.float32)
+    w = (rng.randn(64, 16) * 0.1).astype(np.float32)
+    wd = (rng.randn(16, 64) * 0.1).astype(np.float32)
+    codes, scales = bops.bottleneck_encode(torch.from_numpy(x),
+                                           torch.from_numpy(w))
+    assert tuple(codes.shape) == (2, 37, 16)
+    assert tuple(scales.shape) == (2, 37, 1)
+    jc, js = jbops.bottleneck_encode(x, w)
+    _codes_close(codes.numpy(), jc)
+    np.testing.assert_allclose(scales.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-7)
+    y = bops.bottleneck_decode(codes, scales, torch.from_numpy(wd))
+    assert tuple(y.shape) == (2, 37, 64)
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(jbops.bottleneck_decode(
+            codes.numpy(), scales.numpy(), wd)), rtol=1e-5, atol=1e-4)
+
+
+def test_bottleneck_cpu_tensors_take_the_plain_version_without_counting():
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(3, 10, 32).astype(np.float32))
+    w = torch.from_numpy(rng.randn(32, 8).astype(np.float32))
+    wd = torch.from_numpy(rng.randn(8, 32).astype(np.float32))
+    before = (bops.encode_launches, bops.bottleneck_decode_launches)
+    codes, scales = bops.bottleneck_encode(x, w)
+    y = bops.bottleneck_decode(codes, scales, wd)
+    assert (bops.encode_launches, bops.bottleneck_decode_launches) == before
+    want_c, want_s = bref.encode_ref(x.reshape(-1, 32), w)
+    assert torch.equal(codes.reshape(-1, 8), want_c)
+    assert torch.equal(scales.reshape(-1, 1), want_s)
+    assert torch.equal(y.reshape(-1, 32), bref.decode_ref(
+        want_c, want_s, wd))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bops.bottleneck_encode(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        bops.bottleneck_decode(codes, scales, wd.to("meta"))
+
+
+@pytest.mark.parametrize("bad", ["w_shape", "x_dtype", "x_stride",
+                                 "w_stride", "rank", "codes_dtype",
+                                 "scales_rows",
+                                 "out_dtype", "codes_stride"])
+def test_bottleneck_kernel_argument_checks_raise(bad):
+    """What the bottleneck CUDA paths refuse before they launch."""
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(12, 32).astype(np.float32))
+    w = torch.from_numpy(rng.randn(32, 8).astype(np.float32))
+    codes = torch.from_numpy(rng.randint(-127, 128, (12, 8)).astype(np.int8))
+    scales = torch.ones(12, 1)
+    wd = torch.from_numpy(rng.randn(8, 32).astype(np.float32))
+    out_dtype = torch.float32
+    if bad in ("w_shape", "x_dtype", "x_stride", "w_stride", "rank"):
+        if bad == "w_shape":
+            w = w[:-1]
+        if bad == "x_dtype":
+            x = x.to(torch.float16)
+        if bad == "x_stride":
+            x = x.t().contiguous().t()
+        if bad == "w_stride":
+            w = w.t().contiguous().t()
+        if bad == "rank":
+            w = torch.zeros(32, bops.MAX_RANK + 1)
+        with pytest.raises(ValueError):
+            bops._check_encode(x, w)
+        return
+    if bad == "codes_dtype":
+        codes = codes.to(torch.int16)
+    if bad == "scales_rows":
+        scales = scales[:-1]
+    if bad == "out_dtype":
+        out_dtype = torch.float16
+    if bad == "codes_stride":
+        codes = codes.t().contiguous().t()
+    with pytest.raises(ValueError):
+        bops._check_decode(codes, scales, wd, out_dtype)

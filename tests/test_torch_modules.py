@@ -222,6 +222,52 @@ def test_gqa_full(system):
     _close(jkv["v"], tkv["v"])
 
 
+def test_gqa_full_use_flash_ignores_mask(system):
+    """use_flash routes the causal pass through the flash kernel (its plain
+    version on CPU tensors), which builds the causal mask itself: a mask
+    that is not causal, passed in, is ignored by both packages alike."""
+    params, tparams, _, _ = system
+    jp = _layer(params["llm"]["groups"][0]["attn"], 1)
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 1)
+    S = 11
+    x = _llm_x(40, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    mask = np.zeros((1, S, S), np.float32)
+    jcfg, tcfg = JP.llm.replace(use_flash=True), TP.llm.replace(use_flash=True)
+    jo, jkv = jattn.gqa_full(jp, jcfg, x, pos, jnp.asarray(mask))
+    to, tkv = tattn.gqa_full(tp, tcfg, torch.from_numpy(x),
+                             torch.from_numpy(pos), torch.from_numpy(mask))
+    _close(jo, to)
+    _close(jkv["k"], tkv["k"])
+    causal, _ = tattn.gqa_full(tp, TP.llm, torch.from_numpy(x),
+                               torch.from_numpy(pos), tc.causal_mask(S)[None])
+    _close(causal, to)
+
+
+def test_gqa_full_unported_switches_raise_where_reached(system):
+    """The reference's order of branches: the scores stub, then flash, then
+    query chunking (only where S splits into chunks), then SDPA."""
+    _, tparams, _, _ = system
+    tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 0)
+    S = 8
+    x = torch.from_numpy(_llm_x(41, S))
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(2, S)
+    mask = tc.causal_mask(S)[None]
+    plain, _ = tattn.gqa_full(tp, TP.llm, x, pos, mask)
+    with pytest.raises(NotImplementedError, match="attn_scores_stub"):
+        tattn.gqa_full(tp, TP.llm.replace(attn_scores_stub=True,
+                                          use_flash=True), x, pos, mask)
+    with pytest.raises(NotImplementedError, match="attn_chunk"):
+        tattn.gqa_full(tp, TP.llm.replace(attn_chunk=4), x, pos, mask)
+    flash, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=4,
+                                                 use_flash=True),
+                              x, pos, mask)
+    _close(plain.numpy(), flash)
+    unchunked, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=3), x, pos,
+                                  mask)
+    assert torch.equal(unchunked, plain)
+
+
 @pytest.mark.parametrize("flash", [True, False])
 @pytest.mark.parametrize("per_row", [False, True])
 def test_gqa_decode(system, flash, per_row):
@@ -672,6 +718,62 @@ def test_llm_verify_step_paged(system, flash):
         _close_pool(jpool["groups"][0][name], tpool["groups"][0][name])
 
 
+@pytest.mark.parametrize("step", ["decode", "decode_paged", "verify_paged"])
+def test_use_flash_runs_the_decode_paths_as_the_reference(system, step):
+    """The reference reads use_flash only in the full-sequence pass; its
+    decode, paged-decode and verify steps ignore it. With use_flash (and
+    the decode kernels) on, each step agrees with the reference's, where
+    the port used to raise."""
+    params, tparams, _, _ = system
+
+    def cfg(pc):
+        return dataclasses.replace(pc, llm=pc.llm.replace(
+            use_flash=True, use_flash_decode=True))
+
+    jcfg, tcfg = cfg(JP), cfg(TP)
+    if step == "decode":
+        ctx, query = _ctx_query(42)
+        S = ctx.shape[1] + query.shape[1]
+        _, _, jcache = jv.llm_prefill(params, jcfg, ctx, query, width=S + 2)
+        _, _, tcache = tv.llm_prefill(tparams, tcfg, torch.from_numpy(ctx),
+                                      torch.from_numpy(query), width=S + 2)
+        _close(jcache["groups"][0]["k"], tcache["groups"][0]["k"])
+        tok = np.array([[3], [17]], np.int32)
+        jl, js, _ = jv.llm_decode_step(params, jcfg, jcache, tok,
+                                       jnp.int32(S))
+        tl, ts, _ = tv.llm_decode_step(tparams, tcfg, tcache,
+                                       torch.from_numpy(tok), S)
+        _close(jl, tl)
+        _close(js, ts)
+        return
+    if step == "decode_paged":
+        case = _paged_case(43)
+        pool_k, pool_v, table, positions, tokens, pos, write_slot = case
+        args = (table, positions, tokens, pos, write_slot)
+        jfn, tfn, live = jv.llm_decode_step_paged, tv.llm_decode_step_paged, \
+            None
+    else:
+        case = _verify_case(44)
+        pool_k, pool_v, *rest = case
+        args = tuple(rest)
+        jfn, tfn, live = jv.llm_verify_step_paged, \
+            tv.llm_verify_step_paged, case[-1]
+    jl, js, jpool = jfn(params, jcfg, {"groups": [{
+        "k": jnp.asarray(pool_k), "v": jnp.asarray(pool_v)}]}, *args)
+    tpool = {"groups": [{"k": torch.from_numpy(pool_k.copy()),
+                         "v": torch.from_numpy(pool_v.copy())}]}
+    tl, ts, tpool = tfn(tparams, tcfg, tpool,
+                        *(torch.from_numpy(a) for a in args))
+    if live is None:
+        _close(jl, tl)
+        _close(js, ts)
+    else:
+        _close_live(jl, tl, live)
+        _close_live(js, ts, live)
+    for name in ("k", "v"):
+        _close_pool(jpool["groups"][0][name], tpool["groups"][0][name])
+
+
 # ---------------------------------------------------------------------------
 # bottleneck
 # ---------------------------------------------------------------------------
@@ -708,6 +810,38 @@ def test_bottleneck_decode(system):
         np.asarray(jbn.decode(bns[tier], codes, scales)),
         tbn.decode(tbns[tier], torch.from_numpy(codes),
                    torch.from_numpy(scales)).numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tier", ["High Accuracy", "Balanced",
+                                  "High Throughput"])
+def test_bottleneck_use_kernel(system, tier):
+    """encode/decode(use_kernel=True) against the reference's (its Pallas
+    kernels in interpret mode): the port's kernel wrappers take their
+    plain versions on CPU tensors; the SAM boundary (1, T, d) in, codes,
+    scales and the decoded activation out in the reference's shapes."""
+    _, _, bns, tbns = system
+    x = _rng(15).randn(1, JP.sam_tokens, JP.sam.d_model).astype(np.float32)
+    jcodes, jscales = jbn.encode(bns[tier], x, use_kernel=True)
+    tcodes, tscales = tbn.encode(tbns[tier], torch.from_numpy(x),
+                                 use_kernel=True)
+    assert tuple(tcodes.shape) == jcodes.shape
+    assert tuple(tscales.shape) == jscales.shape
+    np.testing.assert_allclose(np.asarray(jscales), tscales.numpy(),
+                               rtol=1e-5, atol=1e-7)
+    _codes_close(jcodes, tcodes)
+    codes, scales = np.array(jcodes), np.array(jscales)
+    jy = jbn.decode(bns[tier], codes, scales, out_dtype=jnp.float32,
+                    use_kernel=True)
+    ty = tbn.decode(tbns[tier], torch.from_numpy(codes),
+                    torch.from_numpy(scales), out_dtype=torch.float32,
+                    use_kernel=True)
+    assert tuple(ty.shape) == jy.shape
+    np.testing.assert_allclose(np.asarray(jy), ty.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    plain = tbn.decode(tbns[tier], torch.from_numpy(codes),
+                       torch.from_numpy(scales))
+    np.testing.assert_allclose(plain.numpy(), ty.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
