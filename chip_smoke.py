@@ -67,6 +67,22 @@ Phases, each fatal on failure:
      one kind at a time (flash, then the bottleneck pair), each reading
      on its own line beside its limit; one frame's encode and decode
      timed.
+ 11. (zoo) LISA-7B freed, then the zoo's Mamba path at full width with
+     random bf16 weights from ``--seed``, one config after the other:
+     falcon-mamba-7b (64 Mamba-1 layers) and zamba2-7b (81 Mamba-2 layers
+     in 9 hybrid groups behind one shared attention block), each with
+     ``use_ssm_kernel=True``: (a) ``prefill_step`` on B = 2 prompts of
+     1,024 tokens, counters from 0: one scan launch per Mamba layer and no
+     other kernel, finite last logits; every launch held against
+     ``scan_ref`` on its own inputs, the logits against a replay with
+     ``scan_ref`` in the kernel's place (PATH_RTOL) and against
+     ``use_ssm_kernel=False`` (SDPA_PATH_RTOL); (b) a 64-token prompt
+     through ``decode_step`` from ``init_cache`` and 4 greedy tokens: no
+     kernel launch, the logits at the prompt's last position against
+     ``prefill_step``'s; (c, falcon-mamba-7b) ``SplitPlan(cfg, 32)``:
+     32 + 32 launches, the hidden state equal to ``forward``'s; (e) a
+     warm prefill and a decode step timed, one falcon-mamba-7b prefill
+     traced.
 
 Phase 3 holds the paged kernels too: the decode kernel at the three shapes
 of the reference's kernel test and at the in-flight path's shape, the
@@ -81,7 +97,10 @@ S = 204, bf16), once more with q, k and v as views of buffers whose
 rows past S are NaN, and at sequences of 1,500 and 3,000 (the online
 kernel); the bottleneck encode and decode kernels at the
 reference test's shapes and at the split point's (one frame of 4096
-tokens x 1280, the three tiers' ranks).
+tokens x 1280, the three tiers' ranks); and the scan kernel at the
+reference test's four shapes, its 512-step long-decay case, a bf16 case
+and the two zoo prefills' shapes, counting the elements that are not
+bit-equal to ``scan_ref``'s.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -92,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -139,6 +159,7 @@ REPLACES = {  # the TPU kernel each CUDA kernel replaces
         "src/repro/kernels/flash_attention/flash_attention.py:71",
     "bottleneck_encode": "src/repro/kernels/bottleneck/bottleneck.py:32",
     "bottleneck_decode": "src/repro/kernels/bottleneck/bottleneck.py:63",
+    "ssm_scan": "src/repro/kernels/ssm_scan/ssm_scan.py:41",
 }
 # the in-flight phase: slots of the decoder, and eight requests from two
 # operators in three waves: (operator, kind, frame). A frame number names
@@ -946,6 +967,111 @@ def check_bottleneck_decode(rng, case, dev, timed):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: ssm_scan against its plain version
+# ---------------------------------------------------------------------------
+
+# the scan kernel against scan_ref on the same inputs: both round a
+# multiply and an add per step in float32, so they agree bit for bit;
+# the limits are the reference's own kernel test's
+# (tests/test_kernels.py), 2e-4 for its long-decay case
+SCAN_TOL = (1e-5, 1e-6)
+SCAN_LONG_TOL = (2e-4, 2e-4)
+
+
+def scan_cases(zoo_cfgs):
+    """The four shapes of the reference's scan test and its 512-step
+    long-decay case (float32), a bf16-input case, and the two prefill
+    path shapes at B = 2, S = 1024: falcon-mamba-7b (C = d_inner, N) and
+    zamba2-7b (C = d_inner, the heads' P x N flattened as the path
+    flattens them, N)."""
+    cases = [dict(name=f"float32_B{B}_S{S}_C{C}_N{N}", shape=(B, S, C, N),
+                  dtype=torch.float32, lo=0.5, hi=1.0, drive=0.1,
+                  tol=SCAN_TOL)
+             for B, S, C, N in ((2, 64, 128, 16), (1, 100, 60, 8),
+                                (2, 128, 256, 4), (1, 33, 16, 16))]
+    cases.append(dict(name="float32_long_decay_B1_S512_C32_N8",
+                      shape=(1, 512, 32, 8), dtype=torch.float32, lo=0.9,
+                      hi=0.999, drive=1.0, tol=SCAN_LONG_TOL))
+    cases.append(dict(name="bf16_B2_S256_C512_N16", shape=(2, 256, 512, 16),
+                      dtype=torch.bfloat16, lo=0.5, hi=1.0, drive=0.1,
+                      tol=SCAN_TOL))
+    for name, cfg in zoo_cfgs.items():
+        # mamba1's (B, S, d_inner, N); mamba2's (B, S, heads, P, N) as
+        # (B, S, heads * P = d_inner, N)
+        shape = (ZOO_BATCH, ZOO_PROMPT, cfg.ssm.expand * cfg.d_model,
+                 cfg.ssm.state_size)
+        cases.append(dict(name=f"main_{name}", shape=shape,
+                          dtype=torch.float32, lo=0.5, hi=1.0, drive=0.1,
+                          tol=SCAN_TOL))
+    return cases
+
+
+def scan_inputs(gen, case, dev):
+    """decay uniform in [lo, hi), drive normal times ``drive``, made on
+    the card (the path shapes are 1-4 GB a tensor)."""
+    shape, dtype = case["shape"], case["dtype"]
+    decay = torch.rand(shape, generator=gen, device=dev)
+    decay = decay.mul_(case["hi"] - case["lo"]).add_(case["lo"])
+    drive = torch.randn(shape, generator=gen, device=dev).mul_(case["drive"])
+    return decay.to(dtype), drive.to(dtype)
+
+
+def scan_held_against(name, h, want, tol):
+    """A scan output against scan_ref's: within ``tol``; returns (max abs
+    error, elements not bit-equal)."""
+    err = held_against(name, h, want, tol)
+    return err, int((h != want).sum())
+
+
+def check_ssm_scan(gen, case, dev, timed):
+    from repro_torch.kernels.ssm_scan import ops, ref
+    decay, drive = scan_inputs(gen, case, dev)
+    h = ops.chunked_scan(decay, drive)
+    torch.cuda.synchronize()
+    want = ref.scan_ref(decay, drive)
+    if h.dtype != torch.float32 or h.shape != decay.shape:
+        raise AssertionError(f"ssm_scan {case['name']}: {h.dtype} "
+                             f"{tuple(h.shape)}")
+    rtol, atol = case["tol"]
+    max_err, off = scan_held_against(f"ssm_scan {case['name']}", h, want,
+                                     case["tol"])
+    B, S, C, N = case["shape"]
+    res = {"case": case["name"], "B": B, "S": S, "C": C, "N": N,
+           "dtype": str(case["dtype"]).replace("torch.", ""),
+           "max_abs_err": max_err, "not_bit_equal": off,
+           "elements": h.numel(), "rtol": rtol, "atol": atol}
+    msg = (f"[kernel] ssm_scan {case['name']}: B={B} S={S} C={C} N={N} "
+           f"{res['dtype']} max_abs_err={max_err:.3g} (rtol {rtol}, atol "
+           f"{atol}), {off} of {h.numel()} elements not bit-equal")
+    del want
+    if timed:
+        # decay and drive read once, h written once; one multiply and one
+        # add an element (float32, outside the tensor cores)
+        nbytes = h.numel() * (2 * decay.element_size() + 4)
+        flops = 2 * h.numel()
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
+            torch.float32]
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [(decay, drive)] + [scan_inputs(gen, case, dev)
+                                   for _ in range(copies - 1)]
+        res.update({
+            "ms": device_ms(ops.chunked_scan, sets),
+            "plain_ms": device_ms(ref.scan_ref, sets, reps=3),
+            "same_bytes_ms": device_ms(
+                lambda d, x: torch.add(d, x, out=h), sets),
+            "library_ms": None,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" same_bytes_ms={res['same_bytes_ms']:.4f} (torch.add, "
+                f"same bytes) bound_ms={res['bound_ms']:.4f} "
+                f"({res['bound_by']})")
+    log(msg)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
@@ -1052,8 +1178,9 @@ def small_input_check(seed, dev):
 
 
 def _rel(a, b):
-    """Norm-wise relative error of ``a`` against ``b``."""
-    b = np.asarray(b, np.float64)
+    """Norm-wise relative error of ``a`` against ``b`` (arrays or tensors)."""
+    a, b = (x.double().cpu().numpy() if torch.is_tensor(x)
+            else np.asarray(x, np.float64) for x in (a, b))
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
@@ -1395,7 +1522,7 @@ def inflight_timings(executor, frames):
 
 KERNELS = ("paged_verify_attention", "paged_decode_attention",
            "decode_attention", "flash_attention", "bottleneck_encode",
-           "bottleneck_decode")
+           "bottleneck_decode", "ssm_scan")
 
 
 def _launch_counts():
@@ -1403,21 +1530,25 @@ def _launch_counts():
     from repro_torch.kernels.bottleneck import ops as bops
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
     return {"decode_attention": ops.launches,
             "paged_decode_attention": ops.paged_launches,
             "paged_verify_attention": ops.verify_launches,
             "flash_attention": fops.flash_launches,
             "bottleneck_encode": bops.encode_launches,
-            "bottleneck_decode": bops.bottleneck_decode_launches}
+            "bottleneck_decode": bops.bottleneck_decode_launches,
+            "ssm_scan": sops.scan_launches}
 
 
 def _reset_launch_counts():
     from repro_torch.kernels.bottleneck import ops as bops
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
     ops.launches = ops.paged_launches = ops.verify_launches = 0
     fops.flash_launches = 0
     bops.encode_launches = bops.bottleneck_decode_launches = 0
+    sops.scan_launches = 0
 
 
 def _only(**want):
@@ -1454,6 +1585,9 @@ def trace(label, fn):
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         fn()
+        # the device may still run the warm-up's kernels: let it finish,
+        # or they land in the recorded window
+        torch.cuda.synchronize()
         prof.step()
         before = _launch_counts()
         t0 = _sync_s()
@@ -2155,6 +2289,260 @@ def split_phase(executor, pcfg, seed, reqs, results, frames,
             "split_point": split_point_phase(fx, fcfg, seed)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the zoo's Mamba path (falcon-mamba-7b, zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# the two zoo configs of the path, each with its count of parameters (the
+# reference's count_params) and its split point
+ZOO = {"falcon-mamba-7b": 7_272_665_088, "zamba2-7b": 6_751_130_832}
+ZOO_SPLIT = {"falcon-mamba-7b": 32}
+ZOO_BATCH = 2
+ZOO_PROMPT = 1024
+ZOO_DECODE_PROMPT = 64
+ZOO_NEW_TOKENS = 4
+# decode against prefill on the same prompt: the decode step runs the
+# causal conv as one contraction and the recurrence one token at a time,
+# where the prefill sums tap by tap and scans; bf16 roundings of the
+# layers' outputs differ, as between the LISA paths of SDPA_PATH_RTOL
+DECODE_PREFILL_RTOL = 2.0 ** -3
+
+
+def _within(label, value, limit):
+    log(f"[zoo] {label}: {value:.3g} (limit {limit:.3g})")
+    if not value <= limit:
+        raise AssertionError(f"{label}: {value:.3g} beyond {limit:.3g}")
+    return value
+
+
+def _median_wall_ms(fn, n=3):
+    walls = []
+    for _ in range(n):
+        t0 = _sync_s()
+        fn()
+        walls.append((_sync_s() - t0) * 1e3)
+    return float(np.median(walls)), walls
+
+
+def zoo_prefill_checks(params, cfg, batch, logits):
+    """(a) after the counted prefill: a replay with every scan launch held
+    against scan_ref on that launch's own inputs (its outputs are the
+    kernel's, so the replay is the counted run again); a replay with
+    scan_ref in the kernel's place (logits within PATH_RTOL); the plain
+    path, ``use_ssm_kernel=False`` (the doubling scan; logits within
+    SDPA_PATH_RTOL)."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.models import prefill_step
+    kernel = sops.chunked_scan
+    seen = {"launches": 0, "max_abs_err": 0.0, "not_bit_equal": 0,
+            "elements": 0}
+
+    def held(decay, drive, **kw):
+        h = kernel(decay, drive, **kw)
+        torch.cuda.synchronize()
+        err, off = scan_held_against(f"{cfg.name} scan launch "
+                                     f"{seen['launches']}", h,
+                                     sref.scan_ref(decay, drive), SCAN_TOL)
+        seen["launches"] += 1
+        seen["max_abs_err"] = max(seen["max_abs_err"], err)
+        seen["not_bit_equal"] += off
+        seen["elements"] += h.numel()
+        return h
+
+    with mock.patch.object(sops, "chunked_scan", held):
+        again, _ = prefill_step(params, cfg, batch)
+    if not torch.equal(again, logits):
+        raise AssertionError(f"{cfg.name}: the checked replay's logits "
+                             f"differ from the counted run's")
+    log(f"[zoo] {cfg.name}: {seen['launches']} scan launches held against "
+        f"scan_ref on their own inputs: max_abs_err "
+        f"{seen['max_abs_err']:.3g} (rtol {SCAN_TOL[0]}, atol "
+        f"{SCAN_TOL[1]}), {seen['not_bit_equal']} of {seen['elements']} "
+        f"elements not bit-equal")
+    with mock.patch.object(sops, "chunked_scan",
+                           lambda d, x, **kw: sref.scan_ref(d, x)):
+        plain, _ = prefill_step(params, cfg, batch)
+    before = sops.scan_launches
+    sdpa, _ = prefill_step(params, cfg.replace(use_ssm_kernel=False), batch)
+    if sops.scan_launches != before:
+        raise AssertionError(f"{cfg.name}: use_ssm_kernel=False launched "
+                             f"the scan kernel")
+    return {"per_launch": seen,
+            "plain_replay_rel": _within(
+                f"{cfg.name} last logits vs scan_ref replay (norm-wise)",
+                _rel(logits, plain), PATH_RTOL),
+            "plain_path_rel": _within(
+                f"{cfg.name} last logits vs use_ssm_kernel=False "
+                f"(norm-wise)", _rel(logits, sdpa), SDPA_PATH_RTOL)}
+
+
+def zoo_decode(params, cfg, prompt, dev):
+    """(b) the prompt through ``decode_step`` from ``init_cache`` (the
+    reference's prefill hands SSM state to nothing), then
+    ZOO_NEW_TOKENS greedy tokens fed back; counters from 0. The logits at
+    the prompt's last position against ``prefill_step``'s."""
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    S = prompt.shape[1]
+    cache = init_cache(cfg, ZOO_BATCH, S + ZOO_NEW_TOKENS, dev)
+    _reset_launch_counts()
+    t0 = _sync_s()
+    new, last = [], None
+    for t in range(S + ZOO_NEW_TOKENS):
+        tok = prompt[:, t:t + 1] if t < S else new[t - S]
+        lg, cache = decode_step(params, cfg, cache, tok, t)
+        if t == S - 1:
+            last = lg
+        if t >= S - 1 and len(new) < ZOO_NEW_TOKENS:
+            new.append(torch.argmax(lg[:, -1], dim=-1)[:, None].int())
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    if counts != _only():
+        raise AssertionError(f"{cfg.name} decode launched port kernels: "
+                             f"{counts}")
+    tokens = torch.cat(new, dim=1)
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: decoded token out of range")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+    want, _ = prefill_step(params, cfg, {"tokens": prompt})
+    log(f"[zoo] {cfg.name} decode: prompt {S} + {ZOO_NEW_TOKENS} greedy "
+        f"tokens in {wall:.2f} s, no kernel launches, tokens "
+        f"{tokens.tolist()}")
+    return {"steps": S + ZOO_NEW_TOKENS, "wall_s": wall,
+            "tokens": tokens.tolist(),
+            "vs_prefill_rel": _within(
+                f"{cfg.name} decode logits at position {S - 1} vs "
+                f"prefill_step (norm-wise)", _rel(last, want),
+                DECODE_PREFILL_RTOL)}
+
+
+def zoo_split(params, cfg, batch, k):
+    """(c) ``SplitPlan(cfg, k)``: head_apply then tail_apply over the
+    embedded prompt, counters from 0: k + (L - k) scan launches, the
+    hidden state equal to ``forward``'s, the weights shared."""
+    from repro_torch.core import SplitPlan
+    from repro_torch.models import forward
+    from repro_torch.models.common import causal_mask
+    from repro_torch.models.model import _embed_inputs
+    plan = SplitPlan(cfg, k)
+    edge, cloud = plan.split_params(params)
+    w = params["groups"][0]["mixer"]["in_proj"]
+    if edge["groups"][0]["mixer"]["in_proj"].data_ptr() != w.data_ptr() \
+            or cloud["groups"][0]["mixer"]["in_proj"].data_ptr() \
+            != w[k].data_ptr():
+        raise AssertionError("SplitPlan copied the weights")
+    _, _, _, hidden = forward(params, cfg, batch)
+    x, positions = _embed_inputs(params, cfg, batch)
+    mask = causal_mask(x.shape[1], device=x.device)[None]
+    _reset_launch_counts()
+    mid = plan.head_apply(edge, x, positions, mask)
+    torch.cuda.synchronize()
+    head = _launch_counts()["ssm_scan"]
+    out = plan.tail_apply(cloud, mid, positions, mask)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    want = _only(ssm_scan=cfg.num_layers)
+    if head != k or counts != want:
+        raise AssertionError(f"{cfg.name} split@{k}: {head} head launches "
+                             f"(expected {k}), counts {counts}")
+    log(f"[zoo] {cfg.name} split@{k}: {head} + {counts['ssm_scan'] - head} "
+        f"scan launches, weights shared")
+    return {"split_layer": k, "launches": {"head": head,
+                                           "tail": counts["ssm_scan"] - head},
+            "hidden_rel": _within(f"{cfg.name} split@{k} hidden vs "
+                                  f"forward (norm-wise)",
+                                  _rel(out, hidden), PATH_RTOL)}
+
+
+def zoo_run(name, seed, dev):
+    """Phase 11 for one zoo config: init at full width, the counted
+    prefill (a) and its checks, decode (b), split (c) where the config
+    has a split point, and timings (e). Frees nothing itself: the
+    caller drops its references."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, stack)
+    cfg = get_config(name).replace(use_ssm_kernel=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = _sync_s()
+    params = init_params(cfg, gen, dev)
+    init_s = _sync_s() - t0
+    n_params = sum(t.numel() for t in stack.leaves(params))
+    if n_params != ZOO[name]:
+        raise AssertionError(f"{name}: {n_params} parameters, expected "
+                             f"{ZOO[name]}")
+    nbytes = sum(t.numel() * t.element_size() for t in stack.leaves(params))
+    log(f"[zoo] {name}: {n_params:,} parameters ({nbytes / 1e9:.2f} GB "
+        f"bf16) initialised in {init_s:.1f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    layers = cfg.num_layers
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = _sync_s()
+    logits, cache = prefill_step(params, cfg, batch)
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    if counts != _only(ssm_scan=layers):
+        raise AssertionError(f"{name} prefill: launches {counts}, expected "
+                             f"{layers} ssm_scan and no other")
+    if tuple(logits.shape) != (ZOO_BATCH, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: last logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    log(f"[zoo] {name} prefill B={ZOO_BATCH} S={ZOO_PROMPT}: {layers} "
+        f"ssm_scan launches (expected {layers}), other kernels 0; last "
+        f"logits {tuple(logits.shape)} finite; wall {wall:.2f} s (first "
+        f"call), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    out = {"params": n_params, "init_s": init_s, "first_prefill_s": wall,
+           "launches": counts, "logits_shape": list(logits.shape),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del cache
+    out["prefill"] = zoo_prefill_checks(params, cfg, batch, logits)
+    out["decode"] = zoo_decode(params, cfg, tokens[:, :ZOO_DECODE_PROMPT],
+                               dev)
+    if name in ZOO_SPLIT:
+        out["split"] = zoo_split(params, cfg, batch, ZOO_SPLIT[name])
+
+    # (e) timings: a warm prefill and one decode step, wall to a
+    # synchronise, median of 3; one traced prefill (falcon-mamba-7b)
+    out["prefill_wall_ms"], walls = _median_wall_ms(
+        lambda: prefill_step(params, cfg, batch))
+    cache = init_cache(cfg, ZOO_BATCH, ZOO_DECODE_PROMPT, dev)
+    tok = tokens[:, :1]
+    decode_step(params, cfg, cache, tok, 0)
+    pos = iter(range(1, 6))
+    out["decode_step_wall_ms"], dwalls = _median_wall_ms(
+        lambda: decode_step(params, cfg, cache, tok, next(pos)))
+    log(f"[zoo] {name}: warm prefill wall {out['prefill_wall_ms']:.1f} ms "
+        f"(median of {[round(w, 1) for w in walls]}), decode step wall "
+        f"{out['decode_step_wall_ms']:.2f} ms (median of "
+        f"{[round(w, 2) for w in dwalls]})")
+    if name == "falcon-mamba-7b":
+        out["profile"] = trace(f"{name} prefill B={ZOO_BATCH} "
+                               f"S={ZOO_PROMPT}",
+                               lambda: prefill_step(params, cfg, batch))
+        out["decode_profile"] = trace(
+            f"{name} decode step B={ZOO_BATCH}",
+            lambda: decode_step(params, cfg, cache, tok, next(pos)))
+    return out
+
+
+def zoo_phase(seed, dev):
+    """Phase 11: each zoo config in turn, freed before the next."""
+    report = {}
+    for name in ZOO:
+        report[name] = zoo_run(name, seed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -2182,7 +2570,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
-    from repro_torch.configs import get_lisa_config
+    from repro_torch.configs import get_config, get_lisa_config
     from repro_torch.core.bottleneck import rank_for_ratio
     from repro_torch.core.lut import paper_lut
     from repro_torch.core.streams import DualStreamExecutor
@@ -2239,6 +2627,14 @@ def main() -> int:
     checks["bottleneck_decode"] = [
         check_bottleneck_decode(rng, c, dev, timed=c["name"].startswith(
             "main")) for c in dec_cases]
+    zoo_cfgs = {n: get_config(n) for n in ZOO}
+    scan_gen = torch.Generator(device=dev)
+    scan_gen.manual_seed(args.seed)
+    checks["ssm_scan"] = [
+        check_ssm_scan(scan_gen, c, dev, timed=c["name"].startswith("main"))
+        for c in scan_cases(zoo_cfgs)]
+    gc.collect()
+    torch.cuda.empty_cache()
     report.update(checks)
     report["small_input"] = small_input_check(args.seed, dev)
 
@@ -2247,10 +2643,11 @@ def main() -> int:
     executor = DualStreamExecutor(pcfg=pcfg, params=params, bottlenecks=bns,
                                   lut=lut, max_new_tokens=MAX_NEW_TOKENS,
                                   flash_decode=True, device=dev)
-    n_params = sum(t.numel() for t in _leaves(executor.params))
+    from repro_torch.models.stack import leaves
+    n_params = sum(t.numel() for t in leaves(executor.params))
     report["init_s"] = _sync_s() - t0
     log(f"[serve] lisa-7b: {n_params / 1e9:.3f} B parameters "
-        f"({sum(t.numel() * t.element_size() for t in _leaves(executor.params)) / 1e9:.2f} GB) "
+        f"({sum(t.numel() * t.element_size() for t in leaves(executor.params)) / 1e9:.2f} GB) "
         f"initialised in {report['init_s']:.1f} s")
 
     timings = []
@@ -2308,6 +2705,17 @@ def main() -> int:
         executor, pcfg, args.seed, reqs, results, frames, inflight_results,
         report["inflight"]["launches"]["paged_decode_attention"])
 
+    # phase 11: free LISA-7B, then the zoo's Mamba path
+    del executor, params, bns, reqs, results, sched, frames, inflight_results
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[zoo] LISA-7B freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB still allocated")
+    t0 = time.perf_counter()
+    report["zoo"] = zoo_phase(args.seed, dev)
+    report["zoo_s"] = time.perf_counter() - t0
+    log(f"[zoo] phase 11 in {report['zoo_s']:.1f} s")
+
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape
     main_case = {"decode_attention": "main_B4",
@@ -2316,25 +2724,31 @@ def main() -> int:
                                            f"{SPEC_PAGE}",
                  "flash_attention": "main_B4",
                  "bottleneck_encode": f"main_r{max(ranks)}",
-                 "bottleneck_decode": f"main_r{max(ranks)}"}
+                 "bottleneck_decode": f"main_r{max(ranks)}",
+                 "ssm_scan": "main_falcon-mamba-7b"}
     split = report["split"]
     launched = {"decode_attention": report["serve"]["launches"],
                 "paged_decode_attention": report["inflight"]["launches"],
                 "paged_verify_attention": report["spec"]["run_a"]["launches"],
                 "flash_attention": split["microbatch"]["launches"],
                 "bottleneck_encode": split["split_point"]["launches"],
-                "bottleneck_decode": split["split_point"]["launches"]}
+                "bottleneck_decode": split["split_point"]["launches"],
+                "ssm_scan": report["zoo"]["falcon-mamba-7b"]["launches"]}
     path_err = {"decode_attention": report["parity"]["max_abs_err"],
                 "paged_decode_attention":
                     report["inflight"]["parity"]["max_abs_err"],
                 "paged_verify_attention":
                     report["spec"]["parity"]["max_abs_err"],
-                **split["split_point"]["max_abs_err"]}
+                **split["split_point"]["max_abs_err"],
+                "ssm_scan": max(z["prefill"]["per_launch"]["max_abs_err"]
+                                for z in report["zoo"].values())}
     # yardsticks beside library_ms where no one PyTorch call computes the
     # function: page gather + SDPA (two calls) for the paged kernels, the
     # matmul + quantisation chain (ten calls) for encode, the
-    # dequantisation + matmul chain (four calls) for decode
-    extra = ("gather_sdpa_ms", "matmul_quant_ms", "dequant_matmul_ms")
+    # dequantisation + matmul chain (four calls) for decode, one
+    # torch.add over the same bytes for the scan
+    extra = ("gather_sdpa_ms", "matmul_quant_ms", "dequant_matmul_ms",
+             "same_bytes_ms")
     kernels = []
     for name, src in _build.SOURCES.items():
         main_check = next(c for c in checks[name]
@@ -2365,17 +2779,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -48,6 +48,7 @@ SOURCES: Dict[str, Path] = {
         _KERNELS / "bottleneck" / "csrc" / "bottleneck_encode.cu",
     "bottleneck_decode":
         _KERNELS / "bottleneck" / "csrc" / "bottleneck_decode.cu",
+    "ssm_scan": _KERNELS / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,7 +15,7 @@ reference routes it to its Pallas kernel. MLA, query chunking
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,9 +25,10 @@ from repro_torch.models.config import ModelConfig
 _ROADMAP = "not ported yet; see ROADMAP.md"
 
 
-def init_gqa(generator: torch.Generator, cfg: ModelConfig, layers: int,
-             device=None) -> dict:
-    """Stacked GQA weights with a leading layer axis."""
+def init_gqa(generator: torch.Generator, cfg: ModelConfig,
+             layers: Optional[int], device=None) -> dict:
+    """Stacked GQA weights with a leading layer axis; ``layers=None`` for
+    one unstacked layer."""
     d, H, K, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                    cfg.resolved_head_dim)
     dt = cfg.pdtype
@@ -39,7 +40,8 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig, layers: int,
     }
     if cfg.qkv_bias:
         for n, w in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
-            p[n] = torch.zeros((layers, w), dtype=dt, device=device)
+            shape = (w,) if layers is None else (layers, w)
+            p[n] = torch.zeros(shape, dtype=dt, device=device)
     return p
 
 
@@ -241,6 +243,13 @@ def gqa_empty_cache(cfg: ModelConfig, batch: int, width: int,
     shape = (batch, width, K, hd)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+
+
+def empty_cache(cfg: ModelConfig, batch: int, width: int,
+                device=None) -> dict:
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    return gqa_empty_cache(cfg, batch, width, device)
 
 
 def attn_full(p, cfg: ModelConfig, x, positions, mask):

@@ -8,7 +8,7 @@ reference does.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,14 +26,25 @@ def normal_init(generator: torch.Generator, shape: Sequence[int],
     return (x * scale).to(dtype)
 
 
+Layers = Union[int, Tuple[int, ...], None]
+
+
+def leading_axes(layers: Layers) -> Tuple[int, ...]:
+    """The leading axes of a stacked leaf: none for one layer (None), a
+    layer axis (an int), or several (a tuple)."""
+    if layers is None:
+        return ()
+    return (layers,) if isinstance(layers, int) else tuple(layers)
+
+
 def fan_in_init(generator: torch.Generator, shape: Sequence[int],
                 dtype=torch.float32, device=None,
-                layers: Optional[int] = None) -> torch.Tensor:
-    """LeCun-style init for a (fan_in, fan_out) weight matrix; with
-    ``layers`` a stack of them with a leading layer axis."""
+                layers: Layers = None) -> torch.Tensor:
+    """LeCun-style init for a (fan_in, fan_out) weight matrix, stacked
+    over ``leading_axes(layers)``."""
     scale = 1.0 / math.sqrt(max(1, shape[0]))
-    full = tuple(shape) if layers is None else (layers, *shape)
-    return normal_init(generator, full, scale, dtype, device)
+    return normal_init(generator, (*leading_axes(layers), *shape), scale,
+                       dtype, device)
 
 
 # ---------------------------------------------------------------------------

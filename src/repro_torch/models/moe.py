@@ -2,6 +2,8 @@
 and expert paths wait for the architecture-zoo slice (ROADMAP.md)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models.common import ACTIVATIONS, fan_in_init, linear
@@ -9,8 +11,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def init_dense_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
-                   layers: int, device=None) -> dict:
-    """Stacked dense-FFN weights with a leading layer axis."""
+                   layers: Optional[int], device=None) -> dict:
+    """Stacked dense-FFN weights with a leading layer axis; ``layers=None``
+    for one unstacked layer."""
     d, dt = cfg.d_model, cfg.pdtype
     names = ("w_gate", "w_up") if cfg.gated_mlp else ("w_up",)
     p = {n: fan_in_init(generator, (d, d_ff), dt, device, layers)

@@ -3,7 +3,16 @@
 Every architecture is a sequence of groups; each group's parameters keep
 the reference's stacked layout, a leading layer axis on every leaf. The
 reference's ``lax.scan`` over layers is a Python loop over that axis here.
-Only dense groups are ported; the other kinds raise.
+
+Group kinds:
+  dense   — attention + dense FFN
+  mamba1  — Mamba-1 mixer                     (falcon-mamba)
+  mamba2  — Mamba-2 mixer                     (zamba2 backbone)
+  hybrid  — Zamba2 super-group: one *shared* attention block (parameters
+            shared across all invocations, ``params["shared_attn"]``)
+            followed by ``attn_every`` Mamba-2 layers; its leaves carry
+            two leading axes, (count, attn_every, ...).
+The ``moe`` kind is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -12,8 +21,9 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, moe as moe_lib
-from repro_torch.models.common import layer_norm, rms_norm
+from repro_torch.models import attention, moe as moe_lib, ssm
+from repro_torch.models.common import (Layers, layer_norm, leading_axes,
+                                       rms_norm)
 from repro_torch.models.config import ModelConfig
 
 _ROADMAP = "not ported yet; see ROADMAP.md"
@@ -48,9 +58,10 @@ def layer_groups(cfg: ModelConfig) -> List[GroupSpec]:
 # ---------------------------------------------------------------------------
 
 
-def init_norm(cfg: ModelConfig, layers: Optional[int] = None,
+def init_norm(cfg: ModelConfig, layers: Layers = None,
               device=None) -> dict:
-    shape = (cfg.d_model,) if layers is None else (layers, cfg.d_model)
+    """One norm's weights, stacked over ``leading_axes(layers)``."""
+    shape = (*leading_axes(layers), cfg.d_model)
     p = {"w": torch.ones(shape, dtype=cfg.pdtype, device=device)}
     if cfg.norm == "layernorm":
         p["b"] = torch.zeros(shape, dtype=cfg.pdtype, device=device)
@@ -68,22 +79,51 @@ def apply_norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _require_dense(spec: GroupSpec) -> None:
-    if spec.kind != "dense":
-        raise NotImplementedError(f"{spec.kind} groups are {_ROADMAP}")
+def _refuse_moe(spec: GroupSpec) -> None:
+    if spec.kind == "moe":
+        raise NotImplementedError(f"moe groups are {_ROADMAP}")
+
+
+def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig,
+                      d_ff: int, device=None) -> dict:
+    """One unstacked dense layer (the hybrid's shared block)."""
+    return {
+        "norm1": init_norm(cfg, device=device),
+        "attn": attention.init_gqa(generator, cfg, None, device),
+        "norm2": init_norm(cfg, device=device),
+        "mlp": moe_lib.init_dense_mlp(generator, cfg, d_ff, None, device),
+    }
+
+
+def _init_mamba_layers(generator: torch.Generator, cfg: ModelConfig,
+                       lead: Tuple[int, ...], device=None) -> dict:
+    init = ssm.init_mamba1 if cfg.ssm.version == 1 else ssm.init_mamba2
+    return {"norm": init_norm(cfg, lead, device),
+            "mixer": init(generator, cfg, device, lead)}
 
 
 def init_group(generator: torch.Generator, cfg: ModelConfig,
                spec: GroupSpec, device=None) -> dict:
-    """Stacked dense-layer parameters: every leaf (count, ...)."""
-    _require_dense(spec)
+    """Stacked parameters of one group: every leaf (count, ...), or
+    (count, attn_every, ...) for a hybrid group."""
+    _refuse_moe(spec)
     n = spec.count
-    return {
-        "norm1": init_norm(cfg, n, device),
-        "attn": attention.init_gqa(generator, cfg, n, device),
-        "norm2": init_norm(cfg, n, device),
-        "mlp": moe_lib.init_dense_mlp(generator, cfg, spec.d_ff, n, device),
-    }
+    if spec.kind == "dense":
+        return {
+            "norm1": init_norm(cfg, n, device),
+            "attn": attention.init_gqa(generator, cfg, n, device),
+            "norm2": init_norm(cfg, n, device),
+            "mlp": moe_lib.init_dense_mlp(generator, cfg, spec.d_ff, n,
+                                          device),
+        }
+    if spec.kind in ("mamba1", "mamba2"):
+        return _init_mamba_layers(generator, cfg, (n,), device)
+    if spec.kind == "hybrid":
+        # only the per-group Mamba-2 layers; the shared attention block
+        # lives once at the top level (params["shared_attn"])
+        return _init_mamba_layers(generator, cfg,
+                                  (n, cfg.hybrid.attn_every), device)
+    raise ValueError(spec.kind)
 
 
 def layer_slice(tree: Any, idx) -> Any:
@@ -127,17 +167,42 @@ def _dense_block_decode_paged(p, cfg, x, positions, pool, page_table,
     return x, c2
 
 
+def _mamba_block_full(p, cfg, x):
+    full = ssm.mamba1_full if cfg.ssm.version == 1 else ssm.mamba2_full
+    return x + full(p["mixer"], cfg, apply_norm(x, p["norm"], cfg))
+
+
+def _mamba_block_decode(p, cfg, x, state):
+    step = ssm.mamba1_step if cfg.ssm.version == 1 else ssm.mamba2_step
+    h, s2 = step(p["mixer"], cfg, apply_norm(x, p["norm"], cfg), state)
+    return x + h, s2
+
+
 def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
                   x: torch.Tensor, positions: torch.Tensor,
-                  mask: torch.Tensor, want_cache: bool = False
+                  mask: torch.Tensor, shared_attn: Optional[dict] = None,
+                  want_cache: bool = False
                   ) -> Tuple[torch.Tensor, float, Optional[dict]]:
     """Run one group full-sequence. Returns (x, aux_loss, cache_or_None);
-    the cache leaves are stacked (count, B, S, K, hd)."""
-    _require_dense(spec)
+    the attention cache leaves are stacked (count, B, S, K, hd). Mamba
+    groups return no cache, as the reference's do: their decode starts
+    from ``group_empty_cache``."""
+    _refuse_moe(spec)
+    if spec.kind in ("mamba1", "mamba2"):
+        for i in range(spec.count):
+            x = _mamba_block_full(layer_slice(params, i), cfg, x)
+        return x, 0.0, None
+    if spec.kind not in ("dense", "hybrid"):
+        raise ValueError(spec.kind)
     ks, vs = [], []
     for i in range(spec.count):
-        x, kv = _dense_block_full(layer_slice(params, i), cfg, x, positions,
-                                  mask)
+        lp = layer_slice(params, i)
+        if spec.kind == "dense":
+            x, kv = _dense_block_full(lp, cfg, x, positions, mask)
+        else:
+            x, kv = _dense_block_full(shared_attn, cfg, x, positions, mask)
+            for j in range(cfg.hybrid.attn_every):
+                x = _mamba_block_full(layer_slice(lp, j), cfg, x)
         if want_cache:
             ks.append(kv["k"])
             vs.append(kv["v"])
@@ -148,15 +213,37 @@ def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
 
 def group_decode(params: Any, cfg: ModelConfig, spec: GroupSpec,
                  x: torch.Tensor, positions: torch.Tensor, cache: dict,
-                 slot, mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """Single-token decode through one group. ``cache`` leaves are stacked
-    (count, B, W, K, hd) and are updated in place, layer by layer. Returns
-    (x, cache)."""
-    _require_dense(spec)
+                 slot, mask: torch.Tensor,
+                 shared_attn: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode through one group. ``cache`` is the group's
+    ``group_empty_cache`` layout, its leaves updated in place, layer by
+    layer. Returns (x, cache)."""
+    _refuse_moe(spec)
     for i in range(spec.count):
-        x, _ = _dense_block_decode(layer_slice(params, i), cfg, x, positions,
-                                   layer_slice(cache, i), slot, mask)
+        lp, c = layer_slice(params, i), layer_slice(cache, i)
+        if spec.kind == "dense":
+            x, _ = _dense_block_decode(lp, cfg, x, positions, c, slot, mask)
+        elif spec.kind in ("mamba1", "mamba2"):
+            x, _ = _mamba_block_decode(lp, cfg, x, c)
+        elif spec.kind == "hybrid":
+            x, _ = _dense_block_decode(shared_attn, cfg, x, positions,
+                                       c["attn"], slot, mask)
+            for j in range(cfg.hybrid.attn_every):
+                x, _ = _mamba_block_decode(layer_slice(lp, j), cfg, x,
+                                           layer_slice(c["mamba"], j))
+        else:
+            raise ValueError(spec.kind)
     return x, cache
+
+
+def _attention_stacks_only(spec: GroupSpec, what: str) -> None:
+    """The paged caches hold attention k/v alone: SSM recurrent state has
+    no sequence axis to page (the reference refuses the same kinds)."""
+    _refuse_moe(spec)
+    if spec.kind != "dense":
+        raise NotImplementedError(
+            f"{what} covers attention stacks only, not {spec.kind}")
 
 
 def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
@@ -168,7 +255,7 @@ def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     (leaves (count, P, page, K, hd)). Each layer gets the contiguous view
     ``pool[l]`` (P, page, K, hd), updated in place and read in place by the
     kernel. Returns (x, pool)."""
-    _require_dense(spec)
+    _attention_stacks_only(spec, "paged decode")
     for i in range(spec.count):
         x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
                                          positions, layer_slice(pool, i),
@@ -187,7 +274,7 @@ def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     write_page / write_off (B, C), mask (B, C, n_pages*page). The layer
     loop of ``group_decode_paged`` with the multi-query attention body.
     Returns (x, pool), the pool updated in place."""
-    _require_dense(spec)
+    _attention_stacks_only(spec, "paged verify")
     for i in range(spec.count):
         x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
                                          positions, layer_slice(pool, i),
@@ -195,3 +282,66 @@ def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
                                          mask,
                                          attn_fn=attention.attn_verify_paged)
     return x, pool
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _zeros_stacked(tree: Any, lead: Tuple[int, ...]) -> Any:
+    """Zeros shaped like ``tree``'s leaves with the leading axes ``lead``
+    (every empty cache is zeros, as the reference's broadcasts are)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_stacked(v, lead) for k, v in tree.items()}
+    return tree.new_zeros((*lead, *tree.shape))
+
+
+def group_empty_cache(cfg: ModelConfig, spec: GroupSpec, batch: int,
+                      width: int, device=None) -> Any:
+    """One group's decode cache: attention k/v (count, B, width, K, hd),
+    Mamba states (count, B, ...), and for a hybrid group both, the states
+    (count, attn_every, B, ...)."""
+    _refuse_moe(spec)
+    n = spec.count
+    if spec.kind == "dense":
+        return _zeros_stacked(
+            attention.empty_cache(cfg, batch, width, device), (n,))
+    if spec.kind in ("mamba1", "mamba2"):
+        empty = (ssm.mamba1_empty_state if cfg.ssm.version == 1
+                 else ssm.mamba2_empty_state)
+        return _zeros_stacked(empty(cfg, batch, device), (n,))
+    if spec.kind == "hybrid":
+        return {
+            "attn": _zeros_stacked(
+                attention.empty_cache(cfg, batch, width, device), (n,)),
+            "mamba": _zeros_stacked(ssm.mamba2_empty_state(cfg, batch,
+                                                           device),
+                                    (n, cfg.hybrid.attn_every)),
+        }
+    raise ValueError(spec.kind)
+
+
+# ---------------------------------------------------------------------------
+# parameter counting
+# ---------------------------------------------------------------------------
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count: ``init_params`` on the meta device, which
+    allocates nothing."""
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(cfg, torch.Generator(), device="meta")
+    return sum(t.numel() for t in leaves(params))
+
+
+def leaves(tree: Any):
+    """Yield the tensors of a dict/list/tuple tree, depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree

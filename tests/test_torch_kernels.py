@@ -1,5 +1,5 @@
 """The port's kernel modules (decode attention, flash attention, the
-bottleneck pair), held against the reference.
+bottleneck pair, the selective scan), held against the reference.
 
 On the CPU each wrapper (``repro_torch.kernels.*.ops``) takes its plain
 PyTorch version; these tests hold that version against the JAX plain
@@ -7,6 +7,7 @@ reference and against the Pallas kernel in interpret mode, and check the
 wrappers' dispatch and validation. The CUDA kernels themselves are held
 against their plain versions on the card by ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,11 +19,15 @@ from repro.kernels.decode_attention import ops as jops
 from repro.kernels.decode_attention import ref as jref
 from repro.kernels.flash_attention import ops as jfops
 from repro.kernels.flash_attention import ref as jfref
+from repro.kernels.ssm_scan import ops as jsops
+from repro.kernels.ssm_scan import ref as jsref
 from repro_torch.kernels.bottleneck import ops as bops
 from repro_torch.kernels.bottleneck import ref as bref
 from repro_torch.kernels.decode_attention import ops, ref
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.ssm_scan import ops as sops
+from repro_torch.kernels.ssm_scan import ref as sref
 
 torch.set_num_threads(1)
 
@@ -568,3 +573,101 @@ def test_bottleneck_kernel_argument_checks_raise(bad):
         codes = codes.t().contiguous().t()
     with pytest.raises(ValueError):
         bops._check_decode(codes, scales, wd, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: the Mamba blocks' selective scan
+# ---------------------------------------------------------------------------
+
+
+# the reference's oracle, jitted: its associative scan dispatches op by op
+# (slowly) when eager
+_jscan_ref = jax.jit(jsref.scan_ref)
+
+
+def _scan_inputs(shape, seed, lo=0.5, hi=1.0, drive_scale=0.1):
+    rng = np.random.RandomState(seed)
+    decay = rng.uniform(lo, hi, shape).astype(np.float32)
+    drive = (rng.randn(*shape) * drive_scale).astype(np.float32)
+    return decay, drive
+
+
+@pytest.mark.parametrize("B,S,C,N", [(2, 64, 128, 16), (1, 100, 60, 8),
+                                     (2, 128, 256, 4), (1, 33, 16, 16)])
+def test_scan_matches_reference_and_pallas(B, S, C, N):
+    """The reference test's four shapes (tests/test_kernels.py), rtol 1e-5
+    and atol 1e-6 against the associative-scan oracle and the Pallas
+    kernel in interpret mode."""
+    decay, drive = _scan_inputs((B, S, C, N), seed=10)
+    td, tx = torch.from_numpy(decay), torch.from_numpy(drive)
+    for h in (sref.scan_ref(td, tx), sops.chunked_scan(td, tx)):
+        assert h.dtype == torch.float32 and tuple(h.shape) == (B, S, C, N)
+        for want in (_jscan_ref(decay, drive),
+                     jsops.chunked_scan(decay, drive, chunk=32, block_c=64)):
+            np.testing.assert_allclose(h.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_scan_long_decay_matches_reference():
+    """512 decays in [0.9, 0.999] and unit drive (the reference's
+    long-sequence case): products stay finite, within 2e-4."""
+    decay, drive = _scan_inputs((1, 512, 32, 8), seed=11, lo=0.9, hi=0.999,
+                                drive_scale=1.0)
+    h = sops.chunked_scan(torch.from_numpy(decay), torch.from_numpy(drive))
+    assert torch.isfinite(h).all()
+    for want in (_jscan_ref(decay, drive),
+                 jsops.chunked_scan(decay, drive, chunk=64, block_c=32)):
+        np.testing.assert_allclose(h.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_scan_bf16_inputs_match_reference():
+    """bf16 decay and drive are widened to float32 exactly, and the scan
+    runs in float32 as the reference's does."""
+    decay, drive = _scan_inputs((2, 40, 24, 16), seed=12)
+    td = torch.from_numpy(decay).to(torch.bfloat16)
+    tx = torch.from_numpy(drive).to(torch.bfloat16)
+    h = sops.chunked_scan(td, tx)
+    assert h.dtype == torch.float32
+    assert torch.equal(h, sref.scan_ref(td.float(), tx.float()))
+    jd = jnp.asarray(decay, jnp.bfloat16)
+    jx = jnp.asarray(drive, jnp.bfloat16)
+    np.testing.assert_allclose(h.numpy(), np.asarray(_jscan_ref(jd, jx)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_scan_cpu_tensors_take_the_plain_version_without_counting():
+    decay, drive = (torch.from_numpy(a) for a in _scan_inputs(
+        (1, 9, 5, 3), seed=13))
+    before = sops.scan_launches
+    h = sops.chunked_scan(decay, drive, chunk=4, block_c=2)
+    assert sops.scan_launches == before
+    assert torch.equal(h, sref.scan_ref(decay, drive))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sops.chunked_scan(decay.to("meta"), drive.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        sops.chunked_scan(decay, drive.to("meta"))
+
+
+@pytest.mark.parametrize("bad", ["rank", "shape", "dtype", "mixed_dtype",
+                                 "strides", "empty"])
+def test_scan_kernel_argument_checks_raise(bad):
+    """What the scan CUDA path refuses before it launches."""
+    decay, drive = (torch.from_numpy(a) for a in _scan_inputs(
+        (2, 6, 4, 8), seed=14))
+    if bad == "rank":
+        decay, drive = decay[0], drive[0]
+    if bad == "shape":
+        drive = drive[:, :-1]
+    if bad == "dtype":
+        decay, drive = decay.half(), drive.half()
+    if bad == "mixed_dtype":
+        drive = drive.to(torch.bfloat16)
+    if bad == "strides":
+        decay = decay.transpose(2, 3).contiguous().transpose(2, 3)
+    if bad == "empty":
+        decay, drive = decay[:, :0], drive[:, :0]
+    with pytest.raises(ValueError):
+        sops._check(decay, drive)
+    sops._check(*(torch.from_numpy(a) for a in _scan_inputs((2, 6, 4, 8),
+                                                             seed=14)))
