@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--out PATH]
+    python3 chip_smoke.py --kernel NAME [--kernel NAME ...]
 
 Phases, each fatal on failure:
   1. report the card (name and power limit from nvidia-smi);
@@ -54,8 +55,11 @@ Phases, each fatal on failure:
      serving weights, each run's launch counters set to 0 just before it:
      (a) phase 5's requests through the microbatch scheduler: one flash
      launch per layer and microbatch, tokens equal to phase 5's, logits
-     and masks within SDPA_PATH_RTOL of it, and within PATH_RTOL of a
-     replay with the flash kernel's plain version in its place; (b) phase
+     and masks within SDPA_PATH_RTOL of it; a replay with the flash
+     kernel's plain version in its place, in which every prefill layer is
+     also computed with the kernel on the same input and held to
+     LAYER_RTOL (``flash_layer_check``), and whose tokens, logits and
+     masks are held to SDPA_PATH_RTOL; (b) phase
      8's schedule through ``InflightDecoder(slots=4)``: one flash launch
      per layer and prefix miss, phase 8's paged launches and tokens;
      (c) one Insight frame per tier through the split point with both
@@ -64,7 +68,8 @@ Phases, each fatal on failure:
      one encode and one decode launch per frame, every launch held
      against its plain version on its own inputs, and the mask logits
      against a replay with each kernel kind's plain version in its place,
-     one kind at a time (flash, then the bottleneck pair), each reading
+     one kind at a time: flash (with the per-layer check of (a);
+     SDPA_PATH_RTOL), then the bottleneck pair (PATH_RTOL), each reading
      on its own line beside its limit; one frame's encode and decode
      timed.
  11. (zoo) LISA-7B freed, then the zoo's Mamba path at full width with
@@ -94,8 +99,10 @@ an idle row parked on the trash page, and every page no table names filled
 with NaN. It holds the flash kernel at the five shapes of the reference's
 test (causal and not, fp32 and bf16), at the LLM prefill's (B = 1 and 4,
 S = 204, bf16), once more with q, k and v as views of buffers whose
-rows past S are NaN, and at sequences of 1,500 and 3,000 (the online
-kernel); the bottleneck encode and decode kernels at the
+rows past S are NaN, and at long sequences: bf16 causal at 1,500 and
+4,096 (SAM's token grid, LLaMA-7B's heads), bf16 at 1,000 (not causal,
+NaN past S) and 777 (hd = 32), float32 at 3,000 (the online kernel, with
+NaN past S); the bottleneck encode and decode kernels at the
 reference test's shapes and at the split point's (one frame of 4096
 tokens x 1280, the three tiers' ranks); and the scan kernel at the
 reference test's four shapes, its 512-step long-decay case, a bf16 case
@@ -140,14 +147,35 @@ TOL = {torch.bfloat16: (8e-3, 1e-3),
 # The LISA-7B outputs of the kernel path against the same path with the
 # kernel's plain version in its place, as a norm-wise relative error
 # ||a - b|| / ||b||. Each launch differs by at most one bf16 rounding of
-# its output (2**-8); eight such roundings are allowed: 2**-5.
+# its output (2**-8); eight such roundings are allowed: 2**-5. It holds
+# the decode, paged, verify, bottleneck and scan replays. Not the flash
+# replays: random-weight layers grew a correct flash kernel's one
+# rounding to 0.0384 there (PERF.md §6), so each prefill layer is
+# held to LAYER_RTOL on its own input, and the replay's outputs to
+# SDPA_PATH_RTOL.
 PATH_RTOL = 2.0 ** -5
 # The same against the flash_decode=False path, whose attention rounds the
 # probabilities to bf16 before P.V (as the reference's does) where the
 # kernel keeps them in float32: a bf16 rounding of every output element
 # in every layer and step. Its measured spread on LISA-7B (PERF.md) set
-# this limit, which guards against gross faults, not rounding.
+# this limit, which guards against gross faults, not rounding; it also
+# holds the plain-flash replays, which differ from the kernel path only
+# in rounding.
 SDPA_PATH_RTOL = 2.0 ** -3
+# A prefill layer with the flash kernel against the same layer with its
+# plain version, on the same input (flash_layer_check): the attention
+# block's output and the layer's output, each as a norm-wise relative
+# error. Both compute in float32 and round the attention output once to
+# bf16, so they may differ by one bf16 rounding: 2**-8. A wrong mask,
+# scale or head mapping is O(1).
+LAYER_RTOL = 2.0 ** -8
+# The bf16 flash kernel keeps the probabilities near float32 through P.V
+# (p_hi + p_lo, two bf16 MMAs). On the timed bf16 cases its norm-wise error
+# against attention_ref must be under this share of the error of
+# attention_ref with P rounded once to bf16 (FlashAttention's P). A kernel
+# that rounds P once reads about 0.8 of it (normalised by the float32 sum),
+# one that keeps P in float32 about 0.01 (tests/test_torch_flash_layers.py).
+P_SPLIT_RATIO = 0.25
 REPLACES = {  # the TPU kernel each CUDA kernel replaces
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:246",
@@ -686,6 +714,33 @@ def flash_bytes_flops(case, es):
         4 * B * H * hd * pairs
 
 
+def attention_p_bf16(q, k, v, causal=True):
+    """``attention_ref`` with the probabilities rounded to bf16 before P.V,
+    as one bf16 P in the P.V MMA would have them."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    scores = torch.einsum("bskgh,btkh->bkgst",
+                          q.reshape(B, S, K, H // K, hd).float(),
+                          k.float()) / math.sqrt(hd)
+    if causal:
+        above = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+        scores = scores.masked_fill(above, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def p_split_reading(out, want, q, k, v, causal):
+    """How near ``out`` keeps P to float32: its norm-wise error against
+    ``want`` (attention_ref), the error of ``attention_p_bf16`` against the
+    same, and their ratio, which must be under P_SPLIT_RATIO."""
+    err = _rel(out, want)
+    err_p = _rel(attention_p_bf16(q, k, v, causal), want)
+    return {"rel_err": err, "rel_err_p_bf16": err_p, "ratio": err / err_p,
+            "limit": P_SPLIT_RATIO}
+
+
 def check_flash_attention(rng, case, dev, timed):
     from repro_torch.kernels.flash_attention import ops, ref
     causal = case["causal"]
@@ -729,16 +784,32 @@ def check_flash_attention(rng, case, dev, timed):
         msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
                 f" library_ms={res['library_ms']:.4f} bound_ms="
                 f"{res['bound_ms']:.5f} ({res['bound_by']})")
+        if dtype == torch.bfloat16:
+            p = res["p_split"] = p_split_reading(out, want, *args, causal)
+            msg += (f"; P near float32: norm-wise err {p['rel_err']:.3g}, "
+                    f"with P rounded to bf16 {p['rel_err_p_bf16']:.3g}, "
+                    f"ratio {p['ratio']:.3g} (limit {P_SPLIT_RATIO})")
     log(msg)
+    if "p_split" in res and not res["p_split"]["ratio"] < P_SPLIT_RATIO:
+        raise AssertionError(f"flash_attention {case['name']}: the kernel "
+                             f"keeps P no nearer float32 than P_SPLIT_RATIO "
+                             f"of one bf16 P's error: {res['p_split']}")
     return res
+
+
+# the flash cases that are timed: the prefill's two shapes and the long
+# sequences
+FLASH_TIMED = ("main_B1", "main_B4", "bf16_B1_S1500_G2_hd128_causal",
+               "bf16_B1_S4096_G1_hd128_causal")
 
 
 def flash_cases(pcfg):
     """The five shapes of the reference's flash test, causal and not, in
     fp32 and bf16; the LLM prefill's shapes (B = 1 and 4, S = clip tokens
     + query, bf16, causal); the B = 4 prefill once more with q, k and v as
-    views of buffers whose rows past S are NaN; and sequences whose score
-    rows do not fit shared memory, which take the online kernel."""
+    views of buffers whose rows past S are NaN; and long sequences: bf16
+    causal at S = 1,500 and 4,096, bf16 not causal at 1,000 (with NaN past
+    S) and causal at 777 (hd = 32), float32 at 3,000 with NaN past S."""
     cases = []
     for B, S, H, K, hd in ((2, 128, 4, 2, 64), (1, 200, 4, 4, 32),
                            (2, 64, 8, 2, 64), (1, 256, 4, 1, 128),
@@ -757,11 +828,22 @@ def flash_cases(pcfg):
                           K=llm.num_kv_heads, hd=llm.resolved_head_dim,
                           causal=True, dtype=llm.adtype, pad=0))
     cases.append(dict(cases[-1], name="main_B4_nan_past_S", pad=52))
-    # sequences whose 32 score rows do not fit shared memory: the online
-    # kernel, causal and not, with NaN past S
-    cases.append(dict(name="bf16_B1_S1500_G2_hd128_causal_online", B=1,
-                      S=1500, H=4, K=2, hd=128, causal=True,
+    # long sequences: bf16 causal at S = 1,500 and at SAM's token grid
+    # (4,096, LLaMA-7B's heads), float32 not causal with NaN past S
+    cases.append(dict(name="bf16_B1_S1500_G2_hd128_causal", B=1, S=1500,
+                      H=4, K=2, hd=128, causal=True, dtype=torch.bfloat16,
+                      pad=0))
+    cases.append(dict(name="bf16_B1_S4096_G1_hd128_causal", B=1, S=4096,
+                      H=llm.num_heads, K=llm.num_kv_heads,
+                      hd=llm.resolved_head_dim, causal=True,
                       dtype=torch.bfloat16, pad=0))
+    # bf16 not causal with NaN past S at hd = 64, and causal at hd = 32
+    # with an odd S
+    cases.append(dict(name="bf16_B2_S1000_G2_hd64_full", B=2, S=1000, H=8,
+                      K=4, hd=64, causal=False, dtype=torch.bfloat16,
+                      pad=24))
+    cases.append(dict(name="bf16_B1_S777_G4_hd32_causal", B=1, S=777, H=4,
+                      K=1, hd=32, causal=True, dtype=torch.bfloat16, pad=0))
     cases.append(dict(name="float32_B2_S3000_G4_hd64_full_online", B=2,
                       S=3000, H=8, K=2, hd=64, causal=False,
                       dtype=torch.float32, pad=40))
@@ -1178,7 +1260,12 @@ def small_input_check(seed, dev):
 
 
 def _rel(a, b):
-    """Norm-wise relative error of ``a`` against ``b`` (arrays or tensors)."""
+    """Norm-wise relative error of ``a`` against ``b``: arrays, or tensors
+    (two tensors on their own device)."""
+    if torch.is_tensor(a) and torch.is_tensor(b):
+        a, b = a.double(), b.double()
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
     a, b = (x.double().cpu().numpy() if torch.is_tensor(x)
             else np.asarray(x, np.float64) for x in (a, b))
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -1977,6 +2064,90 @@ def _flash_plain(q, k, v, causal=True, block_q=128, block_k=128):
     return ref.attention_ref(q, k, v, causal=causal)
 
 
+def flash_layer_check(label, run, kernel=None):
+    """Run ``run()`` with the flash kernel's plain version in the kernel's
+    place, so that it follows the plain trajectory, and hold every dense
+    layer of every prefill that reaches flash attention: on the layer's
+    input x as the plain run has it, the layer computed with ``kernel``
+    (default: the flash wrapper) against the layer computed with the plain
+    version, in the same weights and dtype. Two norm-wise relative errors
+    a layer, each within LAYER_RTOL: the attention block's output h
+    (before the residual add, so a small attention term cannot hide behind
+    a large residual) and the layer's output. The plain output goes on, so
+    no error carries from one layer to the next. Raises naming the first
+    layer past the limit. Returns (what ``run`` returns, which is the
+    plain-flash replay's result, and a summary)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention, stack
+    kernel = fops.flash_attention if kernel is None else kernel
+    block, attn_full = stack._dense_block_full, attention.attn_full
+    group_forward = stack.group_forward
+    prefills = []               # one list of layer readings a group pass
+
+    def grouped(*a, **kw):
+        prefills.append([])
+        return group_forward(*a, **kw)
+
+    def layer(flash, p, cfg, x, positions, mask):
+        seen = {"flash": 0}
+
+        def fl(*a, **kw):
+            seen["flash"] += 1
+            return flash(*a, **kw)
+
+        def attn(*a, **kw):
+            seen["h"], kv = attn_full(*a, **kw)
+            return seen["h"], kv
+
+        with mock.patch.object(fops, "flash_attention", fl), \
+                mock.patch.object(attention, "attn_full", attn):
+            y, kv = block(p, cfg, x, positions, mask)
+        return seen, y, kv
+
+    def checked(p, cfg, x, positions, mask):
+        plain, y, kv = layer(_flash_plain, p, cfg, x, positions, mask)
+        if plain["flash"]:
+            got, y_k, _ = layer(kernel, p, cfg, x, positions, mask)
+            prefills[-1].append({"h": _rel(got["h"], plain["h"]),
+                                 "out": _rel(y_k, y),
+                                 "bit_equal": bool(torch.equal(y_k, y))})
+        return y, kv
+
+    with mock.patch.object(stack, "_dense_block_full", checked), \
+            mock.patch.object(stack, "group_forward", grouped):
+        result = run()
+    prefills = [p for p in prefills if p]     # the encoders take no flash
+    layers = [(i, j, r) for i, p in enumerate(prefills)
+              for j, r in enumerate(p)]
+    if not layers:
+        raise AssertionError(f"{label}: no prefill layer reached flash "
+                             f"attention")
+    i, j, r = max(layers, key=lambda t: max(t[2]["h"], t[2]["out"]))
+    per_prefill = [max(max(r["h"], r["out"]) for r in p) for p in prefills]
+    off = sum(not r["bit_equal"] for _, _, r in layers)
+    summary = {"layers": len(layers), "prefills": len(prefills),
+               "worst": {"prefill": i, "layer": j, "h": r["h"],
+                         "out": r["out"]},
+               "per_prefill_max": per_prefill,
+               "outputs_not_bit_equal": off, "limit": LAYER_RTOL}
+    log(f"[layers] {label}: {len(layers)} layers in {len(prefills)} "
+        f"prefills, each against the plain version on its own input; worst "
+        f"prefill {i} layer {j}: attention h {r['h']:.3g}, layer output "
+        f"{r['out']:.3g} (limit {LAYER_RTOL}); per-prefill max "
+        + ", ".join(f"{m:.3g}" for m in per_prefill)
+        + f"; {off} of {len(layers)} layer outputs not bit-equal")
+    bad = [(i, j, r) for i, j, r in layers
+           if not max(r["h"], r["out"]) <= LAYER_RTOL]
+    if bad:
+        i, j, r = bad[0]
+        raise AssertionError(
+            f"{label}: prefill {i} layer {j} with the flash kernel is off "
+            f"the plain version's on the same input: attention h by "
+            f"{r['h']:.3g}, layer output by {r['out']:.3g} (norm-wise), "
+            f"limit {LAYER_RTOL}; {len(bad)} layers past it")
+    return result, summary
+
+
 def split_microbatch(fx, reqs, base_results):
     """10a: phase 5's requests through MicrobatchScheduler(generate=True)
     on the use_flash executor, counters from 0: one flash launch per layer
@@ -1984,8 +2155,9 @@ def split_microbatch(fx, reqs, base_results):
     steps' launches as in phase 5. Tokens equal to phase 5's, logits and
     masks within SDPA_PATH_RTOL of it (its _sdpa rounds P to bf16, the
     kernel does not); a replay with the flash kernel's plain version in
-    its place within PATH_RTOL."""
-    from repro_torch.kernels.flash_attention import ops as fops
+    its place, every prefill layer held against the kernel on its own
+    input (flash_layer_check, LAYER_RTOL), the outputs within
+    SDPA_PATH_RTOL."""
     L = fx.pcfg.llm.num_layers
     _reset_launch_counts()
     t0 = _sync_s()
@@ -2005,10 +2177,13 @@ def split_microbatch(fx, reqs, base_results):
     out["rel_err_use_flash_false"] = compare_paths(
         results, base_results, SDPA_PATH_RTOL,
         "use_flash=False path (phase 5)")
-    with mock.patch.object(fops, "flash_attention", _flash_plain):
-        plain, _ = serve_requests(fx, reqs)
+    (plain, _), out["layers"] = flash_layer_check(
+        "10a microbatch", lambda: serve_requests(fx, reqs))
+    if out["layers"]["layers"] != n * L:
+        raise AssertionError(f"checked {out['layers']['layers']} prefill "
+                             f"layers, expected {n * L}")
     out["rel_err_plain_kernel"] = compare_paths(
-        results, plain, PATH_RTOL, "path with the flash kernel's plain "
+        results, plain, SDPA_PATH_RTOL, "path with the flash kernel's plain "
         "version")
     return out
 
@@ -2098,10 +2273,13 @@ def split_point_phase(fx, pcfg, seed):
     frame, one flash launch per layer and frame. Then (a) a replay with
     every launch of the three kernels held against its plain version on
     that launch's own inputs (outputs bit-equal to the counted run's);
-    (b) a replay with flash's plain version in its place, and (c) one with
-    the bottleneck pair's plain versions in theirs: mask logits within
-    PATH_RTOL of the counted run's, each reading on its own. Times one
-    frame's edge encode and cloud decode."""
+    (b) a replay with flash's plain version in its place, every prefill
+    layer also computed with the kernel on the same input and held to
+    LAYER_RTOL (flash_layer_check), its tokens equal and mask logits within
+    SDPA_PATH_RTOL of the counted run's, and (c) one with the bottleneck
+    pair's plain versions in theirs: tokens equal, mask logits within
+    PATH_RTOL, each reading on its own. Times one frame's edge encode and
+    cloud decode."""
     from repro_torch.core import bottleneck as bn
     from repro_torch.core import vlm
     from repro_torch.kernels.bottleneck import ops as bops
@@ -2221,14 +2399,18 @@ def split_point_phase(fx, pcfg, seed):
         return bref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1),
                                w, out_dtype).reshape(*codes.shape[:-1], d)
 
-    with mock.patch.object(fops, "flash_attention", _flash_plain):
-        flash_plain = _split_run(fx, frames)
+    flash_plain, out["layers"] = flash_layer_check(
+        "10c split point", lambda: _split_run(fx, frames))
+    if out["layers"]["layers"] != n * L:
+        raise AssertionError(f"checked {out['layers']['layers']} prefill "
+                             f"layers, expected {n * L}")
     with mock.patch.object(bops, "bottleneck_encode", plain_enc), \
             mock.patch.object(bops, "bottleneck_decode", plain_dec):
         bn_plain = _split_run(fx, frames)
     failed = []
-    for label, other in (("flash_attention", flash_plain),
-                         ("bottleneck pair", bn_plain)):
+    for label, other, limit in (
+            ("flash_attention", flash_plain, SDPA_PATH_RTOL),
+            ("bottleneck pair", bn_plain, PATH_RTOL)):
         per_frame = [{"mask_logits": _rel(a[0], b[0]),
                       "answer_logits": _rel(a[1], b[1]),
                       "tokens_equal": bool(np.array_equal(a[2], b[2]))}
@@ -2236,15 +2418,15 @@ def split_point_phase(fx, pcfg, seed):
         worst = max(f["mask_logits"] for f in per_frame)
         out[f"rel_err_plain_{label.replace(' ', '_')}"] = per_frame
         log(f"[split] plain {label} in its place: mask_logits norm-wise "
-            f"relative error {worst:.3g} (limit {PATH_RTOL}); per frame "
+            f"relative error {worst:.3g} (limit {limit}); per frame "
             + ", ".join(f"{f['mask_logits']:.3g}" for f in per_frame)
             + "; answer_logits per frame "
             + ", ".join(f"{f['answer_logits']:.3g}" for f in per_frame)
             + f"; tokens equal {[f['tokens_equal'] for f in per_frame]}")
-        if not (worst <= PATH_RTOL and all(f["tokens_equal"]
+        if not (worst <= limit and all(f["tokens_equal"]
                                            for f in per_frame)):
             failed.append(f"{label}: mask_logits off by {worst:.3g} (limit "
-                          f"{PATH_RTOL}) or tokens differ")
+                          f"{limit}) or tokens differ")
     if failed:
         raise AssertionError(f"split point against each kernel kind's plain "
                              f"version: {failed}")
@@ -2559,11 +2741,21 @@ def ptxas_lines(log_path):
     return out
 
 
+def _write_report(path, report):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--kernel", action="append", default=None,
+                    choices=KERNELS, metavar="NAME",
+                    help="build and check only this kernel (phases 1-3; "
+                    "repeatable), then stop without a result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2586,11 +2778,12 @@ def main() -> int:
         f"cuda {report['cuda']})")
 
     t0 = time.perf_counter()
-    _build.build()          # one nvcc per source, all started together
+    names = args.kernel or list(_build.SOURCES)
+    _build.build(names)     # one nvcc per source, all started together
     report["build_s"] = time.perf_counter() - t0
-    log(f"[build] {sorted(_build.SOURCES)} in {report['build_s']:.1f} s")
+    log(f"[build] {sorted(names)} in {report['build_s']:.1f} s")
     report["ptxas"] = {}
-    for name in _build.SOURCES:
+    for name in names:
         lines = ptxas_lines(_build.library_path(name).with_suffix(".log"))
         report["ptxas"][name] = lines
         for ln in lines:
@@ -2601,41 +2794,51 @@ def main() -> int:
     # the main path decodes a Context microbatch of 4 and one Insight
     # request per tier (KINDS, max_batch=4)
     paged_main = f"main_B{INFLIGHT_SLOTS}"     # the in-flight step's shape
-    checks = {"decode_attention": [check_decode_attention(rng, c, dev)
-                                   for c in kernel_cases(pcfg, (1, 4))],
-              "paged_decode_attention": [
-                  check_paged_decode_attention(
-                      rng, c, dev, timed=c["name"] == paged_main)
-                  for c in paged_cases(pcfg)],
-              "paged_verify_attention": [
-                  check_paged_verify_attention(
-                      rng, c, dev, timed=c["name"].startswith("main")
-                      and c["dtype"] == pcfg.llm.adtype)
-                  for c in verify_cases(pcfg)],
-              "flash_attention": [
-                  check_flash_attention(
-                      rng, c, dev, timed=c["name"] in (
-                          "main_B1", "main_B4",
-                          "bf16_B1_S1500_G2_hd128_causal_online"))
-                  for c in flash_cases(pcfg)]}
     d_sam = pcfg.sam.d_model
     ranks = [rank_for_ratio(d_sam, t.ratio, 4) for t in paper_lut().tiers]
     enc_cases, dec_cases = bottleneck_cases(pcfg, ranks)
-    checks["bottleneck_encode"] = [
-        check_bottleneck_encode(rng, c, dev, timed=c["name"].startswith(
-            "main")) for c in enc_cases]
-    checks["bottleneck_decode"] = [
-        check_bottleneck_decode(rng, c, dev, timed=c["name"].startswith(
-            "main")) for c in dec_cases]
-    zoo_cfgs = {n: get_config(n) for n in ZOO}
     scan_gen = torch.Generator(device=dev)
     scan_gen.manual_seed(args.seed)
-    checks["ssm_scan"] = [
-        check_ssm_scan(scan_gen, c, dev, timed=c["name"].startswith("main"))
-        for c in scan_cases(zoo_cfgs)]
+    phase3 = {
+        "decode_attention": lambda: [
+            check_decode_attention(rng, c, dev)
+            for c in kernel_cases(pcfg, (1, 4))],
+        "paged_decode_attention": lambda: [
+            check_paged_decode_attention(rng, c, dev,
+                                         timed=c["name"] == paged_main)
+            for c in paged_cases(pcfg)],
+        "paged_verify_attention": lambda: [
+            check_paged_verify_attention(
+                rng, c, dev, timed=c["name"].startswith("main")
+                and c["dtype"] == pcfg.llm.adtype)
+            for c in verify_cases(pcfg)],
+        "flash_attention": lambda: [
+            check_flash_attention(rng, c, dev,
+                                  timed=c["name"] in FLASH_TIMED)
+            for c in flash_cases(pcfg)],
+        "bottleneck_encode": lambda: [
+            check_bottleneck_encode(rng, c, dev,
+                                    timed=c["name"].startswith("main"))
+            for c in enc_cases],
+        "bottleneck_decode": lambda: [
+            check_bottleneck_decode(rng, c, dev,
+                                    timed=c["name"].startswith("main"))
+            for c in dec_cases],
+        "ssm_scan": lambda: [
+            check_ssm_scan(scan_gen, c, dev,
+                           timed=c["name"].startswith("main"))
+            for c in scan_cases({n: get_config(n) for n in ZOO})]}
+    checks = {name: phase3[name]() for name in names}
     gc.collect()
     torch.cuda.empty_cache()
     report.update(checks)
+    if args.kernel:
+        report["total_s"] = time.perf_counter() - t_start
+        if args.out:
+            _write_report(args.out, report)
+        log(f"[done] {report['total_s']:.1f} s, phases 1-3 for {names} "
+            f"only")
+        return 0
     report["small_input"] = small_input_check(args.seed, dev)
 
     t0 = time.perf_counter()
@@ -2768,10 +2971,7 @@ def main() -> int:
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=1, default=str)
+        _write_report(args.out, report)
     log(f"[done] {report['total_s']:.1f} s")
     print(report["card"])
     print(json.dumps({"kernels": kernels}))

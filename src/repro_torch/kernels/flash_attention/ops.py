@@ -52,6 +52,18 @@ def _check(q, k, v) -> None:
                              f"strides {t.stride()}")
 
 
+def _check_rows_aligned(q, k, v) -> None:
+    """What the bf16 kernel's 16-byte row copies take: each data pointer
+    and each batch and sequence stride a multiple of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        es = t.element_size()
+        if (t.data_ptr() % 16 or t.stride(0) * es % 16
+                or t.stride(1) * es % 16):
+            raise ValueError(f"{name} rows must be 16-byte aligned for the "
+                             f"bf16 kernel; data_ptr {t.data_ptr()}, "
+                             f"strides {t.stride()}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
@@ -62,15 +74,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernel picks its own tiles, and the result does not depend on
     them. The kernel reads the public layout in place through the batch
     and sequence strides (no kv-major transpose, no padding of S); keys
-    at or past S are never read. Any S runs: up to about 1,400 at
-    hd = 128 the kernel holds whole score rows and rounds as the plain
-    version does on the card, past that it keeps the TPU kernel's running
-    softmax (``csrc/flash_attention.cu``)."""
+    at or past S are never read. Any S runs. bf16 runs on the tensor
+    cores and copies 16-byte rows, so it refuses tensors whose data
+    pointer or batch or sequence stride is not a multiple of 16 bytes;
+    float32 runs on the CUDA cores (``csrc/flash_attention.cu``)."""
     global flash_launches
     device = _build.device_of("flash_attention", q, k, v)
     if device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v)
     B, S, H, hd = q.shape
     K = k.shape[2]
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=device)
