@@ -22,9 +22,10 @@ Phases, each fatal on failure:
      launch counter set to 0 just before and read just after;
   6. serve the same requests again with every kernel launch held against
      the plain version on that launch's own inputs, once with the plain
-     version in the kernel's place and once through the plain attention
-     path (``flash_decode=False``): tokens equal, logits and masks within
-     stated bf16 limits;
+     version in the kernel's place (every decode layer also computed with
+     the kernel on the same input and held to LAYER_RTOL, ``layer_check``)
+     and once through the plain attention path (``flash_decode=False``):
+     tokens equal, logits and masks within stated bf16 limits;
   7. replay one Context and one Insight microbatch warm, time each, and
      trace one more run of each with ``torch.profiler``: device time by
      kernel and the device's idle share;
@@ -35,7 +36,9 @@ Phases, each fatal on failure:
      before and read just after: the paged kernel must launch exactly
      once per layer and decode step. Then replay the schedule with every
      paged launch held against its plain version on that launch's own
-     inputs, and with the plain version in the kernel's place, and hold
+     inputs, and with the plain version in the kernel's place (every
+     paged decode layer also computed with the kernel on the same input
+     and held to LAYER_RTOL, ``layer_check``), and hold
      each request against the one-shot ``cloud_generate_batch``; time one
      decode step, a prefix miss and a prefix hit, and trace one step.
   9. (spec) serve six requests from two operators through
@@ -58,7 +61,7 @@ Phases, each fatal on failure:
      and masks within SDPA_PATH_RTOL of it; a replay with the flash
      kernel's plain version in its place, in which every prefill layer is
      also computed with the kernel on the same input and held to
-     LAYER_RTOL (``flash_layer_check``), and whose tokens, logits and
+     LAYER_RTOL (``layer_check``), and whose tokens, logits and
      masks are held to SDPA_PATH_RTOL; (b) phase
      8's schedule through ``InflightDecoder(slots=4)``: one flash launch
      per layer and prefix miss, phase 8's paged launches and tokens;
@@ -89,8 +92,13 @@ Phases, each fatal on failure:
      warm prefill and a decode step timed, one falcon-mamba-7b prefill
      traced.
 
-Phase 3 holds the paged kernels too: the decode kernel at the three shapes
-of the reference's kernel test and at the in-flight path's shape, the
+Phase 3 holds the contiguous decode kernel at the serving path's shapes
+(B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
+(W = 1, 33 and 2,048; G = 4 and 12), and the paged kernels too: the
+decode kernel at the three shapes of the reference's kernel test, at the
+in-flight path's shape (B = 4 and one row of it), at one page a row and at
+128 pages with three rows sharing 100, and at G = 4; every case of the two
+decode kernels launched twice and bit-equal (deterministic). The
 verify kernel at the three shapes of its reference test, one with more
 than 8 queries per kv head, and the speculative path's shapes (C = 4 and
 5, pages of 4 and 16, and C = 1 in fp32 against the paged decode kernel);
@@ -162,12 +170,12 @@ PATH_RTOL = 2.0 ** -5
 # holds the plain-flash replays, which differ from the kernel path only
 # in rounding.
 SDPA_PATH_RTOL = 2.0 ** -3
-# A prefill layer with the flash kernel against the same layer with its
-# plain version, on the same input (flash_layer_check): the attention
-# block's output and the layer's output, each as a norm-wise relative
-# error. Both compute in float32 and round the attention output once to
-# bf16, so they may differ by one bf16 rounding: 2**-8. A wrong mask,
-# scale or head mapping is O(1).
+# A prefill or decode layer with a kernel against the same layer with the
+# kernel's plain version, on the same input (layer_check: the flash,
+# contiguous and paged decode kernels): the attention block's output and
+# the layer's output, each as a norm-wise relative error. Both compute in
+# float32 and round the attention output once to bf16, so they may differ
+# by one bf16 rounding: 2**-8. A wrong mask, scale or head mapping is O(1).
 LAYER_RTOL = 2.0 ** -8
 # The bf16 flash kernel keeps the probabilities near float32 through P.V
 # (p_hi + p_lo, two bf16 MMAs). On the timed bf16 cases its norm-wise error
@@ -261,6 +269,15 @@ def device_ms(fn, arg_sets, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * len(arg_sets))
 
 
+def l2_cold_copies(args, nbytes):
+    """``args`` and enough copies of it on the device that rotating
+    through them moves twice the L2 cache's bytes, so that each timed call
+    finds its inputs cold."""
+    copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+    return [args] + [tuple(t.clone() for t in args)
+                     for _ in range(copies - 1)]
+
+
 def _sync_s() -> float:
     torch.cuda.synchronize()
     return time.perf_counter()
@@ -296,52 +313,67 @@ def held_against(name, out, want, tol=None):
     return max_err
 
 
-def check_decode_attention(rng, case, dev):
+def deterministic(name, launch, args, out):
+    """One more launch on the same inputs must give the same bits."""
+    again = launch(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ in {int((again != out).sum())} "
+                             f"elements")
+    return True
+
+
+def check_decode_attention(rng, case, dev, timed):
     from repro_torch.kernels.decode_attention import ops, ref
     B, H, K, hd, W, dtype, lens = (case[k] for k in
                                    ("B", "H", "K", "hd", "W", "dtype",
                                     "lens"))
-    q, k, v, bias = decode_inputs(rng, B, H, K, hd, W, dtype, lens, dev)
-    out = ops.decode_attention(q, k, v, bias)
+    args = decode_inputs(rng, B, H, K, hd, W, dtype, lens, dev)
+    out = ops.decode_attention(*args)
     torch.cuda.synchronize()
-    max_err = held_against(f"decode_attention {case['name']}", out,
-                           ref.decode_attention_ref(q, k, v, bias))
+    name = f"decode_attention {case['name']}"
+    max_err = held_against(name, out, ref.decode_attention_ref(*args))
     rtol, atol = TOL[dtype]
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * H * hd + 2 * B * W * K * hd) * es + B * W * 4
-    flops = 4 * B * H * W * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    # rotate through enough copies of the inputs to exceed the L2 cache
-    copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
-    sets = [(q, k, v, bias)] + [
-        decode_inputs(rng, B, H, K, hd, W, dtype, lens, dev)
-        for _ in range(copies - 1)]
-    lib_sets = [(a.view(B, H, 1, hd), b.permute(0, 2, 1, 3),
-                 c.permute(0, 2, 1, 3), m[:, None, None, :].to(dtype))
-                for a, b, c, m in sets]
-    gqa = {"enable_gqa": True} if K != H else {}
-
-    def library(qq, kk, vv, mm):
-        return torch.nn.functional.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mm, **gqa)
-
     res = {
         "case": case["name"], "B": B, "H": H, "K": K, "hd": hd, "W": W,
         "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": max_err, "rtol": rtol, "atol": atol,
-        "ms": device_ms(ops.decode_attention, sets),
-        "plain_ms": device_ms(ref.decode_attention_ref, sets),
-        "library_ms": device_ms(library, lib_sets),
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "flops": flops,
-    }
-    log(f"[kernel] decode_attention {case['name']}: B={B} H={H} K={K} "
-        f"hd={hd} W={W} {res['dtype']} max_abs_err={max_err:.3g} "
-        f"(rtol {rtol}, atol {atol}) kernel_ms={res['ms']:.4f} "
-        f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
-        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+        "deterministic": deterministic(name, ops.decode_attention, args,
+                                       out)}
+    msg = (f"[kernel] decode_attention {case['name']}: B={B} H={H} K={K} "
+           f"hd={hd} W={W} {res['dtype']} max_abs_err={max_err:.3g} "
+           f"(rtol {rtol}, atol {atol}); a second launch bit-equal")
+    if timed:
+        es = torch.finfo(dtype).bits // 8
+        nbytes = (2 * B * H * hd + 2 * B * W * K * hd) * es + B * W * 4
+        flops = 4 * B * H * W * hd
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        sets = l2_cold_copies(args, nbytes)
+        lib_sets = [(a.view(B, H, 1, hd), b.permute(0, 2, 1, 3),
+                     c.permute(0, 2, 1, 3), m[:, None, None, :].to(dtype))
+                    for a, b, c, m in sets]
+        gqa = {"enable_gqa": True} if K != H else {}
+
+        def library(qq, kk, vv, mm):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mm, **gqa)
+
+        res.update({
+            "ms": device_ms(ops.decode_attention, sets),
+            "plain_ms": device_ms(ref.decode_attention_ref, sets),
+            "library_ms": device_ms(library, lib_sets),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops})
+        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+                f" library_ms={res['library_ms']:.4f} bound_ms="
+                f"{res['bound_ms']:.4f} ({res['bound_by']})")
+    log(msg)
     return res
+
+
+DECODE_TIMED = ("main_B1", "main_B4")
 
 
 def kernel_cases(pcfg, batches):
@@ -349,7 +381,11 @@ def kernel_cases(pcfg, batches):
     at W = clip_tokens + query_len + max_new_tokens), the largest of them
     once more with lengths spread from 1 to W across rows (so that a
     wrong mask shows at full width), and the fp32 shape of the CPU tests
-    with a fully masked idle row beside a live row."""
+    with a fully masked idle row beside a live row. Then the edges of the
+    bf16 split-K kernel: W = 1 (one slot, a fully masked row beside live
+    ones), W = 33 (a split that takes fewer slots than the others; G = 4,
+    hd = 64), W = 2,048 with lengths spread from 1 to W, and G = 12 query
+    heads a kv head (two head chunks; hd = 32)."""
     llm = pcfg.llm
     S = pcfg.clip_tokens + QUERY_LEN
     W = S + MAX_NEW_TOKENS
@@ -359,10 +395,19 @@ def kernel_cases(pcfg, batches):
                   lens=np.linspace(S + 1, W, B).astype(int).tolist())
              for B in batches]
     B = max(batches)
-    cases.append(dict(cases[-1], name=f"main_B{B}_ragged",
+    main = cases[-1]
+    cases.append(dict(main, name=f"main_B{B}_ragged",
                       lens=np.linspace(1, W, B).astype(int).tolist()))
     cases.append(dict(name="fp32_idle_row", B=2, H=4, K=2, hd=64, W=128,
                       dtype=torch.float32, lens=[0, 128]))
+    cases.append(dict(main, name=f"W1_B{B}_idle_row", W=1,
+                      lens=[0] + [1] * (B - 1)))
+    cases.append(dict(name="W33_G4_hd64", B=3, H=16, K=4, hd=64, W=33,
+                      dtype=llm.adtype, lens=[1, 17, 33]))
+    cases.append(dict(main, name=f"W2048_B{B}_ragged", W=2048,
+                      lens=np.linspace(1, 2048, B).astype(int).tolist()))
+    cases.append(dict(name="W300_G12_hd32", B=2, H=24, K=2, hd=32, W=300,
+                      dtype=llm.adtype, lens=[300, 150]))
     return cases
 
 
@@ -413,8 +458,8 @@ def check_paged_decode_attention(rng, case, dev, timed):
     out = ops.paged_decode_attention(*args)
     torch.cuda.synchronize()
     want = ref.paged_decode_attention_ref(*args)
-    max_err = held_against(f"paged_decode_attention {case['name']}", out,
-                           want)
+    name = f"paged_decode_attention {case['name']}"
+    max_err = held_against(name, out, want)
     dtype = case["dtype"]
     rtol, atol = TOL[dtype]
     B, H, K, hd, page = (case[k] for k in ("B", "H", "K", "hd", "page"))
@@ -422,17 +467,18 @@ def check_paged_decode_attention(rng, case, dev, timed):
     res = {"case": case["name"], "B": B, "H": H, "K": K, "hd": hd,
            "P": case["P"], "page": page, "n": n,
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+           "max_abs_err": max_err, "rtol": rtol, "atol": atol,
+           "deterministic": deterministic(name, ops.paged_decode_attention,
+                                          args, out)}
     msg = (f"[kernel] paged_decode_attention {case['name']}: B={B} H={H} "
            f"K={K} hd={hd} P={case['P']} page={page} n={n} {res['dtype']} "
-           f"max_abs_err={max_err:.3g} (rtol {rtol}, atol {atol})")
+           f"max_abs_err={max_err:.3g} (rtol {rtol}, atol {atol}); a second "
+           f"launch bit-equal")
     if timed:
         nbytes, flops = paged_bytes_flops(case, torch.finfo(dtype).bits // 8)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[dtype]
-        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
-        sets = [args] + [paged_inputs(rng, case, dev)
-                         for _ in range(copies - 1)]
+        sets = l2_cold_copies(args, nbytes)
         gqa = {"enable_gqa": True} if K != H else {}
 
         def gather_sdpa(q, kp, vp, table, bias):
@@ -466,9 +512,12 @@ def paged_cases(pcfg):
     the LLM's heads, n = 13 prefix pages (clip tokens + query) + 1 private
     page. ``main``: the tables of a decode step, rows 0 and 1 sharing
     their prefix pages (one operator's repeated frame), each row at its
-    own step; ``main_ragged_idle``: row 0 idle (every entry on the trash
-    page 0, every slot masked), the others with lengths spread to
-    n*page, rows 1 and 2 sharing pages; once in bf16, once in fp32."""
+    own step, and its row 0 alone (``main_B1``); ``main_ragged_idle``:
+    row 0 idle (every entry on the trash page 0, every slot masked), the
+    others with lengths spread to n*page, rows 1 and 2 sharing pages; once
+    in bf16, once in fp32. Then the edges of the bf16 split-K kernel: one
+    page a row (n = 1), n = 128 pages with rows 0 to 2 sharing their first
+    100 pages, and G = 4 at hd = 64 over pages of 8."""
     rng = np.random.RandomState(1)
     cases = []
     for B, H, K, hd, P, page, n in ((2, 4, 2, 64, 9, 16, 3),
@@ -498,6 +547,8 @@ def paged_cases(pcfg):
         valid[r, n_pre * page:n_pre * page + r + 1] = True
     cases.append(dict(base, name=f"main_B{B}", P=int(table.max()) + 2,
                       table=table, valid=valid, dtype=llm.adtype))
+    cases.append(dict(cases[-1], name="main_B1", B=1, table=table[:1],
+                      valid=valid[:1]))
     # ragged + idle: lengths 1 .. n*page on rows 1..B-1
     table = np.zeros((B, n), int)
     table[1] = np.arange(1, n + 1)
@@ -512,6 +563,32 @@ def paged_cases(pcfg):
                           f"{str(dtype).replace('torch.', '')}",
                           P=2 * n + 3, table=table, valid=valid,
                           dtype=dtype))
+    # one page a row, lengths 1 .. page
+    lens = np.linspace(1, page, B).astype(int)
+    cases.append(dict(base, name=f"n1_B{B}", P=B + 2,
+                      table=np.arange(1, B + 1)[:, None],
+                      valid=np.arange(page)[None] < lens[:, None],
+                      dtype=llm.adtype))
+    # 128 pages: rows 0..2 share their first 100 pages
+    n, shared = 128, 100
+    own = n - shared
+    table = np.zeros((B, n), int)
+    for r in range(3):
+        table[r, :shared] = np.arange(1, shared + 1)
+        table[r, shared:] = 1 + shared + r * own + np.arange(own)
+    table[3] = 1 + shared + 3 * own + np.arange(n)
+    lens = np.array([n * page, 1700, shared * page + 1, 1000])
+    cases.append(dict(base, name=f"n128_B{B}_shared100",
+                      P=int(table.max()) + 2, table=table,
+                      valid=np.arange(n * page)[None] < lens[:, None],
+                      dtype=llm.adtype))
+    # GQA: G = 4, hd = 64, pages of 8
+    table = rng.randint(0, 12, (3, 5))
+    lens = np.linspace(1, 40, 3).astype(int)
+    cases.append(dict(name="G4_hd64_page8", B=3, H=16, K=4, hd=64, P=12,
+                      page=8, table=table,
+                      valid=np.arange(40)[None] < lens[:, None],
+                      dtype=llm.adtype))
     return cases
 
 
@@ -1304,10 +1381,12 @@ def full_width_parity(executor, reqs, results, expect):
     against the plain version on the launch's own inputs: the real
     caches (in-place views with their strides), masks and queries of all
     layers and decode steps. (b) Serve them with the kernel's plain
-    version in its place, and (c) through the plain attention path
-    (``flash_decode=False``), on the same weights, and hold the main
-    path's outputs against each: greedy tokens equal, logits and masks
-    within PATH_RTOL and SDPA_PATH_RTOL."""
+    version in its place, every decode layer also computed with the
+    kernel on the same input and held to LAYER_RTOL (``layer_check``), and
+    (c) through the plain attention path (``flash_decode=False``), on the
+    same weights, and hold the main path's outputs against each: greedy
+    tokens equal, logits and masks within PATH_RTOL and
+    SDPA_PATH_RTOL."""
     from repro_torch.kernels.decode_attention import ops, ref
     launch, errs, n_diff, n_out = ops.decode_attention, [], 0, 0
 
@@ -1335,11 +1414,11 @@ def full_width_parity(executor, reqs, results, expect):
         f"{TOL[torch.bfloat16][1]}); {n_diff} of {n_out} output elements "
         f"not bit-equal")
 
-    ops.decode_attention = ref.decode_attention_ref
-    try:
-        plain_kernel, _ = serve_requests(executor, reqs)
-    finally:
-        ops.decode_attention = launch
+    (plain_kernel, _), layers = layer_check(
+        "decode", "6 microbatch", lambda: serve_requests(executor, reqs))
+    if layers["layers"] != expect:
+        raise AssertionError(f"checked {layers['layers']} decode layers, "
+                             f"expected {expect}")
     rel = compare_paths(results, plain_kernel, PATH_RTOL,
                         "path with the kernel's plain version")
     sdpa, _ = serve_requests(dataclasses.replace(executor,
@@ -1353,6 +1432,7 @@ def full_width_parity(executor, reqs, results, expect):
         f"answer_logits {min_cos:.6f}")
     return {"launches_checked": len(errs), "max_abs_err": max(errs),
             "elements_not_bit_equal": n_diff, "elements": n_out,
+            "layers": layers,
             "rel_err_plain_kernel": rel, "rel_limit_plain_kernel": PATH_RTOL,
             "rel_err_sdpa": rel_sdpa, "rel_limit_sdpa": SDPA_PATH_RTOL,
             "min_cosine_answer_logits": min_cos}
@@ -1510,8 +1590,10 @@ def inflight_parity(executor, frames, results, expect):
     """(a) Replay the schedule with every paged launch held against the
     plain version on that launch's own inputs (the real pool views, page
     tables and masks of every layer and step); (b) replay it with the
-    plain version in the kernel's place: tokens and answer logits equal,
-    mask logits within PATH_RTOL; (c) hold each request against the
+    plain version in the kernel's place, every paged decode layer also
+    computed with the kernel on the same input and held to LAYER_RTOL
+    (``layer_check``): tokens and answer logits equal, mask logits within
+    PATH_RTOL; (c) hold each request against the
     one-shot ``cloud_generate_batch([packet], [query])``, the in-flight
     path's oracle: tokens equal, logits and masks within SDPA_PATH_RTOL
     (the batch sizes of the GEMMs differ, so their bf16 sums do)."""
@@ -1541,11 +1623,11 @@ def inflight_parity(executor, frames, results, expect):
         f"err {max(errs):.3g} (rtol {TOL[torch.bfloat16][0]}, atol "
         f"{TOL[torch.bfloat16][1]}); {n_diff} of {n_out} output elements "
         f"not bit-equal")
-    ops.paged_decode_attention = ref.paged_decode_attention_ref
-    try:
-        plain, _ = serve_inflight(executor, frames)
-    finally:
-        ops.paged_decode_attention = launch
+    (plain, _), layers = layer_check(
+        "paged", "8 in-flight", lambda: serve_inflight(executor, frames))
+    if layers["layers"] != expect:
+        raise AssertionError(f"checked {layers['layers']} paged decode "
+                             f"layers, expected {expect}")
     rel_plain = compare_inflight(
         results, plain, {"answer_logits": 0.0, "mask_logits": PATH_RTOL},
         "path with the paged kernel's plain version")
@@ -1562,7 +1644,7 @@ def inflight_parity(executor, frames, results, expect):
         "one-shot cloud_generate_batch")
     return {"launches_checked": len(errs), "max_abs_err": max(errs),
             "elements_not_bit_equal": n_diff, "elements": n_out,
-            "rel_err_plain_kernel": rel_plain,
+            "layers": layers, "rel_err_plain_kernel": rel_plain,
             "rel_err_generate_batch": rel_oracle}
 
 
@@ -1658,6 +1740,9 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+TRACE_SETTLE_S = 0.2
+
+
 def trace(label, fn):
     """Run ``fn`` twice under ``torch.profiler``: once as the profiler's
     warm-up, whose events are discarded (the first traced kernels can be
@@ -1676,6 +1761,11 @@ def trace(label, fn):
         # or they land in the recorded window
         torch.cuda.synchronize()
         prof.step()
+        # let the switch from warm-up to recording settle before the first
+        # recorded launch: without this pause a speculative step's first
+        # draft kernels were missing from the trace (93 and 95 of its 96
+        # decode launches found, all 32 verify launches, which come last)
+        time.sleep(TRACE_SETTLE_S)
         before = _launch_counts()
         t0 = _sync_s()
         fn()
@@ -2064,88 +2154,127 @@ def _flash_plain(q, k, v, causal=True, block_q=128, block_k=128):
     return ref.attention_ref(q, k, v, causal=causal)
 
 
-def flash_layer_check(label, run, kernel=None):
-    """Run ``run()`` with the flash kernel's plain version in the kernel's
-    place, so that it follows the plain trajectory, and hold every dense
-    layer of every prefill that reaches flash attention: on the layer's
-    input x as the plain run has it, the layer computed with ``kernel``
-    (default: the flash wrapper) against the layer computed with the plain
-    version, in the same weights and dtype. Two norm-wise relative errors
-    a layer, each within LAYER_RTOL: the attention block's output h
-    (before the residual add, so a small attention term cannot hide behind
-    a large residual) and the layer's output. The plain output goes on, so
-    no error carries from one layer to the next. Raises naming the first
-    layer past the limit. Returns (what ``run`` returns, which is the
-    plain-flash replay's result, and a summary)."""
+def _layer_kind(kind):
+    """What ``layer_check`` wraps for one kind of layer: the stack's block
+    body, the attention function whose output is h, the group pass that
+    starts a new prefill or step, the kernel wrapper's module and name,
+    its plain version, and the word for one group pass."""
+    from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
+    return {
+        "flash": ("_dense_block_full", "attn_full", "group_forward", fops,
+                  "flash_attention", _flash_plain, "prefill"),
+        "decode": ("_dense_block_decode", "attn_decode", "group_decode", ops,
+                   "decode_attention", ref.decode_attention_ref, "step"),
+        "paged": ("_dense_block_decode_paged", "attn_decode_paged",
+                  "group_decode_paged", ops, "paged_decode_attention",
+                  ref.paged_decode_attention_ref, "step"),
+    }[kind]
+
+
+def layer_check(kind, label, run, kernel=None):
+    """Run ``run()`` with a kernel's plain version in the kernel's place,
+    so that it follows the plain trajectory, and hold every layer of
+    ``kind`` that reaches the kernel: on the layer's input as the plain run
+    has it, the layer computed with ``kernel`` (default: the kernel's
+    wrapper) against the layer computed with the plain version, in the
+    same weights and dtype. Kinds: "flash" (dense prefill layers,
+    ``_dense_block_full`` / ``attn_full``, each ``group_forward`` pass a
+    prefill), "decode" (``_dense_block_decode`` / ``attn_decode`` with
+    ``decode_attention``, each ``group_decode`` pass a step) and "paged"
+    (``_dense_block_decode_paged`` / ``attn_decode_paged`` with
+    ``paged_decode_attention``, each ``group_decode_paged`` pass a step;
+    the same block's verify layers, whose ``attn_fn`` is
+    ``attn_verify_paged``, pass through unchecked).
+
+    Two norm-wise relative errors a layer, each within LAYER_RTOL: the
+    attention block's output h (before the residual add, so a small
+    attention term cannot hide behind a large residual) and the layer's
+    output. The plain output goes on, so no error carries from one layer
+    to the next. The decode kinds write the new token's k/v into the cache
+    or pool in place before attending; the second run of a layer computes
+    the same k/v from the same input and writes the same values to the
+    same slots, so the plain trajectory's caches are unchanged by it.
+    Raises naming the first (prefill or step, layer) past the limit.
+    Returns (what ``run`` returns, which is the plain replay's result, and
+    a summary)."""
     from repro_torch.models import attention, stack
-    kernel = fops.flash_attention if kernel is None else kernel
-    block, attn_full = stack._dense_block_full, attention.attn_full
-    group_forward = stack.group_forward
-    prefills = []               # one list of layer readings a group pass
+    block_name, attn_name, group_name, mod, name, plain_fn, unit = \
+        _layer_kind(kind)
+    kernel = getattr(mod, name) if kernel is None else kernel
+    block, attn_fn = getattr(stack, block_name), getattr(attention, attn_name)
+    group = getattr(stack, group_name)
+    passes = []                 # one list of layer readings a group pass
 
     def grouped(*a, **kw):
-        prefills.append([])
-        return group_forward(*a, **kw)
+        passes.append([])
+        return group(*a, **kw)
 
-    def layer(flash, p, cfg, x, positions, mask):
-        seen = {"flash": 0}
+    def layer(fn, *a, **kw):
+        seen = {"kernel": 0}
 
-        def fl(*a, **kw):
-            seen["flash"] += 1
-            return flash(*a, **kw)
+        def counted(*x, **y):
+            seen["kernel"] += 1
+            return fn(*x, **y)
 
-        def attn(*a, **kw):
-            seen["h"], kv = attn_full(*a, **kw)
-            return seen["h"], kv
+        def attn(*x, **y):
+            seen["h"], rest = attn_fn(*x, **y)
+            return seen["h"], rest
 
-        with mock.patch.object(fops, "flash_attention", fl), \
-                mock.patch.object(attention, "attn_full", attn):
-            y, kv = block(p, cfg, x, positions, mask)
-        return seen, y, kv
+        if kind == "paged":     # the block binds its attn_fn at import
+            kw = dict(kw, attn_fn=attn)
+        with mock.patch.object(mod, name, counted), \
+                mock.patch.object(attention, attn_name, attn):
+            y, rest = block(*a, **kw)
+        return seen, y, rest
 
-    def checked(p, cfg, x, positions, mask):
-        plain, y, kv = layer(_flash_plain, p, cfg, x, positions, mask)
-        if plain["flash"]:
-            got, y_k, _ = layer(kernel, p, cfg, x, positions, mask)
-            prefills[-1].append({"h": _rel(got["h"], plain["h"]),
-                                 "out": _rel(y_k, y),
-                                 "bit_equal": bool(torch.equal(y_k, y))})
-        return y, kv
+    def checked(*a, **kw):
+        if kw.get("attn_fn", attn_fn) is not attn_fn:
+            return block(*a, **kw)      # a verify layer
+        plain, y, rest = layer(plain_fn, *a, **kw)
+        if plain["kernel"]:
+            got, y_k, _ = layer(kernel, *a, **kw)
+            passes[-1].append({"h": _rel(got["h"], plain["h"]),
+                               "out": _rel(y_k, y),
+                               "bit_equal": bool(torch.equal(y_k, y))})
+        return y, rest
 
-    with mock.patch.object(stack, "_dense_block_full", checked), \
-            mock.patch.object(stack, "group_forward", grouped):
+    with mock.patch.object(stack, block_name, checked), \
+            mock.patch.object(stack, group_name, grouped):
         result = run()
-    prefills = [p for p in prefills if p]     # the encoders take no flash
-    layers = [(i, j, r) for i, p in enumerate(prefills)
+    passes = [p for p in passes if p]   # e.g. the encoders take no flash
+    layers = [(i, j, r) for i, p in enumerate(passes)
               for j, r in enumerate(p)]
     if not layers:
-        raise AssertionError(f"{label}: no prefill layer reached flash "
-                             f"attention")
+        raise AssertionError(f"{label}: no layer reached {name}")
     i, j, r = max(layers, key=lambda t: max(t[2]["h"], t[2]["out"]))
-    per_prefill = [max(max(r["h"], r["out"]) for r in p) for p in prefills]
+    per_pass = [max(max(r["h"], r["out"]) for r in p) for p in passes]
     off = sum(not r["bit_equal"] for _, _, r in layers)
-    summary = {"layers": len(layers), "prefills": len(prefills),
-               "worst": {"prefill": i, "layer": j, "h": r["h"],
-                         "out": r["out"]},
-               "per_prefill_max": per_prefill,
+    summary = {"layers": len(layers), f"{unit}s": len(passes),
+               "worst": {unit: i, "layer": j, "h": r["h"], "out": r["out"]},
+               f"per_{unit}_max": per_pass,
                "outputs_not_bit_equal": off, "limit": LAYER_RTOL}
-    log(f"[layers] {label}: {len(layers)} layers in {len(prefills)} "
-        f"prefills, each against the plain version on its own input; worst "
-        f"prefill {i} layer {j}: attention h {r['h']:.3g}, layer output "
-        f"{r['out']:.3g} (limit {LAYER_RTOL}); per-prefill max "
-        + ", ".join(f"{m:.3g}" for m in per_prefill)
+    log(f"[layers] {label}: {len(layers)} layers in {len(passes)} {unit}s, "
+        f"each against the plain version on its own input; worst {unit} "
+        f"{i} layer {j}: attention h {r['h']:.3g}, layer output "
+        f"{r['out']:.3g} (limit {LAYER_RTOL}); per-{unit} max "
+        + ", ".join(f"{m:.3g}" for m in per_pass)
         + f"; {off} of {len(layers)} layer outputs not bit-equal")
     bad = [(i, j, r) for i, j, r in layers
            if not max(r["h"], r["out"]) <= LAYER_RTOL]
     if bad:
         i, j, r = bad[0]
         raise AssertionError(
-            f"{label}: prefill {i} layer {j} with the flash kernel is off "
+            f"{label}: {unit} {i} layer {j} with the {name} kernel is off "
             f"the plain version's on the same input: attention h by "
             f"{r['h']:.3g}, layer output by {r['out']:.3g} (norm-wise), "
             f"limit {LAYER_RTOL}; {len(bad)} layers past it")
     return result, summary
+
+
+def flash_layer_check(label, run, kernel=None):
+    """``layer_check`` of the dense prefill layers with the flash kernel."""
+    return layer_check("flash", label, run, kernel)
 
 
 def split_microbatch(fx, reqs, base_results):
@@ -2801,11 +2930,12 @@ def main() -> int:
     scan_gen.manual_seed(args.seed)
     phase3 = {
         "decode_attention": lambda: [
-            check_decode_attention(rng, c, dev)
+            check_decode_attention(rng, c, dev,
+                                   timed=c["name"] in DECODE_TIMED)
             for c in kernel_cases(pcfg, (1, 4))],
         "paged_decode_attention": lambda: [
-            check_paged_decode_attention(rng, c, dev,
-                                         timed=c["name"] == paged_main)
+            check_paged_decode_attention(
+                rng, c, dev, timed=c["name"] in (paged_main, "main_B1"))
             for c in paged_cases(pcfg)],
         "paged_verify_attention": lambda: [
             check_paged_verify_attention(
@@ -2828,7 +2958,13 @@ def main() -> int:
             check_ssm_scan(scan_gen, c, dev,
                            timed=c["name"].startswith("main"))
             for c in scan_cases({n: get_config(n) for n in ZOO})]}
-    checks = {name: phase3[name]() for name in names}
+    checks, report["check_s"] = {}, {}
+    for name in names:
+        t0 = time.perf_counter()
+        checks[name] = phase3[name]()
+        report["check_s"][name] = time.perf_counter() - t0
+    log("[kernel] phase 3 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["check_s"].items()))
     gc.collect()
     torch.cuda.empty_cache()
     report.update(checks)

@@ -4,29 +4,54 @@
 // Replaces the TPU kernel
 //   src/repro/kernels/decode_attention/decode_attention.py:decode_call
 //   (body _decode_kernel, wrapper ops.py:decode_attention).
-// It computes the same function (flash_decode.cuh): scores, an additive
-// float32 bias per cache slot, an online softmax with the finite
-// NEG_INF = -1e30 and the clamp max(l, 1e-30), then P.V in float32.
+// It computes the same function (split_decode.cuh in bf16, flash_decode.cuh
+// in float32): scores, an additive float32 bias per cache slot, a softmax
+// with the finite NEG_INF = -1e30 and the clamp max(l, 1e-30), then P.V in
+// float32.
 //
 // What bounds it on this card: bytes. Per step it must read the k and v
 // cache once (2 * B * W * K * hd elements) and does about 4 flops per
 // element read, far below the H100's ~20 flops/byte float32 balance point.
+// At LISA-7B's decode (B = 4 or 1, K = 32, hd = 128, W = 208) that is
+// 13.6 MB or 3.4 MB, 4 or 1 microseconds of HBM time: a launch this short
+// is bound by how many bytes the card has in flight and by the chain of
+// steps before its last byte lands, not by the rate.
 //
-// What the design does about that:
-//   * One CTA per (batch row, kv head, group of up to kMaxGroup query
-//     heads). All G query heads of a kv head (G <= kMaxGroup) share the CTA,
-//     so each k/v slot is read from device memory once per kv head, not once
-//     per query head.
+// What the bf16 design does about that (split_decode.cuh):
+//   * Split-K over a thread-block cluster: each (batch row, kv head, group
+//     of up to kMaxGroup query heads) gets `split` CTAs, picked at launch
+//     from B, K and W (LISA-7B B = 1: 32 x 8 CTAs, where one CTA a kv head
+//     gave 32 for 132 SMs). Each CTA owns a contiguous range of slots and
+//     sends its partial softmax state into rank 0's shared memory, which
+//     merges the states in rank order; the other ranks leave at once.
+//   * Bytes in flight without registers: a CTA's rows are copied into
+//     shared memory by 16-byte cp.async (a whole 256-byte row per 16
+//     lanes), kStage rows a lane group a step (64 slots a CTA at hd = 128),
+//     so a CTA needs 56-64 registers at hd = 64 and 128 and the card
+//     holds every CTA of the launch at once. At B = 4 a CTA owns 104
+//     slots: two steps, whose copy rounds run one after the other (the
+//     second is issued once the first is scored).
+//   * One maximum, one rescale and one sum per tile of a lane group's
+//     rows, the scale folded into a base-2 exponent; eight warps a CTA
+//     share the arithmetic.
+//   * All G query heads of a kv head (G <= kMaxGroup) share a cluster, so
+//     each k/v slot is read once per kv head, not once per query head.
 //   * The cache is read in place, in the reference's public (B, W, K, hd)
 //     layout, through the batch and slot strides: no transposed copy and no
-//     padding of W. The ragged tail is masked here (slots >= W are skipped).
-//   * Each warp keeps kUnroll slots' loads in flight and its own online-
-//     softmax state in registers (flash_decode.cuh).
+//     padding of W. The ragged tail is masked here. The strides and base
+//     pointers must keep rows 16-byte aligned (the wrapper refuses others).
+// float32 inputs (small test shapes, not on LISA-7B's path) keep the
+// one-CTA-a-kv-head body of flash_decode.cuh: a warp a slot, kUnroll slots
+// in flight a warp, partial states merged through shared memory.
 //
-// Left for later work: split-K over W when B * K is small (the grid has
-// only B * K CTAs), cp.async/TMA staging, and a CUDA graph over the layers.
+// Left for later work: what does not move with the bytes (about 4 us of
+// launch, prologue, second copy round and merge at B = 4; a ring of two
+// copy stages was measured and did not pay here), TMA copies (one 2-D box
+// per CTA in place of its threads' cp.async), and a CUDA graph over the
+// layers.
 
 #include "flash_decode.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -58,6 +83,49 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const RingRows rows{b, k_sb, k_st, v_sb, v_st};
   attend<T, HD>(q, k, v, out, W, rows,
                 decode_heads(H, K, bias + (long long)b * bias_sb), scale);
+}
+
+// The bf16 kernel: one cluster of `split` CTAs a (kv head, head chunk)
+// along x, batch row b along y; CTA r folds slots [r W / split,
+// (r + 1) W / split).
+template <int HD, int NG>
+__global__ void __launch_bounds__(split_decode::kThreads)
+split_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const float* __restrict__ bias,
+                              __nv_bfloat16* __restrict__ out, int H, int K,
+                              int W, long long k_sb, long long k_st,
+                              long long v_sb, long long v_st,
+                              long long bias_sb, float scale) {
+  const split_decode::Place pl = split_decode::place(H, K);
+  const int b = blockIdx.y;
+  const RingRows rows{b, k_sb, k_st, v_sb, v_st};
+  split_decode::attend<HD, NG>(
+      q, k, v, bias + (long long)b * bias_sb, out, rows,
+      split_decode::part(W, pl.rank, pl.split),
+      split_decode::part(W, pl.rank + 1, pl.split), pl, scale);
+}
+
+template <int HD, int NG>
+struct SplitKernel {
+  static auto fn() { return &split_decode_attention_kernel<HD, NG>; }
+};
+
+int launch_bf16(const void* q, const void* k, const void* v,
+                const float* bias, void* out, int B, int H, int K, int W,
+                int hd, long long k_sb, long long k_st, long long v_sb,
+                long long v_st, long long bias_sb, float scale,
+                cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  if (!split_decode::aligned16({q, k, v}, {k_sb, k_st, v_sb, v_st})) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  return static_cast<int>(split_decode::launch_split<SplitKernel>(
+      hd, B, H, K, W / split_decode::kMinSlots, stream,
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), bias, static_cast<bf*>(out), H, K, W, k_sb,
+      k_st, v_sb, v_st, bias_sb, scale));
 }
 
 template <typename T>
@@ -115,9 +183,8 @@ extern "C" int decode_attention_launch(
                                v_sb, v_st, bias_sb, scale, s);
   }
   if (dtype == 1) {
-    return launch_typed<__nv_bfloat16>(q, k, v, bf, out, B, H, K, W, hd,
-                                       k_sb, k_st, v_sb, v_st, bias_sb, scale,
-                                       s);
+    return launch_bf16(q, k, v, bf, out, B, H, K, W, hd, k_sb, k_st, v_sb,
+                       v_st, bias_sb, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

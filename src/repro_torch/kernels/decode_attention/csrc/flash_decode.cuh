@@ -1,6 +1,6 @@
-// The flash-decode body shared by the decode and verify kernels of this
-// directory (decode_attention.cu, paged_decode_attention.cu,
-// paged_verify_attention.cu).
+// The flash-decode body of the verify kernel (paged_verify_attention.cu)
+// and of the float32 decode kernels (decode_attention.cu,
+// paged_decode_attention.cu); their bf16 kernels use split_decode.cuh.
 //
 // One CTA serves one (batch row, kv head) and a set of up to kMaxGroup
 // queries that read that kv head: query heads of one token (decode), or

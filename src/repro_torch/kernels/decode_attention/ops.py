@@ -9,7 +9,11 @@ additive float32 slot bias. Port of
 On CUDA tensors each wrapper launches its hand-written Hopper kernel
 (``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``,
 ``csrc/paged_verify_attention.cu``) or raises; on CPU tensors it returns
-its plain version (``ref.py``). There is no other path.
+its plain version (``ref.py``). There is no other path. The bf16
+contiguous and paged decode kernels split each row's keys over a cluster
+of CTAs and read 16-byte rows (``csrc/split_decode.cuh``), so they refuse
+a q, cache or pool whose data pointer, or a cache or pool whose batch,
+page or slot stride, is not a multiple of 16 bytes.
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ from repro_torch.kernels.decode_attention.ref import (
 
 HEAD_DIMS = (32, 64, 128)
 
-# the paged kernels stage a row's page table in shared memory beside the
-# 33,280 bytes of their merge buffers (hd=128), within the default 48 KiB
+# the verify kernel and the float32 paged decode kernel stage a row's page
+# table in shared memory beside the 33,280 bytes of their merge buffers
+# (hd=128), within the default 48 KiB; the bf16 paged decode kernel reads
+# the table in place and has no such limit, but shares the check
 MAX_PAGES = 2048
 
 # kernel launches since the last reset, one plain counter per kernel
@@ -83,6 +89,19 @@ def _check(q, k, v, bias) -> None:
         raise ValueError("bias must be contiguous over W")
 
 
+def _check_rows_aligned(q, k, v) -> None:
+    """What the bf16 split-K kernels' 16-byte row loads take: each data
+    pointer, and each stride of k and v over their first two axes (batch
+    and slot, or page and slot), a multiple of 16 bytes."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        es = t.element_size()
+        strides = () if t is q else (t.stride(0), t.stride(1))
+        if t.data_ptr() % 16 or any(s * es % 16 for s in strides):
+            raise ValueError(f"{name} rows must be 16-byte aligned for the "
+                             f"bf16 kernel; data_ptr {t.data_ptr()}, "
+                             f"strides {t.stride()}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """q (B,H,hd); k/v (B,W,K,hd); bias (B,W) additive. -> (B,H,hd)."""
@@ -91,6 +110,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device.type == "cpu":
         return decode_attention_ref(q, k, v, bias)
     _check(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k, v)
     B, H, hd = q.shape
     W, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -168,6 +189,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.dim() != 3:
         raise ValueError(f"want q (B,H,hd); got {tuple(q.shape)}")
     _check_paged(q, k_pool, v_pool, page_table, bias)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k_pool, v_pool)
     B, H, hd = q.shape
     page, K = k_pool.shape[1], k_pool.shape[2]
     n = page_table.shape[1]

@@ -249,6 +249,60 @@ def test_paged_kernel_argument_checks_raise(bad):
         ops._check_paged(q, kp, vp, pt, bias)
 
 
+def _offset_by_one(t):
+    """``t``'s values in a buffer one element past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _slot_padded(t):
+    """``t`` (A, S, K, hd) as a view whose slot stride is K*hd + 2
+    elements: each slot's (K, hd) block stays contiguous, but slots do not
+    keep 16-byte alignment."""
+    A, S, K, hd = t.shape
+    buf = torch.zeros(A, S, K * hd + 2, dtype=t.dtype)
+    buf[..., :K * hd] = t.reshape(A, S, K * hd)
+    return buf.as_strided(t.shape, (S * (K * hd + 2), K * hd + 2, hd, 1))
+
+
+@pytest.mark.parametrize("bad", [None, "q_pointer", "k_pointer",
+                                 "v_slot_stride", "pool_pointer",
+                                 "pool_slot_stride"])
+def test_bf16_rows_must_be_16_byte_aligned(bad):
+    """What the bf16 split-K kernels' 16-byte row loads take, for the
+    contiguous cache and the page pool (checked on CPU tensors through the
+    wrappers' validator): aligned tensors pass; a q, cache or pool whose
+    data pointer or slot stride breaks 16-byte rows is refused."""
+    q, k, v, bias = _torch(*_inputs(2, 4, 2, 64, 32, seed=8),
+                           dtype=torch.bfloat16)
+    _, kp, vp, pt, pbias = _paged_torch(*_paged_inputs(2, 4, 2, 64, 9, 4, 3,
+                                                       seed=9))
+    kp, vp = kp.bfloat16(), vp.bfloat16()
+    if bad == "q_pointer":
+        q = _offset_by_one(q)
+    if bad == "k_pointer":
+        k = _offset_by_one(k)
+    if bad == "v_slot_stride":
+        v = _slot_padded(v)
+    if bad == "pool_pointer":
+        kp = _offset_by_one(kp)
+    if bad == "pool_slot_stride":
+        vp = _slot_padded(vp)
+    # all pass the shape and layout checks; only the alignment differs
+    ops._check(q, k, v, bias)
+    ops._check_paged(q, kp, vp, pt, pbias)
+    contiguous_bad = bad in ("q_pointer", "k_pointer", "v_slot_stride")
+    paged_bad = bad in ("q_pointer", "pool_pointer", "pool_slot_stride")
+    for (kk, vv), refused in (((k, v), contiguous_bad), ((kp, vp), paged_bad)):
+        if refused:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                ops._check_rows_aligned(q, kk, vv)
+        else:
+            ops._check_rows_aligned(q, kk, vv)
+
+
 # ---------------------------------------------------------------------------
 # paged_verify_attention: C chunk queries per row against the page pool
 # ---------------------------------------------------------------------------
