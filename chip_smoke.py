@@ -52,8 +52,9 @@ Phases, each fatal on failure:
      runs give the tokens of a spec=None decoder (answer logits bit-equal)
      and of the one-shot ``cloud_generate_batch``; a replay holds every
      verify launch against its plain version on its own inputs, another
-     puts the plain version in the kernel's place; one speculative step is
-     timed and one traced.
+     puts the plain version in the kernel's place (every verify layer also
+     computed with the kernel on the same input and held to LAYER_RTOL,
+     ``layer_check``); one speculative step is timed and one traced.
  10. (split) on an executor with ``llm.use_flash=True`` that shares the
      serving weights, each run's launch counters set to 0 just before it:
      (a) phase 5's requests through the microbatch scheduler: one flash
@@ -100,12 +101,14 @@ in-flight path's shape (B = 4 and one row of it), at one page a row and at
 128 pages with three rows sharing 100, and at G = 4; every case of the two
 decode kernels launched twice and bit-equal (deterministic). The
 verify kernel at the three shapes of its reference test, one with more
-than 8 queries per kv head, and the speculative path's shapes (C = 4 and
-5, pages of 4 and 16, and C = 1 in fp32 against the paged decode kernel);
-with rows sharing prefix pages, ragged lengths, a plain row's pad queries,
-an idle row parked on the trash page, and every page no table names filled
-with NaN. It holds the flash kernel at the five shapes of the reference's
-test (causal and not, fp32 and bf16), at the LLM prefill's (B = 1 and 4,
+than 8 queries per kv head, in bf16 with more than 8 and at hd = 64 and
+32, and the speculative path's shapes (C = 4 and 5, pages of 4 and 16,
+and C = 1 in bf16 and fp32 against the paged decode kernel); with rows
+sharing prefix pages, ragged lengths, a plain row's pad queries, an idle
+row parked on the trash page, and every page no table names filled with
+NaN; every case launched twice and bit-equal. It holds the flash kernel
+at the five shapes of the reference's test (causal and not, fp32 and
+bf16), at the LLM prefill's (B = 1 and 4,
 S = 204, bf16), once more with q, k and v as views of buffers whose
 rows past S are NaN, and at long sequences: bf16 causal at 1,500 and
 4,096 (SAM's token grid, LLaMA-7B's heads), bf16 at 1,000 (not causal,
@@ -647,34 +650,39 @@ def check_paged_verify_attention(rng, case, dev, timed):
     B, C, H, K, hd, page = (case[k] for k in ("B", "C", "H", "K", "hd",
                                               "page"))
     n = case["table"].shape[1]
+    name = f"paged_verify_attention {case['name']}"
     res = {"case": case["name"], "B": B, "C": C, "H": H, "K": K, "hd": hd,
            "P": case["P"], "page": page, "n": n,
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+           "max_abs_err": max_err, "rtol": rtol, "atol": atol,
+           "deterministic": deterministic(name, ops.paged_verify_attention,
+                                          args, out)}
     msg = (f"[kernel] paged_verify_attention {case['name']}: B={B} C={C} "
            f"H={H} K={K} hd={hd} P={case['P']} page={page} n={n} "
            f"{res['dtype']} max_abs_err={max_err:.3g} (rtol {rtol}, atol "
-           f"{atol})")
+           f"{atol}); a second launch bit-equal")
     if C == 1:
-        # column 0 of a C=1 call is the paged decode kernel's answer
+        # column 0 of a C=1 call is the paged decode kernel's answer: in
+        # float32 both kernels run flash_decode.cuh (to 1e-6), in bf16 both
+        # run split_decode.cuh at other set sizes (within TOL)
         q, kp, vp, table, bias = args
         dec = ops.paged_decode_attention(q[:, 0].contiguous(), kp, vp, table,
                                          bias[:, 0].contiguous())
         torch.cuda.synchronize()
         diff = float((out[:, 0].float() - dec.float()).abs().max())
-        if not diff <= 1e-6:
-            raise AssertionError(f"paged_verify_attention {case['name']}: "
-                                 f"C=1 off the paged decode kernel by "
-                                 f"{diff:.3g}, limit 1e-6")
+        if dtype == torch.float32 and not diff <= 1e-6:
+            raise AssertionError(f"{name}: C=1 off the paged decode kernel "
+                                 f"by {diff:.3g}, limit 1e-6")
+        if dtype != torch.float32:
+            held_against(f"{name} column 0 against the paged decode kernel",
+                         out[:, 0], dec)
         res["max_abs_diff_paged_decode"] = diff
         msg += f"; column 0 vs the paged decode kernel {diff:.3g}"
     if timed:
         nbytes, flops = verify_bytes_flops(case, torch.finfo(dtype).bits // 8)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[dtype]
-        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
-        sets = [args] + [verify_inputs(rng, case, dev)
-                         for _ in range(copies - 1)]
+        sets = l2_cold_copies(args, nbytes)
         G = H // K
 
         def gather_sdpa(q, kp, vp, table, bias):
@@ -715,26 +723,35 @@ def verify_cases(pcfg):
     16 + 1. Rows 0 and 1 share their prefix pages and draft (each at its
     own step, causal within the chunk); row 2 is a plain row riding the
     batch, its chunk one real entry and pad queries; row 3 is idle (every
-    entry on the trash page 0, every slot masked). Then C=1 in fp32, held
-    also against the paged decode kernel."""
+    entry on the trash page 0, every slot masked). Then C=1 in bf16 and
+    fp32, each held also against the paged decode kernel. In bf16, the
+    edges of the split-K body's query sets: G*C = 10 > 8 at hd = 128 (a
+    kv head's queries over two clusters, sets of 8 and 2), C = 4 at
+    hd = 64 and C = 5 at hd = 32 (more queries than lanes a row)."""
     rng = np.random.RandomState(2)
     cases = []
-    for B, C, H, K, hd, P, page, n in ((2, 4, 4, 2, 64, 9, 16, 3),
-                                       (1, 3, 8, 8, 32, 5, 8, 4),
-                                       (3, 2, 4, 1, 128, 12, 32, 2),
-                                       (2, 5, 8, 2, 64, 9, 16, 3)):
+    for B, C, H, K, hd, P, page, n, dtype in (
+            (2, 4, 4, 2, 64, 9, 16, 3, torch.float32),
+            (1, 3, 8, 8, 32, 5, 8, 4, torch.float32),
+            (3, 2, 4, 1, 128, 12, 32, 2, torch.float32),
+            (2, 5, 8, 2, 64, 9, 16, 3, torch.float32),
+            (3, 5, 8, 4, 128, 12, 16, 4, torch.bfloat16),
+            (2, 4, 8, 8, 64, 9, 8, 6, torch.bfloat16),
+            (3, 5, 8, 8, 32, 10, 8, 5, torch.bfloat16)):
         table = rng.randint(0, P, (B, n))
         lens = rng.randint(1, n * page + 1, (B, C))
         valid = np.arange(n * page)[None, None] < lens[..., None]
-        cases.append(dict(name=f"fp32_B{B}_C{C}_G{H // K}_page{page}", B=B,
-                          C=C, H=H, K=K, hd=hd, P=P, page=page, table=table,
-                          valid=valid, dtype=torch.float32))
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        cases.append(dict(name=f"{dt}_B{B}_C{C}_G{H // K}_hd{hd}_page{page}",
+                          B=B, C=C, H=H, K=K, hd=hd, P=P, page=page,
+                          table=table, valid=valid, dtype=dtype))
     llm = pcfg.llm
     prefix = pcfg.clip_tokens + QUERY_LEN
     B = INFLIGHT_SLOTS
     for page, C, dtype in ((SPEC_PAGE, 4, llm.adtype),
                            (SPEC_PAGE, 5, llm.adtype),
-                           (16, 4, llm.adtype), (16, 1, torch.float32)):
+                           (16, 4, llm.adtype), (SPEC_PAGE, 1, llm.adtype),
+                           (16, 1, torch.float32)):
         n_pre = -(-prefix // page)
         n_priv = -(-SPEC_MAX_NEW_TOKENS // page)
         n = n_pre + n_priv
@@ -1978,7 +1995,9 @@ def spec_parity(executor, frames, spec, results, expect):
     version on that launch's own inputs (the real pool views, page tables
     and per-query masks of every layer and step); (b) replay it with the
     plain version in the kernel's place: tokens and answer logits equal,
-    mask logits within PATH_RTOL."""
+    mask logits within PATH_RTOL; (c) in that replay, every verify layer
+    also computed with the kernel on the same input and held to
+    LAYER_RTOL (``layer_check``), ``expect`` layers in all."""
     from repro_torch.kernels.decode_attention import ops, ref
     launch, errs, n_diff, n_out = ops.paged_verify_attention, [], 0, 0
 
@@ -2005,18 +2024,18 @@ def spec_parity(executor, frames, spec, results, expect):
         f"{max(errs):.3g} (rtol {TOL[torch.bfloat16][0]}, atol "
         f"{TOL[torch.bfloat16][1]}); {n_diff} of {n_out} output elements "
         f"not bit-equal")
-    ops.paged_verify_attention = ref.paged_verify_attention_ref
-    try:
-        plain, _, _ = serve_spec(executor, frames, spec)
-    finally:
-        ops.paged_verify_attention = launch
+    (plain, _, _), layers = layer_check(
+        "verify", "9 spec run A", lambda: serve_spec(executor, frames, spec))
+    if layers["layers"] != expect:
+        raise AssertionError(f"checked {layers['layers']} verify layers, "
+                             f"expected {expect}")
     rel = compare_inflight(results, plain,
                            {"answer_logits": 0.0, "mask_logits": PATH_RTOL},
                            "spec path with the verify kernel's plain version",
                            tag="spec")
     return {"launches_checked": len(errs), "max_abs_err": max(errs),
             "elements_not_bit_equal": n_diff, "elements": n_out,
-            "rel_err_plain_kernel": rel}
+            "layers": layers, "rel_err_plain_kernel": rel}
 
 
 def spec_timings(executor, frames, spec):
@@ -2169,6 +2188,9 @@ def _layer_kind(kind):
         "paged": ("_dense_block_decode_paged", "attn_decode_paged",
                   "group_decode_paged", ops, "paged_decode_attention",
                   ref.paged_decode_attention_ref, "step"),
+        "verify": ("_dense_block_decode_paged", "attn_verify_paged",
+                   "group_verify_paged", ops, "paged_verify_attention",
+                   ref.paged_verify_attention_ref, "step"),
     }[kind]
 
 
@@ -2181,11 +2203,15 @@ def layer_check(kind, label, run, kernel=None):
     same weights and dtype. Kinds: "flash" (dense prefill layers,
     ``_dense_block_full`` / ``attn_full``, each ``group_forward`` pass a
     prefill), "decode" (``_dense_block_decode`` / ``attn_decode`` with
-    ``decode_attention``, each ``group_decode`` pass a step) and "paged"
+    ``decode_attention``, each ``group_decode`` pass a step), "paged"
     (``_dense_block_decode_paged`` / ``attn_decode_paged`` with
     ``paged_decode_attention``, each ``group_decode_paged`` pass a step;
     the same block's verify layers, whose ``attn_fn`` is
-    ``attn_verify_paged``, pass through unchecked).
+    ``attn_verify_paged``, pass through unchecked) and "verify" (the same
+    block's verify layers, exactly those called with ``attn_fn=
+    attn_verify_paged``, with ``paged_verify_attention``, each
+    ``group_verify_paged`` pass a step; the plain paged decode layers,
+    which pass no ``attn_fn``, pass through unchecked).
 
     Two norm-wise relative errors a layer, each within LAYER_RTOL: the
     attention block's output h (before the residual add, so a small
@@ -2194,7 +2220,13 @@ def layer_check(kind, label, run, kernel=None):
     to the next. The decode kinds write the new token's k/v into the cache
     or pool in place before attending; the second run of a layer computes
     the same k/v from the same input and writes the same values to the
-    same slots, so the plain trajectory's caches are unchanged by it.
+    same slots. The paged kinds are the exception: their pad and idle
+    entries all write to the shared trash page, several to one slot in a
+    call, which the card resolves in no fixed order, and an idle row
+    attends that page. So for the paged kinds the kernel's call is handed
+    the pool pages its table names as the plain call read them (copied
+    before the plain call, written back before the kernel's), and the plain
+    trajectory's pool is unchanged by the second run.
     Raises naming the first (prefill or step, layer) past the limit.
     Returns (what ``run`` returns, which is the plain replay's result, and
     a summary)."""
@@ -2204,36 +2236,50 @@ def layer_check(kind, label, run, kernel=None):
     kernel = getattr(mod, name) if kernel is None else kernel
     block, attn_fn = getattr(stack, block_name), getattr(attention, attn_name)
     group = getattr(stack, group_name)
+    # the paged block's attn_fn: the "paged" kind checks the calls that
+    # pass none (its default), the "verify" kind those that pass attn_fn
+    unset = None if kind == "verify" else attn_fn
     passes = []                 # one list of layer readings a group pass
 
     def grouped(*a, **kw):
         passes.append([])
         return group(*a, **kw)
 
-    def layer(fn, *a, **kw):
+    read = {}       # paged kinds: the pages the plain call read
+
+    def layer(fn, first, *a, **kw):
         seen = {"kernel": 0}
 
         def counted(*x, **y):
             seen["kernel"] += 1
+            if kind in ("paged", "verify"):
+                _, k_pool, v_pool, table = x[:4]
+                if first:
+                    idx = torch.unique(table).long()
+                    read.update(idx=idx, k=k_pool[idx].clone(),
+                                v=v_pool[idx].clone())
+                else:
+                    k_pool[read["idx"]] = read["k"]
+                    v_pool[read["idx"]] = read["v"]
             return fn(*x, **y)
 
         def attn(*x, **y):
             seen["h"], rest = attn_fn(*x, **y)
             return seen["h"], rest
 
-        if kind == "paged":     # the block binds its attn_fn at import
-            kw = dict(kw, attn_fn=attn)
+        if kind in ("paged", "verify"):   # the block and the group pass
+            kw = dict(kw, attn_fn=attn)     # bind attn_fn before this call
         with mock.patch.object(mod, name, counted), \
                 mock.patch.object(attention, attn_name, attn):
             y, rest = block(*a, **kw)
         return seen, y, rest
 
     def checked(*a, **kw):
-        if kw.get("attn_fn", attn_fn) is not attn_fn:
-            return block(*a, **kw)      # a verify layer
-        plain, y, rest = layer(plain_fn, *a, **kw)
+        if kw.get("attn_fn", unset) is not attn_fn:
+            return block(*a, **kw)      # a layer of the other paged kind
+        plain, y, rest = layer(plain_fn, True, *a, **kw)
         if plain["kernel"]:
-            got, y_k, _ = layer(kernel, *a, **kw)
+            got, y_k, _ = layer(kernel, False, *a, **kw)
             passes[-1].append({"h": _rel(got["h"], plain["h"]),
                                "out": _rel(y_k, y),
                                "bit_equal": bool(torch.equal(y_k, y))})

@@ -98,11 +98,12 @@ split_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               int W, long long k_sb, long long k_st,
                               long long v_sb, long long v_st,
                               long long bias_sb, float scale) {
-  const split_decode::Place pl = split_decode::place(H, K);
+  const split_decode::Place pl = split_decode::place(H / K);
   const int b = blockIdx.y;
   const RingRows rows{b, k_sb, k_st, v_sb, v_st};
   split_decode::attend<HD, NG>(
-      q, k, v, bias + (long long)b * bias_sb, out, rows,
+      q, k, v, out, rows,
+      split_decode::head_queries(pl, H, K, bias + (long long)b * bias_sb),
       split_decode::part(W, pl.rank, pl.split),
       split_decode::part(W, pl.rank + 1, pl.split), pl, scale);
 }
@@ -122,7 +123,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   return static_cast<int>(split_decode::launch_split<SplitKernel>(
-      hd, B, H, K, W / split_decode::kMinSlots, stream,
+      split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
+      W / split_decode::kMinSlots, stream,
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), bias, static_cast<bf*>(out), H, K, W, k_sb,
       k_st, v_sb, v_st, bias_sb, scale));

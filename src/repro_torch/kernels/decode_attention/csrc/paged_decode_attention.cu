@@ -107,12 +107,13 @@ split_paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                     long long v_sp, long long v_ss,
                                     long long table_sb, long long bias_sb,
                                     float scale) {
-  const split_decode::Place pl = split_decode::place(H, K);
+  const split_decode::Place pl = split_decode::place(H / K);
   const int b = blockIdx.y;
   const PagedRows rows{table + (long long)b * table_sb, page, k_sp, k_ss,
                        v_sp, v_ss};
   split_decode::attend<HD, NG>(
-      q, k_pool, v_pool, bias + (long long)b * bias_sb, out, rows,
+      q, k_pool, v_pool, out, rows,
+      split_decode::head_queries(pl, H, K, bias + (long long)b * bias_sb),
       split_decode::part(n_pages, pl.rank, pl.split) * page,
       split_decode::part(n_pages, pl.rank + 1, pl.split) * page, pl, scale);
 }
@@ -138,7 +139,8 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
   const int most = static_cast<int>(
       std::min<long long>(n_pages, slots / split_decode::kMinSlots));
   return static_cast<int>(split_decode::launch_split<SplitKernel>(
-      hd, B, H, K, most, stream, static_cast<const bf*>(q),
+      split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
+      most, stream, static_cast<const bf*>(q),
       static_cast<const bf*>(k_pool), static_cast<const bf*>(v_pool), table,
       bias, static_cast<bf*>(out), H, K, n_pages, page, k_sp, k_ss, v_sp,
       v_ss, table_sb, bias_sb, scale));

@@ -1,16 +1,21 @@
-// The bf16 split-K decode body shared by the contiguous and the paged
-// decode kernels of this directory (decode_attention.cu,
-// paged_decode_attention.cu). Their float32 instantiations, and the verify
-// kernel, keep flash_decode.cuh.
+// The bf16 split-K body shared by the contiguous decode, paged decode and
+// paged verify kernels of this directory (decode_attention.cu,
+// paged_decode_attention.cu, paged_verify_attention.cu; the TPU kernels
+// decode_call, paged_decode_call and paged_verify_call of
+// src/repro/kernels/decode_attention/decode_attention.py). Their float32
+// kernels keep flash_decode.cuh.
 //
-// It computes what flash_decode.cuh computes, for one query token: for each
-// query head h of the set a CTA cluster serves, scores q.k * scale in
-// float32 plus an additive float32 bias per slot, a softmax with the finite
-// NEG_INF = -1e30 of the bias and the clamp max(l, 1e-30), and P.V in
-// float32, written once in bf16. A fully masked row comes out finite: the
-// mean of v over all of its W slots, as in the plain versions (ref.py).
+// It computes what flash_decode.cuh computes: for each query of the set a
+// CTA cluster serves (decode: query heads of one token, sharing one bias
+// row; verify: query heads x chunk positions, a bias row each), scores
+// q.k * scale in float32 plus an additive float32 bias per slot, a softmax
+// with the finite NEG_INF = -1e30 of the bias and the clamp max(l, 1e-30),
+// and P.V in float32, written once in bf16. A fully masked query comes out
+// finite: the mean of v over all of its W slots, as in the plain versions
+// (ref.py). What bounds all three on the H100 is bytes: each slot's k and
+// v row is read once per query set, for 4 flops an element a query.
 //
-// The split. One (batch row, kv head, chunk of up to kMaxGroup query heads
+// The split. One (batch row, kv head, chunk of up to kMaxGroup queries
 // that read that kv head) is served by a thread-block cluster of `split`
 // CTAs (at most kMaxSplit, the portable cluster size). CTA r owns the
 // contiguous slot range [t0, t1) its caller gives it (a range of slots of
@@ -65,21 +70,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;    // eight warps a CTA
 constexpr int kMaxSplit = 8;     // CTAs a cluster (the portable maximum)
-constexpr int kMaxGroup = 8;     // query heads a cluster serves
+constexpr int kMaxGroup = 8;     // queries a cluster serves
 constexpr int kCtasPerSm = 1;    // CTAs an SM the split aims for
 constexpr int kMinSlots = 16;    // fewest slots a split is worth
 constexpr int kStage = 4;        // rows of k and of v a lane group stages
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Slots a lane group scores at once (a tile of its staged rows): fewer when
-// it scores up to kMaxGroup heads (their q rows and accumulators take the
+// it scores more than one query (their q rows and accumulators take the
 // registers).
 template <int NG>
 struct Tile {
   static constexpr int value = NG == 1 ? 4 : 2;
 };
 
-// A CTA's dynamic shared memory, for head dim HD and NG query heads: the
+// A CTA's dynamic shared memory, for head dim HD and NG queries: the
 // staged rows (each thread's own 16 bytes of kStage k and v rows) or, once
 // they are consumed, the lane groups' accumulators; then, used in rank 0
 // only, the kMaxSplit CTA states of the cluster: acc (NG, HD), then (m, l)
@@ -96,26 +101,46 @@ struct Smem {
   static constexpr int kBytes = kWork + kMaxSplit * kStateFloats * 4;
 };
 
-// The query set of a cluster and this CTA's place in it. Grid: blockIdx.x
-// = (kv head * ceil(G / kMaxGroup) + head chunk) * split + rank (a
-// cluster is `split` consecutive CTAs along x), blockIdx.y = batch row.
-// Query head h = kh * G + g reads kv head kh (kv-major grouping).
+// The query set of a cluster and this CTA's place in it. Each kv head kh
+// is read by nq queries (decode: its G query heads; verify: G query heads
+// x C chunk positions), served in chunks of up to kMaxGroup: queries
+// j0 .. j0 + gc - 1. Grid: blockIdx.x = (kv head * ceil(nq / kMaxGroup) +
+// chunk) * split + rank (a cluster is `split` consecutive CTAs along x),
+// blockIdx.y = batch row.
 struct Place {
-  int kh, gc, rank, split;
-  long long qrow0;   // (b * H + first head of the chunk): rows of q / out
+  int kh, j0, gc, rank, split;
 };
 
-__device__ __forceinline__ Place place(int H, int K) {
+__device__ __forceinline__ Place place(int nq) {
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.num_blocks());
-  const int G = H / K;
-  const int n_chunks = (G + kMaxGroup - 1) / kMaxGroup;
+  const int n_chunks = (nq + kMaxGroup - 1) / kMaxGroup;
   const int hx = blockIdx.x / split;
-  const int kh = hx / n_chunks;
-  const int g0 = (hx % n_chunks) * kMaxGroup;
-  return Place{kh, min(kMaxGroup, G - g0),
-               static_cast<int>(cluster.block_rank()), split,
-               (long long)blockIdx.y * H + (long long)kh * G + g0};
+  const int j0 = (hx % n_chunks) * kMaxGroup;
+  return Place{hx / n_chunks, j0, min(kMaxGroup, nq - j0),
+               static_cast<int>(cluster.block_rank()), split};
+}
+
+// The decode query set: query heads j0 .. j0 + gc - 1 of kv head kh in
+// batch row blockIdx.y of a (B, H, HD) q, where query head h = kh * G + g
+// reads kv head kh (kv-major grouping), sharing the row's bias row. A
+// query set is the attend() policy `Queries`: row(j) the (q, out) row of
+// query j in units of HD elements, bias(j) its bias row over the slots,
+// and kSharedBias whether all queries read one bias row.
+struct HeadQueries {
+  static constexpr bool kSharedBias = true;
+  long long row0;
+  const float* bias_row;
+  __device__ __forceinline__ long long row(int j) const { return row0 + j; }
+  __device__ __forceinline__ const float* bias(int) const { return bias_row; }
+};
+
+__device__ __forceinline__ HeadQueries head_queries(const Place& pl, int H,
+                                                    int K,
+                                                    const float* bias_row) {
+  return HeadQueries{
+      (long long)blockIdx.y * H + (long long)pl.kh * (H / K) + pl.j0,
+      bias_row};
 }
 
 // Part r of `total` units in `split` near-equal contiguous parts.
@@ -232,29 +257,48 @@ __device__ __forceinline__ void send2(uint32_t dst, uint32_t bar, float a,
 
 // Fold slots [t0, t1) of the row (rows.k(t) / rows.v(t): element offset
 // of slot t's (K, HD) row) into this CTA's softmax state for the Place's
-// gc <= NG query heads; rank 0 merges the cluster's states and writes the
-// output rows. bias_row has unit stride over slots. Every thread of every
-// CTA of the cluster must call it (one cluster barrier), with
-// Smem<HD, NG>::kBytes of dynamic shared memory.
-template <int HD, int NG, typename Rows>
+// gc <= NG queries (qs: their q / out rows and bias rows, each bias row
+// with unit stride over slots); rank 0 merges the cluster's states and
+// writes the output rows. Every thread of every CTA of the cluster must
+// call it (one cluster barrier), with Smem<HD, NG>::kBytes of dynamic
+// shared memory.
+//
+// The bias. A shared bias row (decode) is read by every lane for the
+// slots it stages and added to each query's score. Per-query bias rows
+// (verify: causal-within-chunk differs per chunk position) are split over
+// a row's lanes: lane `sub` stages the bias of queries sub, sub + LPR, ...
+// (NBL of them), divided by the scale, and adds it to its part of that
+// query's q.k before the lanes' sum, so a query's score costs one select
+// more than with a shared row and no shuffle or register a query more.
+template <int HD, int NG, typename Rows, typename Queries>
 __device__ __forceinline__ void attend(const bf16* __restrict__ q,
                                        const bf16* __restrict__ k,
                                        const bf16* __restrict__ v,
-                                       const float* __restrict__ bias_row,
                                        bf16* __restrict__ out,
-                                       const Rows& rows, int t0, int t1,
-                                       const Place& pl, float scale) {
+                                       const Rows& rows, const Queries& qs,
+                                       int t0, int t1, const Place& pl,
+                                       float scale) {
   using S = Smem<HD, NG>;
   constexpr int LPR = S::kLanes;
   constexpr int NGRP = S::kGroups;
   constexpr int U = Tile<NG>::value;
   constexpr int kTiles = kStage / U;
+  constexpr bool kShared = Queries::kSharedBias;
+  constexpr int NBL = kShared ? 1 : (NG + LPR - 1) / LPR;
   static_assert(HD % 8 == 0 && 32 % LPR == 0, "head dim");
   static_assert(kStage % U == 0 && kTiles <= 4, "tiles");
   const int grp = threadIdx.x / LPR;
   const int sub = threadIdx.x % LPR;
   const int gc = pl.gc;
   const float c = scale * kLog2e;
+  // a shared bias enters as bias * log2e, a per-query one as bias / scale
+  const float bias_mul = kShared ? kLog2e : 1.f / scale;
+  const float* brow[NBL];
+#pragma unroll
+  for (int i = 0; i < NBL; ++i) {
+    const int j = kShared ? 0 : sub + i * LPR;
+    brow[i] = j < gc ? qs.bias(j) : nullptr;
+  }
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint4 (*sk)[kThreads] = reinterpret_cast<uint4 (*)[kThreads]>(smem);
@@ -277,7 +321,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
   const long long col = (long long)pl.kh * HD + sub * 8;
   // the same trip count for every thread: the shuffles need whole warps
   const int steps = (t1 - t0 + NGRP * kStage - 1) / (NGRP * kStage);
-  float bx[kStage];
+  float bx[kStage][NBL];
   auto stage = [&](int it) {
     const int base = t0 + it * NGRP * kStage + grp;
 #pragma unroll
@@ -286,7 +330,15 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
       const bool valid = t < t1;
       copy16(&sk[r][threadIdx.x], valid ? k + rows.k(t) + col : k, valid);
       copy16(&sv[r][threadIdx.x], valid ? v + rows.v(t) + col : v, valid);
-      bx[r] = valid ? bias_row[t] * kLog2e : 0.f;
+      if constexpr (kShared) {
+        bx[r][0] = valid ? brow[0][t] * bias_mul : 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < NBL; ++i) {
+          bx[r][i] = valid && brow[i] != nullptr ? brow[i][t] * bias_mul
+                                                 : 0.f;
+        }
+      }
       if (r % U == U - 1) copy_commit();    // one group a tile
     }
   };
@@ -296,7 +348,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     if (g < gc) {
-      unpack(load16(q + (pl.qrow0 + g) * HD + sub * 8), qf[g]);
+      unpack(load16(q + qs.row(g) * HD + sub * 8), qf[g]);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) qf[g][i] = 0.f;
@@ -327,14 +379,17 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
           float d = 0.f;
+          if constexpr (!kShared) {   // one lane of the row starts from it
+            if (sub == g % LPR) d = bx[u0 + u][g / LPR];
+          }
 #pragma unroll
           for (int i = 0; i < 8; ++i) d = fmaf(qf[g][i], kf[i], d);
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1) {
             d += __shfl_xor_sync(0xffffffffu, d, off);
           }
-          s[g][u] = base + (u0 + u) * NGRP < t1 ? fmaf(d, c, bx[u0 + u])
-                                                 : -INFINITY;
+          const float sc = kShared ? fmaf(d, c, bx[u0 + u][0]) : d * c;
+          s[g][u] = base + (u0 + u) * NGRP < t1 ? sc : -INFINITY;
         }
       }
 #pragma unroll
@@ -435,7 +490,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
       den = fmaf(states[j][at + 1], f, den);
       num = fmaf(states[j][g * HD + e], f, num);
     }
-    out[(pl.qrow0 + g) * HD + e] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+    out[qs.row(g) * HD + e] = __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
 }
 
@@ -475,9 +530,9 @@ inline cudaError_t pick_split(long long sets, int most, int* split) {
 }
 
 // Launch `kernel` (an attend<HD, NG> kernel) on a grid of `heads` (kv
-// head, head chunk) pairs x `split` CTAs along x (clusters of `split`) and
-// B along y, kThreads a CTA, with its dynamic shared memory (opted into
-// once where it passes the default 48 KB).
+// head, query chunk) pairs x `split` CTAs along x (clusters of `split`)
+// and B along y, kThreads a CTA, with its dynamic shared memory (opted
+// into once where it passes the default 48 KB).
 template <int HD, int NG, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), long long heads, int split,
                    int B, cudaStream_t stream, Args... args) {
@@ -507,39 +562,54 @@ cudaError_t launch(void (*kernel)(KArgs...), long long heads, int split,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// One query head a kv head takes the NG = 1 kernel, more the kMaxGroup one.
-template <template <int, int> class Kernel, int HD, typename... Args>
-cudaError_t launch_groups(int G, long long heads, int split, int B,
-                          cudaStream_t stream, Args... args) {
-  if (G == 1) {
-    return launch<HD, 1>(Kernel<HD, 1>::fn(), heads, split, B, stream,
-                         args...);
+// The query-set sizes NG a kernel is instantiated for, ascending, the
+// last kMaxGroup: a set of n queries takes the smallest NG >= n.
+template <int... NG>
+struct Sizes {};
+
+template <template <int, int> class Kernel, int HD, int NG, int... More,
+          typename... Args>
+cudaError_t launch_sized(Sizes<NG, More...>, int n, long long heads,
+                         int split, int B, cudaStream_t stream,
+                         Args... args) {
+  if constexpr (sizeof...(More) > 0) {
+    if (n > NG) {
+      return launch_sized<Kernel, HD>(Sizes<More...>{}, n, heads, split, B,
+                                      stream, args...);
+    }
+  } else {
+    static_assert(NG == kMaxGroup, "the largest set is kMaxGroup");
   }
-  return launch<HD, kMaxGroup>(Kernel<HD, kMaxGroup>::fn(), heads, split, B,
-                               stream, args...);
+  return launch<HD, NG>(Kernel<HD, NG>::fn(), heads, split, B, stream,
+                        args...);
 }
 
 // Launch a split kernel, Kernel<HD, NG>::fn() (a __global__ that calls
-// place() and attend<HD, NG>), for B rows of H query heads over K kv heads
-// at head dim hd, with `args` its arguments. The split is picked here, at
-// most `most`. Returns the CUDA error of the launch (0 on success).
-template <template <int, int> class Kernel, typename... Args>
-cudaError_t launch_split(int hd, int B, int H, int K, int most,
-                         cudaStream_t stream, Args... args) {
-  const int G = H / K;
-  const long long heads = (long long)K * ((G + kMaxGroup - 1) / kMaxGroup);
+// place(nq) and attend<HD, NG>), for B rows of K kv heads, each read by
+// nq queries, at head dim hd, with `args` its arguments; NG is the
+// smallest of `sizes` that holds min(nq, kMaxGroup). The split is picked
+// here, at most `most`. Returns the CUDA error of the launch (0 on
+// success).
+template <template <int, int> class Kernel, int... NG, typename... Args>
+cudaError_t launch_split(Sizes<NG...> sizes, int nq, int hd, int B, int K,
+                         int most, cudaStream_t stream, Args... args) {
+  const long long heads = (long long)K * ((nq + kMaxGroup - 1) / kMaxGroup);
+  const int n = nq < kMaxGroup ? nq : kMaxGroup;
   int split = 1;
   cudaError_t err = pick_split(B * heads, most, &split);
   if (err != cudaSuccess) return err;
   switch (hd) {
     case 32:
-      err = launch_groups<Kernel, 32>(G, heads, split, B, stream, args...);
+      err = launch_sized<Kernel, 32>(sizes, n, heads, split, B, stream,
+                                     args...);
       break;
     case 64:
-      err = launch_groups<Kernel, 64>(G, heads, split, B, stream, args...);
+      err = launch_sized<Kernel, 64>(sizes, n, heads, split, B, stream,
+                                     args...);
       break;
     case 128:
-      err = launch_groups<Kernel, 128>(G, heads, split, B, stream, args...);
+      err = launch_sized<Kernel, 128>(sizes, n, heads, split, B, stream,
+                                      args...);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -9,11 +9,13 @@ additive float32 slot bias. Port of
 On CUDA tensors each wrapper launches its hand-written Hopper kernel
 (``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``,
 ``csrc/paged_verify_attention.cu``) or raises; on CPU tensors it returns
-its plain version (``ref.py``). There is no other path. The bf16
-contiguous and paged decode kernels split each row's keys over a cluster
-of CTAs and read 16-byte rows (``csrc/split_decode.cuh``), so they refuse
-a q, cache or pool whose data pointer, or a cache or pool whose batch,
-page or slot stride, is not a multiple of 16 bytes.
+its plain version (``ref.py``). There is no other path. The three bf16
+kernels (contiguous decode, paged decode and verify) split each row's
+keys over a cluster of CTAs and read 16-byte rows
+(``csrc/split_decode.cuh``), so they refuse a q, cache or pool whose data
+pointer, or a cache or pool whose batch, page or slot stride, is not a
+multiple of 16 bytes. The float32 kernels keep one CTA a (row, kv head)
+(``csrc/flash_decode.cuh``).
 """
 from __future__ import annotations
 
@@ -29,10 +31,10 @@ from repro_torch.kernels.decode_attention.ref import (
 
 HEAD_DIMS = (32, 64, 128)
 
-# the verify kernel and the float32 paged decode kernel stage a row's page
-# table in shared memory beside the 33,280 bytes of their merge buffers
-# (hd=128), within the default 48 KiB; the bf16 paged decode kernel reads
-# the table in place and has no such limit, but shares the check
+# the float32 paged decode and verify kernels stage a row's page table in
+# shared memory beside the 33,280 bytes of their merge buffers (hd=128),
+# within the default 48 KiB; the bf16 kernels read the table in place and
+# have no such limit, but share the check
 MAX_PAGES = 2048
 
 # kernel launches since the last reset, one plain counter per kernel
@@ -227,6 +229,8 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"want q (B,C,H,hd); got {tuple(q.shape)}")
     _check_paged(q, k_pool, v_pool, page_table, bias)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q, k_pool, v_pool)
     B, C, H, hd = q.shape
     page, K = k_pool.shape[1], k_pool.shape[2]
     n = page_table.shape[1]

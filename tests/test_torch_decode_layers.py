@@ -1,9 +1,12 @@
 """The per-layer check of the decode kernels, ``chip_smoke.layer_check`` with
-the kinds "decode" (``decode_attention``) and "paged"
-(``paged_decode_attention``), on the CPU: bridged lisa_mini weights from the
-reference, served through ``chip_smoke``'s own phase-6 run (the microbatch
-generate path, ``serve_requests``) and phase-8 run (the paged
-``InflightDecoder``, ``serve_inflight``), with stand-ins for the kernels.
+the kinds "decode" (``decode_attention``), "paged"
+(``paged_decode_attention``) and "verify" (``paged_verify_attention``), on
+the CPU: bridged lisa_mini weights from the reference, served through
+``chip_smoke``'s own phase-6 run (the microbatch generate path,
+``serve_requests``), phase-8 run (the paged ``InflightDecoder``,
+``serve_inflight``) and phase-9 run A (the speculative decoder,
+``serve_spec`` with 3 drafts over pages of 4), with stand-ins for the
+kernels.
 
 The helper runs the path with the kernel's plain version in its place and,
 at every decode layer of every step, holds the layer computed with the
@@ -12,8 +15,10 @@ input. The plain version itself (and the wrapper, which takes it on CPU
 tensors) reads exactly 0 and returns the plain replay's result; the plain
 version with one bf16 ulp added to a few outputs reads above 0 and under
 LAYER_RTOL; a stand-in with a 1/hd scale, or one that ignores the bias (the
-mask), fails naming step 0, layer 0. The speculative decoder's verify
-layers share the paged block and are not counted.
+mask), fails naming step 0, layer 0, and so does a verify stand-in that
+gives every chunk query the bias row of position 0. The speculative
+decoder's verify layers and plain paged decode layers share the paged
+block; each kind counts only its own.
 """
 import importlib.util
 import math
@@ -33,7 +38,7 @@ from repro_torch.core import lut as tlut
 from repro_torch.core.streams import DualStreamExecutor as TExecutor
 from repro_torch.engine.speculative import SpeculativeConfig
 from repro_torch.kernels.decode_attention import ops, ref
-from repro_torch.models import stack
+from repro_torch.models import attention, stack
 
 torch.set_num_threads(1)
 
@@ -78,32 +83,47 @@ def _executor(weights, **kw):
 @pytest.fixture(scope="module")
 def served(weights):
     """The executor of phases 6 and 8 (4 new tokens, pages of 16), phase
-    5's six edge-encoded requests and phase 8's frames."""
+    5's six edge-encoded requests, phase 8's frames and the executor of
+    phase 9 (6 new tokens, pages of 4)."""
     ex = _executor(weights, max_new_tokens=cs.MAX_NEW_TOKENS)
+    sx = _executor(weights, max_new_tokens=cs.SPEC_MAX_NEW_TOKENS,
+                   page_size=cs.SPEC_PAGE)
     with mock.patch.object(cs, "_sync_s", time.perf_counter):
-        return ex, cs.edge_encode(ex, TP, 0), cs.inflight_requests(ex, TP, 0)
+        return (ex, cs.edge_encode(ex, TP, 0), cs.inflight_requests(ex, TP, 0),
+                sx)
 
 
 def _run(kind, served):
-    ex, reqs, frames = served
+    ex, reqs, frames, sx = served
     if kind == "decode":
         return lambda: cs.serve_requests(ex, reqs)
+    if kind == "verify":        # phase 9's run A
+        return lambda: cs.serve_spec(sx, frames,
+                                     SpeculativeConfig(draft_tokens=3))
     return lambda: cs.serve_inflight(ex, frames)
 
 
 def _outputs(kind, result):
     """Every request's (tokens, answer logits, mask logits) and the run's
-    decode steps."""
-    results, runner = result
+    steps of the kind (decode steps, or verify steps)."""
+    if kind == "verify":
+        results, _, calls = result
+        steps = calls["cloud_verify_rows"]
+    else:
+        results, runner = result
     if kind == "decode":
         arrs = [(r.tokens, r.answer_logits, r.mask_logits) for r in results]
         return arrs, runner.n_microbatches * cs.MAX_NEW_TOKENS
+    if kind == "paged":
+        steps = runner.n_steps
     return ([(r["tokens"], r["answer_logits"], r["mask_logits"])
-             for r in results], runner.n_steps)
+             for r in results], steps)
 
 
+KINDS = ["decode", "paged", "verify"]
 NAMES = {"decode": ("decode_attention", ref.decode_attention_ref),
-         "paged": ("paged_decode_attention", ref.paged_decode_attention_ref)}
+         "paged": ("paged_decode_attention", ref.paged_decode_attention_ref),
+         "verify": ("paged_verify_attention", ref.paged_verify_attention_ref)}
 
 
 def _nudged(plain):
@@ -129,7 +149,17 @@ def _no_mask(plain):
     return fn
 
 
-@pytest.mark.parametrize("kind", ["decode", "paged"])
+def _first_bias_row(plain):
+    """Every chunk query of a verify call given the bias row of position 0:
+    causal-within-chunk dropped, the fault of a body that shares one bias
+    row across its query set."""
+    def fn(*args):
+        bias = args[-1]
+        return plain(*args[:-1], bias[:, :1].expand_as(bias).contiguous())
+    return fn
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("kernel", ["wrapper", "plain"])
 def test_plain_stand_in_reads_zero(served, kind, kernel):
     name, plain = NAMES[kind]
@@ -151,7 +181,7 @@ def test_plain_stand_in_reads_zero(served, kind, kernel):
             assert (x is None and y is None) or np.array_equal(x, y)
 
 
-@pytest.mark.parametrize("kind", ["decode", "paged"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_one_ulp_off_is_within_limit(served, kind):
     _, plain = NAMES[kind]
     _, summary = cs.layer_check(kind, "test", _run(kind, served),
@@ -162,7 +192,7 @@ def test_one_ulp_off_is_within_limit(served, kind):
     assert summary["outputs_not_bit_equal"] == summary["layers"]
 
 
-@pytest.mark.parametrize("kind", ["decode", "paged"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("wrong", [_wrong_scale, _no_mask],
                          ids=["scale_1_over_hd", "ignores_bias"])
 def test_wrong_kernel_fails_at_first_layer(served, kind, wrong):
@@ -171,13 +201,52 @@ def test_wrong_kernel_fails_at_first_layer(served, kind, wrong):
         cs.layer_check(kind, "test", _run(kind, served), wrong(plain))
 
 
-def test_verify_layers_are_not_counted(weights, served):
+def test_kernel_call_reads_the_pages_the_plain_call_read(served):
+    """A verify layer's pad entries all write their k/v to the trash page,
+    several to one slot, and an idle row attends that page; on the card the
+    layer's second run may resolve those writes with other winners.
+    Emulated by running every other call of the verify attention with its
+    rows and chunk positions in reverse order (the same function, with the
+    last write to a slot now the first): the kernel's call is handed the
+    pages as the plain call read them, so the plain version as the kernel
+    still reads exactly 0."""
+    gqa = attention.gqa_verify_paged
+    calls = []
+
+    def alternating(p, cfg, x, positions, pool, page_table, write_page,
+                    write_off, mask):
+        calls.append(1)
+        if len(calls) % 2:
+            return gqa(p, cfg, x, positions, pool, page_table, write_page,
+                       write_off, mask)
+        out, pool = gqa(p, cfg, x.flip(0, 1), positions.flip(0, 1), pool,
+                        page_table.flip(0), write_page.flip(0, 1),
+                        write_off.flip(0, 1), mask.flip(0, 1))
+        return out.flip(0, 1), pool
+
+    with mock.patch.object(attention, "gqa_verify_paged", alternating):
+        (_, _, steps), summary = cs.layer_check(
+            "verify", "test", _run("verify", served),
+            ref.paged_verify_attention_ref)
+    assert len(calls) == 2 * steps["cloud_verify_rows"] * L
+    assert summary["worst"]["h"] == 0.0 and summary["worst"]["out"] == 0.0
+    assert summary["outputs_not_bit_equal"] == 0
+
+
+def test_verify_with_one_bias_row_fails_at_first_layer(served):
+    """A verify kernel that reads one bias row for all chunk queries (as
+    the decode kernels share one) lets a query see the chunk tokens after
+    it; the check fails at the first verify step's first layer."""
+    with pytest.raises(AssertionError, match=r": step 0 layer 0 "):
+        cs.layer_check("verify", "test", _run("verify", served),
+                       _first_bias_row(ref.paged_verify_attention_ref))
+
+
+def test_verify_layers_are_not_counted(served):
     """Phase 9's run A on lisa_mini (shared-weights draft, 3 drafts, pages
     of 4): only the plain steps' layers are checked, though every verify
     step runs the same paged block."""
-    _, _, frames = served
-    sx = _executor(weights, max_new_tokens=cs.SPEC_MAX_NEW_TOKENS,
-                   page_size=cs.SPEC_PAGE)
+    _, _, frames, sx = served
     verify_passes = []
     group = stack.group_verify_paged
 
@@ -194,3 +263,22 @@ def test_verify_layers_are_not_counted(weights, served):
     assert len(verify_passes) == calls["cloud_verify_rows"]
     assert summary["steps"] == calls["cloud_decode_rows"]
     assert summary["layers"] == calls["cloud_decode_rows"] * L
+
+
+def test_paged_layers_are_not_counted_as_verify(served):
+    """The same run under the "verify" kind: only the verify steps' layers
+    are checked, though every plain step runs the same paged block."""
+    paged_passes = []
+    group = stack.group_decode_paged
+
+    def counted(*a, **kw):
+        paged_passes.append(1)
+        return group(*a, **kw)
+
+    with mock.patch.object(stack, "group_decode_paged", counted):
+        (_, _, calls), summary = cs.layer_check("verify", "test",
+                                                _run("verify", served))
+    assert calls["cloud_verify_rows"] > 0 and calls["cloud_decode_rows"] > 0
+    assert len(paged_passes) == calls["cloud_decode_rows"]
+    assert summary["steps"] == calls["cloud_verify_rows"]
+    assert summary["layers"] == calls["cloud_verify_rows"] * L

@@ -269,17 +269,23 @@ def _slot_padded(t):
 
 @pytest.mark.parametrize("bad", [None, "q_pointer", "k_pointer",
                                  "v_slot_stride", "pool_pointer",
-                                 "pool_slot_stride"])
+                                 "pool_slot_stride", "verify_q_pointer"])
 def test_bf16_rows_must_be_16_byte_aligned(bad):
     """What the bf16 split-K kernels' 16-byte row loads take, for the
-    contiguous cache and the page pool (checked on CPU tensors through the
-    wrappers' validator): aligned tensors pass; a q, cache or pool whose
-    data pointer or slot stride breaks 16-byte rows is refused."""
+    contiguous cache, the page pool and the verify step's (B,C,H,hd)
+    chunk queries (checked on CPU tensors through the wrappers'
+    validator): aligned tensors pass; a q, cache or pool whose data
+    pointer or slot stride breaks 16-byte rows is refused."""
     q, k, v, bias = _torch(*_inputs(2, 4, 2, 64, 32, seed=8),
                            dtype=torch.bfloat16)
     _, kp, vp, pt, pbias = _paged_torch(*_paged_inputs(2, 4, 2, 64, 9, 4, 3,
                                                        seed=9))
     kp, vp = kp.bfloat16(), vp.bfloat16()
+    vq, _, _, vpt, vbias = _paged_torch(*_verify_inputs(2, 3, 4, 2, 64, 9, 4,
+                                                        3, seed=10))
+    vq = vq.bfloat16()
+    if bad == "verify_q_pointer":
+        vq = _offset_by_one(vq)
     if bad == "q_pointer":
         q = _offset_by_one(q)
     if bad == "k_pointer":
@@ -295,12 +301,17 @@ def test_bf16_rows_must_be_16_byte_aligned(bad):
     ops._check_paged(q, kp, vp, pt, pbias)
     contiguous_bad = bad in ("q_pointer", "k_pointer", "v_slot_stride")
     paged_bad = bad in ("q_pointer", "pool_pointer", "pool_slot_stride")
-    for (kk, vv), refused in (((k, v), contiguous_bad), ((kp, vp), paged_bad)):
+    ops._check_paged(vq, kp, vp, vpt, vbias)
+    verify_bad = bad in ("verify_q_pointer", "pool_pointer",
+                         "pool_slot_stride")
+    for (qq, kk, vv), refused in (((q, k, v), contiguous_bad),
+                                  ((q, kp, vp), paged_bad),
+                                  ((vq, kp, vp), verify_bad)):
         if refused:
             with pytest.raises(ValueError, match="16-byte aligned"):
-                ops._check_rows_aligned(q, kk, vv)
+                ops._check_rows_aligned(qq, kk, vv)
         else:
-            ops._check_rows_aligned(q, kk, vv)
+            ops._check_rows_aligned(qq, kk, vv)
 
 
 # ---------------------------------------------------------------------------
