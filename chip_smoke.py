@@ -14,6 +14,10 @@ Phases, each fatal on failure:
      to W across rows) and at a small fp32 shape, and time the
      kernel, the plain version and one PyTorch library call for the same
      function (CUDA graphs of many launches, timed with CUDA events);
+     then hold the attention the encoders and the plain paths take
+     (``attention.sdpa_f32``: bf16 operands multiplied on the tensor cores
+     with a float32 result) against its float32 upcast at SAM's, CLIP's
+     and the LLM prefill's shapes, and time both;
   4. check the serving path on a small input: LISA-mini in fp32, the
      scheduler's tokens with the kernel equal those of the plain path;
   5. serve six mixed Context/Insight requests over two bottleneck tiers at
@@ -73,9 +77,11 @@ Phases, each fatal on failure:
      against its plain version on its own inputs, and the mask logits
      against a replay with each kernel kind's plain version in its place,
      one kind at a time: flash (with the per-layer check of (a);
-     SDPA_PATH_RTOL), then the bottleneck pair (PATH_RTOL), each reading
-     on its own line beside its limit; one frame's encode and decode
-     timed.
+     SDPA_PATH_RTOL), then the bottleneck pair (PATH_RTOL; every frame's
+     boundary activation from the kernels and the first SAM-tail block on
+     it also held against the plain pair's on the same SAM-head output,
+     LAYER_RTOL, ``layer_check`` kind "split"), each reading on its own
+     line beside its limit; one frame's encode and decode timed.
  11. (zoo) LISA-7B freed, then the zoo's Mamba path at full width with
      random bf16 weights from ``--seed``, one config after the other:
      falcon-mamba-7b (64 Mamba-1 layers) and zamba2-7b (81 Mamba-2 layers
@@ -114,8 +120,9 @@ rows past S are NaN, and at long sequences: bf16 causal at 1,500 and
 4,096 (SAM's token grid, LLaMA-7B's heads), bf16 at 1,000 (not causal,
 NaN past S) and 777 (hd = 32), float32 at 3,000 (the online kernel, with
 NaN past S); the bottleneck encode and decode kernels at the
-reference test's shapes and at the split point's (one frame of 4096
-tokens x 1280, the three tiers' ranks); and the scan kernel at the
+reference test's shapes, at ranks wider than a cluster of column tiles,
+at odd widths and ragged tiles, and at the split point's (one frame of
+4096 tokens x 1280, the three tiers' ranks); and the scan kernel at the
 reference test's four shapes, its 512-step long-decay case, a bf16 case
 and the two zoo prefills' shapes, counting the elements that are not
 bit-equal to ``scan_ref``'s.
@@ -128,6 +135,7 @@ script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -180,6 +188,14 @@ SDPA_PATH_RTOL = 2.0 ** -3
 # float32 and round the attention output once to bf16, so they may differ
 # by one bf16 rounding: 2**-8. A wrong mask, scale or head mapping is O(1).
 LAYER_RTOL = 2.0 ** -8
+# attention.sdpa_f32 with bf16 operands on the tensor cores against the
+# float32 upcast it replaced, norm-wise, on the same inputs (check_sdpa).
+# Both products are exact, only their order of sums differs, but where the
+# two routes' scores differ in the last float32 bit a bf16 rounding of P
+# can flip: the outputs read 2.7e-05 to 3.3e-05 at SAM's shape on an H100.
+# A route that rounds its P.V result to bf16 reads some 1e-3; check_sdpa
+# requires that control to fail this limit.
+SDPA_RTOL = 1e-4
 # The bf16 flash kernel keeps the probabilities near float32 through P.V
 # (p_hi + p_lo, two bf16 MMAs). On the timed bf16 cases its norm-wise error
 # against attention_ref must be under this share of the error of
@@ -991,12 +1007,13 @@ def decode_inputs_bn(rng, case, dev):
 
 def bottleneck_cases(pcfg, ranks):
     """Encode: the four shapes of the reference's test in fp32 and bf16
-    (x and w of one dtype), its batched (2, 37, 64) -> 16, a rank too wide
-    for 16 rows a CTA, and the split
+    (x and w of one dtype), its batched (2, 37, 64) -> 16, two ranks wider
+    than a cluster of column tiles, odd widths, and the split
     point's shapes: one frame's SAM boundary (1, 4096, 1280) in bf16 with
     the float32 weight of each tier's rank. Decode: the reference's two
-    shapes with fp32 and bf16 weights into fp32, its batched shape, and
-    the split point's (codes of each rank back to 1280, bf16 out)."""
+    shapes with fp32 and bf16 weights into fp32, its batched shape, ragged
+    tiles, an odd rank, and the split point's (codes of each rank back to
+    1280, bf16 out)."""
     enc, dec = [], []
     for T, d, r in ((128, 128, 32), (64, 256, 100), (100, 64, 16),
                     (256, 1280, 638)):
@@ -1007,10 +1024,19 @@ def bottleneck_cases(pcfg, ranks):
     enc.append(dict(name="batched_2x37_d64_r16", lead=(2, 37), d=64, r=16,
                     x_dtype=torch.float32, w_dtype=torch.float32,
                     w_scale=0.1))
-    # a rank whose z fits 8 rows a CTA, not 16
-    enc.append(dict(name="float32_T40_d64_r3500_8_rows", lead=(40,), d=64,
+    # ranks wider than a cluster of 8 column tiles: every CTA walks two
+    # (14 tiles), or all but the last (9 tiles); a ragged token tile
+    enc.append(dict(name="float32_T40_d64_r3500_walk", lead=(40,), d=64,
                     r=3500, x_dtype=torch.float32, w_dtype=torch.float32,
                     w_scale=0.1))
+    enc.append(dict(name="bfloat16_T300_d256_r2100_walk", lead=(300,),
+                    d=256, r=2100, x_dtype=torch.bfloat16,
+                    w_dtype=torch.float32, w_scale=0.0625))
+    # odd widths: x's rows and the codes' rows not in pairs
+    for wdt in (torch.float32, torch.bfloat16):
+        enc.append(dict(name=f"bfloat16_T33_d63_r37_w{str(wdt)[6:]}",
+                        lead=(33,), d=63, r=37, x_dtype=torch.bfloat16,
+                        w_dtype=wdt, w_scale=0.125))
     for T, d, r in ((128, 128, 32), (64, 256, 100)):
         for dt in (torch.float32, torch.bfloat16):
             dec.append(dict(name=f"w{str(dt).replace('torch.', '')}_T{T}_r{r}"
@@ -1019,6 +1045,13 @@ def bottleneck_cases(pcfg, ranks):
     dec.append(dict(name="batched_2x37_r16_d64", lead=(2, 37), d=64, r=16,
                     w_dtype=torch.float32, out_dtype=torch.float32,
                     w_scale=0.1))
+    # a ragged column tile and token tile; odd rank (codes not in pairs)
+    dec.append(dict(name="wfloat32_T300_r1278_d1000", lead=(300,), d=1000,
+                    r=1278, w_dtype=torch.float32,
+                    out_dtype=torch.bfloat16, w_scale=1278 ** -0.5))
+    dec.append(dict(name="wbfloat16_T50_r37_d96", lead=(50,), d=96, r=37,
+                    w_dtype=torch.bfloat16, out_dtype=torch.float32,
+                    w_scale=0.125))
     d, T = pcfg.sam.d_model, pcfg.sam_tokens
     for r in ranks:
         enc.append(dict(name=f"main_r{r}", lead=(1, T), d=d, r=r,
@@ -1030,14 +1063,21 @@ def bottleneck_cases(pcfg, ranks):
     return enc, dec
 
 
-def _bn_bound(nbytes, flops):
-    """Least time for these bytes and float32 operations (the products are
-    taken in float32 whatever the inputs' dtype)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
-        torch.float32]
+def _bn_bound(nbytes, flops, products):
+    """Least time for these bytes and the products the kernel takes on the
+    tensor cores: ``products`` bf16 products of ``flops`` operations each
+    (ops.tensor_core_products), at the peak of ops.PRODUCT_DTYPE. Beside it
+    the float32 bound of the same function on the CUDA cores (the first
+    design's), as a yardstick."""
+    from repro_torch.kernels.bottleneck import ops
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products * flops / PEAK_FLOPS[ops.PRODUCT_DTYPE]
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": products * flops,
+            "products": products,
+            "f32_bound_ms": 1e3 * max(t_bytes,
+                                      flops / PEAK_FLOPS[torch.float32])}
 
 
 def check_bottleneck_encode(rng, case, dev, timed):
@@ -1068,7 +1108,8 @@ def check_bottleneck_encode(rng, case, dev, timed):
     if timed:
         nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() \
             + T * r + T * 4
-        res.update(_bn_bound(nbytes, 2 * T * d * r))
+        res.update(_bn_bound(nbytes, 2 * T * d * r, ops.tensor_core_products(
+            x.dtype, w.dtype)))
         copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
         sets = [(x, w)] + [encode_inputs(rng, case, dev)
                            for _ in range(copies - 1)]
@@ -1088,7 +1129,9 @@ def check_bottleneck_encode(rng, case, dev, timed):
             "matmul_quant_calls": 10})
         msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
                 f" matmul_quant_ms={res['matmul_quant_ms']:.4f} (10 calls)"
-                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']}, "
+                f"{res['products']} bf16 products; float32 "
+                f"{res['f32_bound_ms']:.4f})")
     log(msg)
     return res
 
@@ -1119,7 +1162,8 @@ def check_bottleneck_decode(rng, case, dev, timed):
     if timed:
         nbytes = T * r + T * 4 + w.numel() * w.element_size() \
             + T * d * out.element_size()
-        res.update(_bn_bound(nbytes, 2 * T * r * d))
+        res.update(_bn_bound(nbytes, 2 * T * r * d, ops.tensor_core_products(
+            codes.dtype, w.dtype)))
         copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
         sets = [(codes, scales, w)] + [decode_inputs_bn(rng, case, dev)
                                        for _ in range(copies - 1)]
@@ -1137,8 +1181,112 @@ def check_bottleneck_decode(rng, case, dev, timed):
             "dequant_matmul_calls": 4})
         msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
                 f" dequant_matmul_ms={res['dequant_matmul_ms']:.4f} (4 calls)"
-                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+                f" bound_ms={res['bound_ms']:.4f} ({res['bound_by']}, "
+                f"{res['products']} bf16 products; float32 "
+                f"{res['f32_bound_ms']:.4f})")
     log(msg)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the encoders' and plain paths' attention (models/attention.py:sdpa_f32)
+# ---------------------------------------------------------------------------
+
+
+def sdpa_upcast_f32(q, k, v, mask, scale):
+    """``attention.sdpa_f32`` as it was before it multiplied bf16 operands
+    on the tensor cores: float32 copies of q, k, v and the bf16
+    probabilities, multiplied in float32 (TF32 off). The yardstick of
+    ``check_sdpa``."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    scores = scores + mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, S, H, hd)
+
+
+def sdpa_cases(pcfg):
+    """The three shapes that reach ``_sdpa`` on the served paths: SAM's
+    global attention over one frame's token grid, CLIP's over a Context
+    microbatch of 4, and the LLM prefill of the plain path
+    (``use_flash=False``) at B = 4, causal."""
+    sam, clip, llm = pcfg.sam, pcfg.clip, pcfg.llm
+    return [
+        dict(name="sam_B1", B=1, S=pcfg.sam_tokens, H=sam.num_heads,
+             K=sam.num_kv_heads, hd=sam.resolved_head_dim, causal=False),
+        dict(name="clip_B4", B=4, S=pcfg.clip_tokens, H=clip.num_heads,
+             K=clip.num_kv_heads, hd=clip.resolved_head_dim, causal=False),
+        dict(name="llm_prefill_B4", B=4, S=pcfg.clip_tokens + QUERY_LEN,
+             H=llm.num_heads, K=llm.num_kv_heads, hd=llm.resolved_head_dim,
+             causal=True)]
+
+
+def check_sdpa(rng, case, dev, dtype=torch.bfloat16):
+    """``attention.sdpa_f32`` on the card against the float32 upcast
+    (``sdpa_upcast_f32``) on the same bf16 inputs. Each of its two products
+    (``attention.scores_f32`` and ``attention.pv_f32``: ``torch.bmm`` of
+    the native operands with a float32 result) against the same product of
+    the upcast operands, q.k and then P.V on one bf16 P, within
+    TOL[float32]: the products are exact in both, only the summation order
+    differs. The outputs within SDPA_RTOL (norm-wise), which the same
+    output rounded to bf16 (a route with a bf16 P.V result) must fail.
+    Both routes timed."""
+    from repro_torch.models import attention
+    B, S, H, K, hd = (case[n] for n in ("B", "S", "H", "K", "hd"))
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32)
+                                ).to(dev, dtype) for n in (H, K, K))
+    mask = torch.zeros((1, S, S), dtype=torch.float32, device=dev)
+    if case["causal"]:
+        mask = torch.triu(torch.full((1, S, S), -1e30, device=dev), 1)
+    scale = 1.0 / math.sqrt(hd)
+    name = f"sdpa {case['name']}"
+    qg = q.reshape(B, S, K, H // K, hd).permute(0, 2, 3, 1, 4).reshape(
+        B * K, -1, hd)
+    kt = k.permute(0, 2, 3, 1).reshape(B * K, hd, S)
+    scores = torch.bmm(qg.float(), kt.float())
+    qk_err = held_against(f"{name} q.k", attention.scores_f32(q, k), scores,
+                          TOL[torch.float32])
+    probs = torch.softmax(scores * scale, dim=-1).to(dtype)
+    vg = v.permute(0, 2, 1, 3).reshape(B * K, S, hd)
+    pv_err = held_against(f"{name} p.v", attention.pv_f32(probs, v),
+                          torch.bmm(probs.float(), vg.float()),
+                          TOL[torch.float32])
+    del scores, probs
+    got = attention.sdpa_f32(q, k, v, mask, scale)
+    want = sdpa_upcast_f32(q, k, v, mask, scale)
+    rel = _rel(got, want)
+    control = _rel(got.to(dtype).float(), want)
+    if not (torch.isfinite(got).all() and rel <= SDPA_RTOL):
+        raise AssertionError(f"{name}: output off the float32 upcast by "
+                             f"{rel:.3g} (norm-wise), limit {SDPA_RTOL}")
+    if not control > SDPA_RTOL:
+        raise AssertionError(f"{name}: the output rounded to bf16 reads "
+                             f"{control:.3g}, within the limit {SDPA_RTOL}: "
+                             f"the check cannot tell a bf16 P.V result")
+    off = int((got.to(dtype) != want.to(dtype)).sum())
+    res = {"case": case["name"], "qk_max_abs_err": qk_err,
+           "pv_max_abs_err": pv_err, "rel_err": rel,
+           "bf16_pv_rel_err": control, "limit": SDPA_RTOL,
+           "max_abs_err": float((got - want).abs().max()),
+           "bf16_not_bit_equal": off, "elements": got.numel()}
+    del got, want
+    args = [(q, k, v, mask)]
+    res["ms"] = device_ms(lambda *a: attention._sdpa(*a, scale), args)
+    res["upcast_ms"] = device_ms(
+        lambda *a: sdpa_upcast_f32(*a, scale).to(dtype), args)
+    log(f"[sdpa] {case['name']}: B={B} S={S} H={H} K={K} hd={hd}: bf16 "
+        f"operands on the tensor cores against the float32 upcast: q.k max "
+        f"abs err {qk_err:.3g}, p.v {pv_err:.3g} (rtol "
+        f"{TOL[torch.float32][0]}, atol {TOL[torch.float32][1]}); output "
+        f"{rel:.3g} norm-wise (limit {SDPA_RTOL}; rounded to bf16 "
+        f"{control:.3g}), max abs "
+        f"{res['max_abs_err']:.3g}, {off} of {res['elements']} bf16 outputs "
+        f"not bit-equal; ms {res['ms']:.4f}, upcast ms "
+        f"{res['upcast_ms']:.4f}")
     return res
 
 
@@ -1698,12 +1846,86 @@ def inflight_timings(executor, frames):
     if len(dec.active) != INFLIGHT_SLOTS:
         raise AssertionError("timing decoder has idle slots")
     # the trace's warm-up runs the first step with every slot live
-    out["step_traced"] = trace("cloud_decode_rows (4 live rows)", dec.step)
+    with captured(executor, "cloud_decode_rows") as calls:
+        out["step_traced"] = trace("cloud_decode_rows (4 live rows)",
+                                   dec.step)
+    out["pool_write"] = pool_write_cost(executor, "cloud_decode_rows",
+                                        calls[-1], "inflight")
     dec.drain()
     log(f"[inflight] admission wall: prefix miss {out['miss_ms']:.1f} ms "
         f"(first, creating the pool: {out['miss_first_ms']:.1f} ms), prefix "
         f"hit {out['hit_ms']:.2f} ms")
     return {k: v for k, v in out.items() if not k.startswith("fill_")}
+
+
+@contextlib.contextmanager
+def captured(executor, stage):
+    """Within the block, the arguments of every call of the executor's
+    ``stage`` method, in order, its numpy arrays copied (the decoder
+    updates its tables in place after the call)."""
+    real, calls = getattr(executor, stage), []
+
+    def record(*args):
+        calls.append(tuple(a.copy() if isinstance(a, np.ndarray) else a
+                           for a in args))
+        return real(*args)
+
+    setattr(executor, stage, record)
+    try:
+        yield calls
+    finally:        # as serve_spec, which may run inside, restores it
+        vars(executor).pop(stage, None)
+
+
+POOL_WRITE_TURNS = 40
+
+
+def pool_write_cost(executor, stage, args, tag):
+    """What fixing the winner of each pool slot costs a paged step: the
+    executor's ``stage`` call on ``args`` (one captured step) replayed in
+    POOL_WRITE_TURNS turns (A B, B A, ...) with the shipped write
+    (``stack._write_src`` once a step, ``attention.write_pool`` a layer)
+    and with a direct write of each entry's own row (the write before the
+    winners were fixed: duplicate slots keep no fixed winner). A replay
+    writes the same rows into the same slots. Host wall of each call,
+    ending in a synchronise: medians and quartiles in ms, and of each
+    turn's difference (shipped minus direct), which host drift between
+    turns does not move."""
+    from repro_torch.models import attention, stack
+    stage_fn = getattr(executor, stage)
+
+    def direct(pool, write_page, write_off, k, v, src):
+        page, off = write_page.reshape(-1), write_off.reshape(-1)
+        for name, x in (("k", k), ("v", v)):
+            pool[name][page, off] = x.reshape(-1, *x.shape[-2:])
+
+    walls = {"fixed": [], "direct": []}
+    for turn in range(POOL_WRITE_TURNS):
+        for label in (("fixed", "direct") if turn % 2 == 0
+                      else ("direct", "fixed")):
+            with contextlib.ExitStack() as patches:
+                if label == "direct":
+                    patches.enter_context(mock.patch.object(
+                        stack, "_write_src", lambda *a: None))
+                    patches.enter_context(mock.patch.object(
+                        attention, "write_pool", direct))
+                t0 = _sync_s()
+                stage_fn(*args)
+                walls[label].append((_sync_s() - t0) * 1e3)
+    walls["diff"] = list(np.subtract(walls["fixed"], walls["direct"]))
+    out = {}
+    for k, w in walls.items():
+        out[f"{k}_ms"] = float(np.median(w))
+        out[f"{k}_quartiles_ms"] = [float(np.percentile(w, q))
+                                    for q in (25, 75)]
+    q = {k: "-".join(f"{x:.2f}" for x in out[f"{k}_quartiles_ms"])
+         for k in walls}
+    log(f"[{tag}] pool write A/B, {stage} with {INFLIGHT_SLOTS} live rows, "
+        f"{POOL_WRITE_TURNS} turns: fixed winners median "
+        f"{out['fixed_ms']:.2f} ms (quartiles {q['fixed']}), direct write "
+        f"{out['direct_ms']:.2f} ({q['direct']}); a turn's difference "
+        f"median {out['diff_ms']:+.2f} ms ({q['diff']})")
+    return out
 
 
 KERNELS = ("paged_verify_attention", "paged_decode_attention",
@@ -2060,9 +2282,13 @@ def spec_timings(executor, frames, spec):
         if len(dec.active) != INFLIGHT_SLOTS:
             raise AssertionError("timing decoder has idle slots")
         decs.append(dec)
-    t0 = _sync_s()
-    decs[0].step()
-    step_ms = (_sync_s() - t0) * 1e3
+    with captured(executor, "cloud_verify_rows") as calls:
+        t0 = _sync_s()
+        decs[0].step()
+        step_ms = (_sync_s() - t0) * 1e3
+    # before the other decoders take pages that this step's rollback freed
+    write = pool_write_cost(executor, "cloud_verify_rows", calls[-1],
+                            "spec")
     log(f"[spec] one speculative step (draft + verify) with "
         f"{INFLIGHT_SLOTS} live rows: wall {step_ms:.1f} ms")
     queue = decs[1:]
@@ -2075,7 +2301,8 @@ def spec_timings(executor, frames, spec):
                              f" expected {want} verify kernels")
     for dec in decs:
         dec.drain()
-    return {"step_wall_ms": step_ms, "step_traced": traced}
+    return {"step_wall_ms": step_ms, "step_traced": traced,
+            "pool_write": write}
 
 
 def spec_phase(executor, pcfg, seed, frames):
@@ -2220,16 +2447,17 @@ def layer_check(kind, label, run, kernel=None):
     to the next. The decode kinds write the new token's k/v into the cache
     or pool in place before attending; the second run of a layer computes
     the same k/v from the same input and writes the same values to the
-    same slots. The paged kinds are the exception: their pad and idle
-    entries all write to the shared trash page, several to one slot in a
-    call, which the card resolves in no fixed order, and an idle row
-    attends that page. So for the paged kinds the kernel's call is handed
-    the pool pages its table names as the plain call read them (copied
-    before the plain call, written back before the kernel's), and the plain
-    trajectory's pool is unchanged by the second run.
+    same slots. That holds for the paged kinds too, whose pad and idle
+    entries all target the shared trash page, several to one slot, which
+    an idle row attends: the pool write gives every entry of a slot the
+    row of the last entry for it (``attention.write_pool``), so however the
+    card orders the duplicates, both runs leave the same values there.
     Raises naming the first (prefill or step, layer) past the limit.
     Returns (what ``run`` returns, which is the plain replay's result, and
-    a summary)."""
+    a summary). Kind "split" is the split point's check
+    (``split_layer_check``; ``kernel`` an (encode, decode) pair)."""
+    if kind == "split":
+        return split_layer_check(label, run, kernel)
     from repro_torch.models import attention, stack
     block_name, attn_name, group_name, mod, name, plain_fn, unit = \
         _layer_kind(kind)
@@ -2245,22 +2473,11 @@ def layer_check(kind, label, run, kernel=None):
         passes.append([])
         return group(*a, **kw)
 
-    read = {}       # paged kinds: the pages the plain call read
-
-    def layer(fn, first, *a, **kw):
+    def layer(fn, *a, **kw):
         seen = {"kernel": 0}
 
         def counted(*x, **y):
             seen["kernel"] += 1
-            if kind in ("paged", "verify"):
-                _, k_pool, v_pool, table = x[:4]
-                if first:
-                    idx = torch.unique(table).long()
-                    read.update(idx=idx, k=k_pool[idx].clone(),
-                                v=v_pool[idx].clone())
-                else:
-                    k_pool[read["idx"]] = read["k"]
-                    v_pool[read["idx"]] = read["v"]
             return fn(*x, **y)
 
         def attn(*x, **y):
@@ -2277,9 +2494,9 @@ def layer_check(kind, label, run, kernel=None):
     def checked(*a, **kw):
         if kw.get("attn_fn", unset) is not attn_fn:
             return block(*a, **kw)      # a layer of the other paged kind
-        plain, y, rest = layer(plain_fn, True, *a, **kw)
+        plain, y, rest = layer(plain_fn, *a, **kw)
         if plain["kernel"]:
-            got, y_k, _ = layer(kernel, False, *a, **kw)
+            got, y_k, _ = layer(kernel, *a, **kw)
             passes[-1].append({"h": _rel(got["h"], plain["h"]),
                                "out": _rel(y_k, y),
                                "bit_equal": bool(torch.equal(y_k, y))})
@@ -2321,6 +2538,107 @@ def layer_check(kind, label, run, kernel=None):
 def flash_layer_check(label, run, kernel=None):
     """``layer_check`` of the dense prefill layers with the flash kernel."""
     return layer_check("flash", label, run, kernel)
+
+
+def _plain_encode(x, w):
+    """The bottleneck encode kernel's plain version, in the wrapper's
+    shapes."""
+    from repro_torch.kernels.bottleneck import ref
+    r = w.shape[1]
+    c, sc = ref.encode_ref(x.reshape(-1, x.shape[-1]), w)
+    return c.reshape(*x.shape[:-1], r), sc.reshape(*x.shape[:-1], 1)
+
+
+def _plain_decode(codes, scales, w, out_dtype=torch.float32):
+    """The bottleneck decode kernel's plain version, in the wrapper's
+    shapes."""
+    from repro_torch.kernels.bottleneck import ref
+    r, d = w.shape
+    return ref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1), w,
+                          out_dtype).reshape(*codes.shape[:-1], d)
+
+
+def split_layer_check(label, run, kernels=None):
+    """``layer_check`` of the split point (kind "split"): run ``run()`` with
+    the bottleneck pair's plain versions in the kernels' place, and at
+    every frame, on the SAM-head output as the plain run has it, hold the
+    boundary activation the kernels reconstruct (``kernels``, an (encode,
+    decode) pair, default the two wrappers: decode of encode's codes and
+    scales) against the plain pair's, and the first SAM-tail block on
+    each, each as a norm-wise relative error within LAYER_RTOL. Counts the
+    codes that are off the plain version's and by how much. The plain
+    activation goes on. Raises naming the first frame past the limit.
+    Returns (what ``run`` returns, a summary)."""
+    from repro_torch.core import vlm
+    from repro_torch.kernels.bottleneck import ops as bops
+    enc_k, dec_k = kernels or (bops.bottleneck_encode,
+                               bops.bottleneck_decode)
+    frames = []
+    tail = vlm.sam_tail
+
+    def encode(x, w):
+        codes, scales = _plain_encode(x, w)
+        k_codes, k_scales = enc_k(x, w)
+        diff = (k_codes.int() - codes.int()).abs()
+        frames.append({"rank": int(w.shape[1]), "codes": codes.numel(),
+                       "codes_off": int((diff > 0).sum()),
+                       "codes_max_diff": int(diff.max()),
+                       "scales": _rel(k_scales, scales),
+                       "pair": (k_codes, k_scales)})
+        return codes, scales
+
+    def decode(codes, scales, w, out_dtype=torch.float32):
+        a = _plain_decode(codes, scales, w, out_dtype)
+        f = frames[-1]
+        f["a"] = dec_k(*f.pop("pair"), w, out_dtype)
+        f["boundary"] = _rel(f["a"], a)
+        return a
+
+    def sam_tail(params, pcfg, x, split_k=None):
+        k = pcfg.split_layer if split_k is None else split_k
+        f, groups = frames[-1], params["sam"]["groups"]
+        f["block"] = _rel(
+            vlm._encoder_blocks(groups, pcfg.sam, f.pop("a"), k, k + 1),
+            vlm._encoder_blocks(groups, pcfg.sam, x, k, k + 1))
+        return tail(params, pcfg, x, split_k)
+
+    with mock.patch.object(bops, "bottleneck_encode", encode), \
+            mock.patch.object(bops, "bottleneck_decode", decode), \
+            mock.patch.object(vlm, "sam_tail", sam_tail):
+        result = run()
+    if not frames or any("block" not in f for f in frames):
+        raise AssertionError(f"{label}: {len(frames)} frames reached the "
+                             f"split point, or a frame skipped its tail")
+    i, worst = max(enumerate(frames),
+                   key=lambda t: max(t[1]["boundary"], t[1]["block"]))
+    summary = {"frames": [{k: f[k] for k in ("rank", "boundary", "block",
+                                             "codes", "codes_off",
+                                             "codes_max_diff", "scales")}
+                          for f in frames],
+               "worst": {"frame": i, "boundary": worst["boundary"],
+                         "block": worst["block"]},
+               "limit": LAYER_RTOL}
+    log(f"[layers] {label}: {len(frames)} frames, the bottleneck pair "
+        f"against its plain version on each frame's SAM-head output; worst "
+        f"frame {i} (rank {worst['rank']}): boundary activation "
+        f"{worst['boundary']:.3g}, first SAM-tail block "
+        f"{worst['block']:.3g} (limit {LAYER_RTOL}); per frame (rank: "
+        f"boundary, block, codes off / codes, max off, scales) "
+        + "; ".join(f"{f['rank']}: {f['boundary']:.3g}, {f['block']:.3g}, "
+                    f"{f['codes_off']} / {f['codes']}, "
+                    f"{f['codes_max_diff']}, {f['scales']:.3g}"
+                    for f in frames))
+    bad = [(j, f) for j, f in enumerate(frames)
+           if not max(f["boundary"], f["block"]) <= LAYER_RTOL]
+    if bad:
+        j, f = bad[0]
+        raise AssertionError(
+            f"{label}: frame {j} (rank {f['rank']}) with the bottleneck "
+            f"kernels is off the plain pair's on the same input: boundary "
+            f"activation by {f['boundary']:.3g}, first SAM-tail block by "
+            f"{f['block']:.3g} (norm-wise), limit {LAYER_RTOL}; {len(bad)} "
+            f"frames past it")
+    return result, summary
 
 
 def split_microbatch(fx, reqs, base_results):
@@ -2452,7 +2770,9 @@ def split_point_phase(fx, pcfg, seed):
     layer also computed with the kernel on the same input and held to
     LAYER_RTOL (flash_layer_check), its tokens equal and mask logits within
     SDPA_PATH_RTOL of the counted run's, and (c) one with the bottleneck
-    pair's plain versions in theirs: tokens equal, mask logits within
+    pair's plain versions in theirs, every frame's split point also
+    computed with the kernels on the same input and held to LAYER_RTOL
+    (``layer_check`` kind "split"): tokens equal, mask logits within
     PATH_RTOL, each reading on its own. Times one frame's edge encode and
     cloud decode."""
     from repro_torch.core import bottleneck as bn
@@ -2563,25 +2883,18 @@ def split_point_phase(fx, pcfg, seed):
     out["encode_scales_max_abs_err"] = max(
         e[2] for e in errs["bottleneck_encode"])
 
-    # (b), (c): each kernel kind's plain version in its place, on its own
-    def plain_enc(x, w):
-        r = w.shape[1]
-        c, sc = bref.encode_ref(x.reshape(-1, x.shape[-1]), w)
-        return c.reshape(*x.shape[:-1], r), sc.reshape(*x.shape[:-1], 1)
-
-    def plain_dec(codes, scales, w, out_dtype=torch.float32):
-        r, d = w.shape
-        return bref.decode_ref(codes.reshape(-1, r), scales.reshape(-1, 1),
-                               w, out_dtype).reshape(*codes.shape[:-1], d)
-
+    # (b), (c): each kernel kind's plain version in its place, on its own,
+    # each with its per-layer check
     flash_plain, out["layers"] = flash_layer_check(
         "10c split point", lambda: _split_run(fx, frames))
     if out["layers"]["layers"] != n * L:
         raise AssertionError(f"checked {out['layers']['layers']} prefill "
                              f"layers, expected {n * L}")
-    with mock.patch.object(bops, "bottleneck_encode", plain_enc), \
-            mock.patch.object(bops, "bottleneck_decode", plain_dec):
-        bn_plain = _split_run(fx, frames)
+    bn_plain, out["split_layers"] = layer_check(
+        "split", "10c split point", lambda: _split_run(fx, frames))
+    if len(out["split_layers"]["frames"]) != n:
+        raise AssertionError(f"checked {len(out['split_layers']['frames'])}"
+                             f" frames at the split point, expected {n}")
     failed = []
     for label, other, limit in (
             ("flash_attention", flash_plain, SDPA_PATH_RTOL),
@@ -3014,6 +3327,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report.update(checks)
+    if not args.kernel:
+        report["sdpa"] = [check_sdpa(rng, c, dev) for c in sdpa_cases(pcfg)]
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.kernel:
         report["total_s"] = time.perf_counter() - t_start
         if args.out:

@@ -8,10 +8,10 @@ a shared library with a plain C interface, loaded with ``ctypes``:
 
 Libraries are built at first use from the sources in the checkout, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). The
-file name carries a hash of the source, the headers beside it and the
-flags, so an edited kernel is rebuilt. The compiler log (with ptxas'
-register and shared-memory report) is kept beside the library as
-``<name>-<hash>.log``. ``build`` runs one ``nvcc`` per missing library,
+file name carries a hash of the source, the headers beside it, the shared
+headers under ``kernels/csrc/`` and the flags, so an edited kernel is
+rebuilt. The compiler log (with ptxas' register and shared-memory report)
+is kept beside the library as ``<name>-<hash>.log``. ``build`` runs one ``nvcc`` per missing library,
 all started together, each under its own time limit.
 
 The kernel wrappers (``<kernel>/ops.py``) share the rest: ``launcher``
@@ -76,7 +76,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in sorted([*src.parent.glob("*.cuh"),
+                          *(_KERNELS / "csrc").glob("*.cuh")]):
         h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

@@ -26,10 +26,24 @@ from repro_torch.kernels.bottleneck.ref import decode_ref, encode_ref
 encode_launches = 0
 bottleneck_decode_launches = 0
 
-# the widest rank the encode kernel takes: the z of its 8-row tile and one
-# product stage in the H100's 227 KB of opt-in shared memory (8 r + 4,288
-# floats, csrc/bottleneck_encode.cu). The reference's ranks are at most d.
-MAX_RANK = 6728
+# the widest rank the encode kernel takes: a cluster of 8 CTAs, each
+# walking at most 8 column tiles of 256 (csrc/bottleneck_encode.cu). The
+# reference's ranks are at most d.
+MAX_RANK = 8 * 8 * 256
+
+# The kernels' products run on the tensor cores in bf16 (wgmma, float32
+# accumulation; csrc/bottleneck_gemm.cuh): a float32 operand is split into
+# three bf16 parts (hi + mid + lo hold its 24 bits), and each pair of parts
+# (i, j) with i + j <= 2 is one product.
+PRODUCT_DTYPE = torch.bfloat16
+
+
+def tensor_core_products(a_dtype, w_dtype) -> int:
+    """The bf16 products a kernel takes for operands of these dtypes (the
+    activation or codes, then the weight): 1 for bf16 (or int8 codes) and
+    bf16, 3 where one is float32, 6 where both are."""
+    pa, pw = (3 if dt == torch.float32 else 1 for dt in (a_dtype, w_dtype))
+    return sum(1 for i in range(pa) for j in range(pw) if i + j <= 2)
 
 # the C signature of each kernel's launch function (csrc/*.cu)
 _ARGTYPES = {

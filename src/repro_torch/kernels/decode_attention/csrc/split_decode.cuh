@@ -63,6 +63,8 @@
 #include <cmath>
 #include <initializer_list>
 
+#include "../../csrc/device.cuh"
+
 namespace split_decode {
 
 namespace cg = cooperative_groups;
@@ -494,32 +496,13 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
   }
 }
 
-// The SMs of the current device, asked once and kept after the first
-// query that succeeds (the split only needs the count, and a host's cards
-// are alike); a failed query returns its error.
-inline cudaError_t sm_count(int* n) {
-  static int kept = 0;
-  if (kept == 0) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    }
-    if (err != cudaSuccess) return err;
-    kept = sms;
-  }
-  *n = kept;
-  return cudaSuccess;
-}
-
 // The CTAs a cluster splits one query set's keys into: the smallest power
 // of two that gives the card kCtasPerSm CTAs an SM over `sets` query sets,
 // at most kMaxSplit and at most `most` (one split per kMinSlots slots, or
 // per page).
 inline cudaError_t pick_split(long long sets, int most, int* split) {
   int sms = 0;
-  const cudaError_t err = sm_count(&sms);
+  const cudaError_t err = cuda_device::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const long long want = (long long)kCtasPerSm * sms;
   *split = 1;

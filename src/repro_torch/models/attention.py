@@ -56,24 +56,61 @@ def _rope_q_or_k(cfg: ModelConfig, x: torch.Tensor,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """q (B,S,H,hd) k/v (B,T,K,hd) grouped attention, fp32 softmax.
+    """q (B,S,H,hd) k/v (B,T,K,hd) grouped attention, fp32 softmax, the
+    output in q's dtype (``sdpa_f32``)."""
+    return sdpa_f32(q, k, v, mask, scale).to(q.dtype)
+
+
+def sdpa_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """``_sdpa`` before its output is rounded to q's dtype: float32.
 
     mask: additive, broadcastable to (B, 1, S, T). The reference multiplies
-    native-dtype operands with float32 accumulation and a float32 result;
-    products of bf16 values are exact in float32, so upcasting the operands
-    and multiplying in float32 computes the same thing. Probabilities are
-    cast to v's dtype before P.V, as in the reference.
+    native-dtype operands with float32 accumulation and a float32 result.
+    On CUDA, bf16 and fp16 operands do the same: the two batched products
+    ``scores_f32`` and ``pv_f32``, on the tensor cores. Elsewhere, and for
+    float32 operands, the operands are upcast and multiplied in float32
+    (TF32 stays off); products of bf16 values are exact in float32, so
+    this computes the same thing. The CPU has no kernel for
+    ``aten::bmm.dtype``. Probabilities are cast to v's dtype before P.V,
+    as in the reference.
     """
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    T, K = k.shape[1], k.shape[2]
     G = H // K
+    mask = mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16):
+        scores = scores_f32(q, k).reshape(B, K, G, S, T) * scale + mask
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = pv_f32(probs.reshape(B * K, G * S, T), v)
+        out = out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+        return out.reshape(B, S, H, hd)
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
-    scores = scores + mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores + mask, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
                        v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, S, H, hd)
+
+
+def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q.k of each kv head's query group on the native operands with a
+    float32 result (``aten::bmm.dtype``; CUDA only): q (B,S,H,hd), k
+    (B,T,K,hd) -> (B*K, G*S, T), rows ordered (group head, query)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1).reshape(B * K, hd, T)
+    return torch.bmm(qg.reshape(B * K, -1, hd), kt, out_dtype=torch.float32)
+
+
+def pv_f32(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P.V on the native operands with a float32 result
+    (``aten::bmm.dtype``; CUDA only): probs (B*K, G*S, T) in v's dtype, v
+    (B,T,K,hd) -> (B*K, G*S, hd)."""
+    B, T, K, hd = v.shape
+    vg = v.permute(0, 2, 1, 3).reshape(B * K, T, hd)
+    return torch.bmm(probs, vg, out_dtype=torch.float32)
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -156,33 +193,69 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out, {"k": k_cache, "v": v_cache}
 
 
+def last_writes(write_page: torch.Tensor, write_off: torch.Tensor,
+                page_size: int, n_pages: int) -> torch.Tensor:
+    """For each entry of a pool write, flattened in row-major order, the
+    position of the last entry that targets the same (page, offset) slot:
+    the entry that a write in that order leaves there, as the reference's
+    ``.at[].set`` does. Pad entries and idle rows all target the trash
+    page, several to one slot, and an idle row attends that page."""
+    slot = (write_page.reshape(-1).long() * page_size
+            + write_off.reshape(-1).long())
+    pos = torch.arange(slot.numel(), device=slot.device)
+    last = torch.full((n_pages * page_size,), -1, dtype=torch.long,
+                      device=slot.device)
+    last.scatter_reduce_(0, slot, pos, "amax", include_self=False)
+    return last[slot]
+
+
+def _put(pool_t: torch.Tensor, page: torch.Tensor, off: torch.Tensor,
+         rows: torch.Tensor) -> None:
+    pool_t.index_put_((page, off), rows)
+
+
+def write_pool(pool: dict, write_page: torch.Tensor, write_off: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor, src: torch.Tensor) -> None:
+    """Write each entry's k/v row (k, v: (*write_page.shape, K, hd)) into
+    its (page, offset) slot of the pool, in place, the last entry for each
+    slot winning. Every entry carries its slot's winning row (``src``, as
+    ``last_writes`` gives it), so entries that share a slot write the same
+    values: a card that resolves duplicate indices in any order leaves one
+    result. (Selecting the winners by a mask instead would synchronise the
+    host with the card at every layer.)"""
+    page, off = write_page.reshape(-1), write_off.reshape(-1)
+    for name, x in (("k", k), ("v", v)):
+        _put(pool[name], page, off,
+             x.reshape(-1, *x.shape[-2:]).index_select(0, src))
+
+
 def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor, pool: dict,
                      page_table: torch.Tensor, write_page: torch.Tensor,
-                     write_off: torch.Tensor,
-                     mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                     write_off: torch.Tensor, mask: torch.Tensor,
+                     write_src: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """Single-token decode against a shared KV page pool.
 
     x (B,1,d); pool k/v (P, page, K, hd), pages shared by every live row;
     page_table (B, n_pages) int32, every entry a valid page id (idle rows
     point at the reserved trash page); write_page/write_off (B,) the page
     slot receiving each row's new k/v; mask (B, n_pages*page) additive
-    over the row's virtual sequence. Returns (out, pool).
+    over the row's virtual sequence; write_src (B,) the entry whose row
+    each entry writes, its slot's last (``last_writes``). Returns (out,
+    pool).
 
-    The pool is updated IN PLACE (the reference rebuilds it with
-    ``.at[].set``); the returned dict holds the same tensors. Idle rows
-    may all write the same trash-page slot: which duplicate lands does
-    not matter, since their outputs are discarded and no live row's mask
-    admits a trash slot."""
+    The pool is updated IN PLACE (``write_pool``; the reference rebuilds it
+    with ``.at[].set``); the returned dict holds the same tensors. Idle
+    rows may all write the same trash-page slot; the last of them keeps
+    it, as in the reference."""
     _check_decode_supported(cfg)
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
     q = _rope_q_or_k(cfg, q, positions)
     k = _rope_q_or_k(cfg, k, positions)
+    write_pool(pool, write_page, write_off, k[:, 0], v[:, 0], write_src)
     k_pool, v_pool = pool["k"], pool["v"]
-    k_pool[write_page, write_off] = k[:, 0]
-    v_pool[write_page, write_off] = v[:, 0]
     if cfg.use_flash_decode and S == 1:
         from repro_torch.kernels.decode_attention import ops as decode_ops
         out = decode_ops.paged_decode_attention(q[:, 0], k_pool, v_pool,
@@ -200,29 +273,29 @@ def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def gqa_verify_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      positions: torch.Tensor, pool: dict,
                      page_table: torch.Tensor, write_page: torch.Tensor,
-                     write_off: torch.Tensor,
-                     mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                     write_off: torch.Tensor, mask: torch.Tensor,
+                     write_src: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """Multi-token decode against the shared KV page pool, the speculative
     verify step.
 
     x (B, C, d), each row's chunk of C tokens (last accepted token and
     drafted continuations, ascending positions); positions (B, C);
     write_page/write_off (B, C) the page slot receiving each chunk token's
-    k/v (pad tokens target the trash page, where duplicate writes do not
-    matter: no trash slot carries a valid position); mask (B, C,
+    k/v (pad tokens target the trash page, several to one slot; the last
+    in row-major order keeps it, ``write_pool``); mask (B, C,
     n_pages*page) additive per query, carrying slot validity and
-    causal-within-chunk. The chunk's k/v are written IN PLACE before
-    attention, so chunk token i attends chunk tokens <= i through the pool
-    as C successive decode steps would. Returns (out, pool)."""
+    causal-within-chunk; write_src (B*C,) as in ``gqa_decode_paged``. The
+    chunk's k/v are written IN PLACE before attention, so chunk token i
+    attends chunk tokens <= i through the pool as C successive decode
+    steps would. Returns (out, pool)."""
     _check_decode_supported(cfg)
     B, C, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
     q = _rope_q_or_k(cfg, q, positions)
     k = _rope_q_or_k(cfg, k, positions)
+    write_pool(pool, write_page, write_off, k, v, write_src)
     k_pool, v_pool = pool["k"], pool["v"]
-    k_pool[write_page, write_off] = k
-    v_pool[write_page, write_off] = v
     if cfg.use_flash_decode:
         from repro_torch.kernels.decode_attention import ops as decode_ops
         out = decode_ops.paged_verify_attention(q, k_pool, v_pool,
@@ -265,16 +338,16 @@ def attn_decode(p, cfg: ModelConfig, x, positions, cache, slot, mask):
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
-                      write_page, write_off, mask):
+                      write_page, write_off, mask, write_src):
     if cfg.attn_type == "mla":
         raise NotImplementedError(f"MLA attention is {_ROADMAP}")
     return gqa_decode_paged(p, cfg, x, positions, pool, page_table,
-                            write_page, write_off, mask)
+                            write_page, write_off, mask, write_src)
 
 
 def attn_verify_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
-                      write_page, write_off, mask):
+                      write_page, write_off, mask, write_src):
     if cfg.attn_type == "mla":
         raise NotImplementedError(f"MLA attention is {_ROADMAP}")
     return gqa_verify_paged(p, cfg, x, positions, pool, page_table,
-                            write_page, write_off, mask)
+                            write_page, write_off, mask, write_src)

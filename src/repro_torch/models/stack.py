@@ -157,11 +157,11 @@ def _dense_block_decode(p, cfg, x, positions, cache, slot, mask):
 
 
 def _dense_block_decode_paged(p, cfg, x, positions, pool, page_table,
-                              write_page, write_off, mask,
+                              write_page, write_off, mask, write_src,
                               attn_fn=attention.attn_decode_paged):
     h, c2 = attn_fn(p["attn"], cfg, apply_norm(x, p["norm1"], cfg),
                     positions, pool, page_table, write_page, write_off,
-                    mask)
+                    mask, write_src)
     x = x + h
     x = x + moe_lib.dense_mlp(p["mlp"], cfg, apply_norm(x, p["norm2"], cfg))
     return x, c2
@@ -254,14 +254,25 @@ def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     """Single-token decode through one group against a shared KV page pool
     (leaves (count, P, page, K, hd)). Each layer gets the contiguous view
     ``pool[l]`` (P, page, K, hd), updated in place and read in place by the
-    kernel. Returns (x, pool)."""
+    kernel. Each layer writes the same slots, so which entry keeps a
+    slot is resolved once (``attention.last_writes``). Returns (x,
+    pool)."""
     _attention_stacks_only(spec, "paged decode")
+    src = _write_src(pool, write_page, write_off)
     for i in range(spec.count):
         x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
                                          positions, layer_slice(pool, i),
                                          page_table, write_page, write_off,
-                                         mask)
+                                         mask, src)
     return x, pool
+
+
+def _write_src(pool: dict, write_page: torch.Tensor,
+               write_off: torch.Tensor) -> torch.Tensor:
+    """The winning entry of each entry's slot for a group's pool (leaves
+    (count, P, page, K, hd))."""
+    P, page = pool["k"].shape[1:3]
+    return attention.last_writes(write_page, write_off, page, P)
 
 
 def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
@@ -275,11 +286,12 @@ def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     loop of ``group_decode_paged`` with the multi-query attention body.
     Returns (x, pool), the pool updated in place."""
     _attention_stacks_only(spec, "paged verify")
+    src = _write_src(pool, write_page, write_off)
     for i in range(spec.count):
         x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
                                          positions, layer_slice(pool, i),
                                          page_table, write_page, write_off,
-                                         mask,
+                                         mask, src,
                                          attn_fn=attention.attn_verify_paged)
     return x, pool
 

@@ -202,33 +202,30 @@ def test_wrong_kernel_fails_at_first_layer(served, kind, wrong):
 
 
 def test_kernel_call_reads_the_pages_the_plain_call_read(served):
-    """A verify layer's pad entries all write their k/v to the trash page,
-    several to one slot, and an idle row attends that page; on the card the
-    layer's second run may resolve those writes with other winners.
-    Emulated by running every other call of the verify attention with its
-    rows and chunk positions in reverse order (the same function, with the
-    last write to a slot now the first): the kernel's call is handed the
-    pages as the plain call read them, so the plain version as the kernel
-    still reads exactly 0."""
-    gqa = attention.gqa_verify_paged
-    calls = []
+    """A verify layer's pad entries all target the trash page, several to
+    one slot, and an idle row attends that page; the card resolves a write
+    with duplicate indices in no fixed order, so the layer's second run
+    could leave other values there than the first. Emulated by applying
+    every other pool write's entries one at a time in reverse order (of
+    two entries for one slot, the first now lands last): the pool write
+    gives the entries of one slot one row (``attention.write_pool``), so
+    the order cannot matter, and the plain version as the kernel reads
+    exactly 0 with no pages handed back to the kernel's call."""
+    put = attention._put
+    writes = []
 
-    def alternating(p, cfg, x, positions, pool, page_table, write_page,
-                    write_off, mask):
-        calls.append(1)
-        if len(calls) % 2:
-            return gqa(p, cfg, x, positions, pool, page_table, write_page,
-                       write_off, mask)
-        out, pool = gqa(p, cfg, x.flip(0, 1), positions.flip(0, 1), pool,
-                        page_table.flip(0), write_page.flip(0, 1),
-                        write_off.flip(0, 1), mask.flip(0, 1))
-        return out.flip(0, 1), pool
+    def any_order(pool_t, page, off, rows):
+        writes.append(1)
+        if len(writes) % 4 in (1, 2):       # the k and v of one write
+            return put(pool_t, page, off, rows)
+        for i in reversed(range(page.numel())):
+            put(pool_t, page[i:i + 1], off[i:i + 1], rows[i:i + 1])
 
-    with mock.patch.object(attention, "gqa_verify_paged", alternating):
+    with mock.patch.object(attention, "_put", any_order):
         (_, _, steps), summary = cs.layer_check(
             "verify", "test", _run("verify", served),
             ref.paged_verify_attention_ref)
-    assert len(calls) == 2 * steps["cloud_verify_rows"] * L
+    assert len(writes) >= 4 * steps["cloud_verify_rows"] * L
     assert summary["worst"]["h"] == 0.0 and summary["worst"]["out"] == 0.0
     assert summary["outputs_not_bit_equal"] == 0
 
@@ -282,3 +279,29 @@ def test_paged_layers_are_not_counted_as_verify(served):
     assert len(paged_passes) == calls["cloud_decode_rows"]
     assert summary["steps"] == calls["cloud_verify_rows"]
     assert summary["layers"] == calls["cloud_verify_rows"] * L
+
+
+@pytest.mark.parametrize("kind", ["paged", "verify"])
+def test_pool_write_cost_replays_both_writes(served, kind):
+    """Phases 8 and 9 time one captured paged step with the shipped pool
+    write and with a direct write of each entry's own row, in turns: each
+    turn replays the step once with each, and only the shipped turns reach
+    ``attention.write_pool`` (a layer each)."""
+    ex, _, _, sx = served
+    executor, stage = ((sx, "cloud_verify_rows") if kind == "verify"
+                       else (ex, "cloud_decode_rows"))
+    with cs.captured(executor, stage) as calls:
+        _run(kind, served)()
+    writes = []
+    write = attention.write_pool
+
+    def counted(*a):
+        writes.append(1)
+        return write(*a)
+
+    with mock.patch.object(cs, "POOL_WRITE_TURNS", 2), \
+            mock.patch.object(attention, "write_pool", counted):
+        out = cs.pool_write_cost(executor, stage, calls[-1], "test")
+    assert len(writes) == 2 * L
+    assert out["fixed_ms"] > 0 and out["direct_ms"] > 0
+    assert len(out["direct_quartiles_ms"]) == 2

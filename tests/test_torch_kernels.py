@@ -601,6 +601,76 @@ def test_bottleneck_cpu_tensors_take_the_plain_version_without_counting():
         bops.bottleneck_decode(codes, scales, wd.to("meta"))
 
 
+# The CUDA kernels take their products on the tensor cores in bf16: a
+# float32 weight split into hi + mid + lo (csrc/bottleneck_gemm.cuh). Their
+# numerical argument, held here with plain torch on the split point's
+# distributions (init_bottleneck's float32 LeCun weights, a bf16 boundary
+# activation; the encode at a reduced token count).
+
+
+def _bf16_parts(w):
+    """hi = rn(w), mid = rn(w - hi), lo = rn(w - hi - mid), as float32."""
+    hi = w.to(torch.bfloat16).float()
+    mid = (w - hi).to(torch.bfloat16).float()
+    lo = (w - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def _split_weight(rows, cols, seed):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(rows, cols) / np.sqrt(rows))
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("rows,cols", [(1280, 1278), (1278, 1280)])
+def test_bf16_parts_rebuild_float32_weights(rows, cols):
+    w = _split_weight(rows, cols, 10)
+    hi, mid, lo = _bf16_parts(w)
+    for part in (hi, mid, lo):
+        assert torch.equal(part, part.to(torch.bfloat16).float())
+    err = ((hi.double() + mid.double() + lo.double()) - w.double()).abs()
+    assert float((err / w.double().abs()).max()) <= 2.0 ** -24
+
+
+@pytest.mark.parametrize("r", [1278, 510, 254])
+def test_three_product_encode_codes_match_plain(r):
+    """x . hi + x . mid + x . lo, each product of bf16 values exact in
+    float32 and summed in float32, gives the plain version's scales and its
+    codes within 1 on fewer than 1e-3 of entries."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(256, 1280).astype(np.float32)).to(
+        torch.bfloat16)
+    w = _split_weight(1280, r, 12)
+    want_c, want_s = bref.encode_ref(x, w)
+    xf = x.float()
+    z = sum(xf @ part for part in reversed(_bf16_parts(w)))
+    s = torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
+    codes = torch.clamp(torch.round(z / s), -127, 127).to(torch.int8)
+    np.testing.assert_allclose(s.numpy(), want_s.numpy(), rtol=1e-5,
+                               atol=1e-7)
+    _codes_close(codes.numpy(), want_c.numpy())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_decode_with_the_scale_taken_out_stays_within_tolerance(out_dtype):
+    """scale * (codes . (hi + mid + lo)), the codes exact in bf16, against
+    the plain (codes * scale) . w within chip_smoke.py's DECODE_TOL."""
+    rng = np.random.RandomState(13)
+    codes = torch.from_numpy(rng.randint(-127, 128, (256, 1278))
+                             .astype(np.int8))
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, (256, 1))
+                              .astype(np.float32))
+    w = _split_weight(1278, 1280, 14)
+    want = bref.decode_ref(codes, scales, w, out_dtype)
+    cf = codes.float()
+    y = (sum(cf @ part for part in reversed(_bf16_parts(w))) * scales
+         ).to(out_dtype)
+    tol = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+           torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}[out_dtype]
+    np.testing.assert_allclose(y.float().numpy(), want.float().numpy(),
+                               **tol)
+
+
 @pytest.mark.parametrize("bad", ["w_shape", "x_dtype", "x_stride",
                                  "w_stride", "rank", "codes_dtype",
                                  "scales_rows",

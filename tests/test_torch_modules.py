@@ -8,6 +8,7 @@ order, which compounds through the layers. Bottleneck codes may differ by
 flips with accumulation order (as tests/test_kernels.py allows).
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -484,6 +485,14 @@ def _paged_layer_inputs(case):
     return mask, write_page, write_off
 
 
+def _last_writes(write_page, write_off, pool):
+    """``attention.last_writes`` for a write into one layer of ``pool``
+    (L, P, page, K, hd)."""
+    return tattn.last_writes(torch.from_numpy(write_page),
+                             torch.from_numpy(write_off), pool.shape[2],
+                             pool.shape[1])
+
+
 @pytest.mark.parametrize("flash", [True, False])
 def test_gqa_decode_paged(system, flash):
     params, tparams, _, _ = system
@@ -506,11 +515,53 @@ def test_gqa_decode_paged(system, flash):
     to, tpool2 = tattn.gqa_decode_paged(
         tp, tcfg, torch.from_numpy(x), torch.from_numpy(positions), tpool,
         torch.from_numpy(table), torch.from_numpy(write_page).long(),
-        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask),
+        _last_writes(write_page, write_off, pool_k))
     assert tpool2["k"] is tpool["k"]            # updated in place
     _close(jo, to)
     _close(jpool["k"], tpool2["k"])
     _close(jpool["v"], tpool2["v"])
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 4)], ids=["decode", "verify"])
+def test_pool_write_keeps_the_last_entry_for_each_slot(shape):
+    """A paged write whose entries share slots (pad entries and idle rows
+    on the trash page) leaves what a sequential write in row-major order
+    leaves, and the write it hands on gives every slot one value: entries
+    that share a slot carry the same row, so the order in which the card
+    resolves duplicate indices cannot matter."""
+    rng = np.random.RandomState(3)
+    P, page, K, hd = 3, 2, 2, 3
+    # four slots (pages 0 and 1) for 5 or 12 entries: some slots shared
+    write_page = torch.from_numpy(rng.randint(0, 2, shape).astype(np.int32))
+    write_off = torch.from_numpy(rng.randint(0, page, shape).astype(np.int32))
+    k = torch.from_numpy(rng.randn(*shape, K, hd).astype(np.float32))
+    v = torch.from_numpy(rng.randn(*shape, K, hd).astype(np.float32))
+    pool = {"k": torch.zeros(P, page, K, hd), "v": torch.zeros(P, page, K, hd)}
+    want = {n: t.clone() for n, t in pool.items()}
+    for i, (pg, off) in enumerate(zip(write_page.reshape(-1).tolist(),
+                                      write_off.reshape(-1).tolist())):
+        want["k"][pg, off] = k.reshape(-1, K, hd)[i]
+        want["v"][pg, off] = v.reshape(-1, K, hd)[i]
+    slots = (write_page.long() * page + write_off.long()).reshape(-1)
+    assert len(set(slots.tolist())) < slots.numel()
+    handed = []
+    put = tattn._put
+
+    def recorded(pool_t, pg, off, rows):
+        handed.append(((pg.long() * page + off.long()).tolist(), rows))
+        put(pool_t, pg, off, rows)
+
+    with mock.patch.object(tattn, "_put", recorded):
+        tattn.write_pool(pool, write_page, write_off, k, v,
+                         tattn.last_writes(write_page, write_off, page, P))
+    assert torch.equal(pool["k"], want["k"])
+    assert torch.equal(pool["v"], want["v"])
+    assert len(handed) == 2
+    for written, rows in handed:
+        value = {}
+        for slot, row in zip(written, rows):
+            assert torch.equal(value.setdefault(slot, row), row)
 
 
 def test_group_decode_paged(system):
@@ -650,7 +701,8 @@ def test_gqa_verify_paged(system, flash):
     to, tpool2 = tattn.gqa_verify_paged(
         tp, tcfg, torch.from_numpy(x), torch.from_numpy(pos_c), tpool,
         torch.from_numpy(table), torch.from_numpy(write_page).long(),
-        torch.from_numpy(write_off).long(), torch.from_numpy(mask))
+        torch.from_numpy(write_off).long(), torch.from_numpy(mask),
+        _last_writes(write_page, write_off, pool_k))
     assert tpool2["k"] is tpool["k"]            # updated in place
     _close_live(jo, to, chunk_len)
     _close_pool(jpool["k"], tpool2["k"])
