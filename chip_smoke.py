@@ -98,6 +98,39 @@ Phases, each fatal on failure:
      32 + 32 launches, the hidden state equal to ``forward``'s; (e) a
      warm prefill and a decode step timed, one falcon-mamba-7b prefill
      traced.
+ 12. (engine, run before 11 frees LISA-7B) the ``AveryEngine`` front door
+     on the serving weights, each run's launch counters set to 0 just
+     before it: (a) ``batching="generate"``, AdaptivePolicy over a
+     ``ChannelTransport`` on ``paper_trace(seed)``, two operators' sessions
+     of different mission goals, six frames through ``session.submit``
+     (prompts that classify as Context and as Insight, so both edge stages
+     run on the card): contiguous decode launches equal to decode steps x
+     layers and no other kernel; each request's intent, tier and transmit
+     record printed; tokens equal to the one-shot ``cloud_generate_batch``
+     on the packet its transport carried; (b) ``batching="inflight"``
+     through a ``QoSScheduler``, the same frames and one more after a
+     ``pump`` that joins the running batch: paged launches equal to decode
+     steps x layers, tokens equal to the one-shot path's, a late join and
+     a prefix hit; the reference's canonical in-flight scenario gives the
+     ``stats()`` keys of ``tests/fixtures/engine_stats_keys.json``; (c)
+     ``speculative=3`` on phase 9's executor: verify, paged and contiguous
+     launches equal to verify, plain and draft steps x layers, tokens
+     equal to ``speculative=None``'s but for at most MAX_TIES near ties
+     (where a request's tokens first differ, each run's token leads its
+     own logits for it on the same prefix, the two tokens' logits within
+     TIE_ULPS bf16 steps between the runs and all of them within
+     PATH_RTOL, the margin printed), ``SpecStats`` printed;
+     (d) a
+     ``FaultInjector`` blackout over one send and a ``FaultyExecutor``
+     decode fault, each with a ``RetryPolicy``: the blacked-out request
+     retried, downshifted and served, the fault's victims equal to their
+     fault-free run, and the counters equal to ``FAULT_COUNTERS`` (what the
+     reference's engine gives on the same schedules, tests/
+     test_torch_engine.py); then the TTFT, transmit and decode-step
+     medians of (b)'s ``stats()`` and warm ``engine.pump()`` calls on four
+     live rows, each timed whole and around the bare
+     ``InflightDecoder.step`` it makes, each beside the card's name and
+     power limit.
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -2960,6 +2993,593 @@ def split_phase(executor, pcfg, seed, reqs, results, frames,
 
 
 # ---------------------------------------------------------------------------
+# phase 12 (engine): the AveryEngine front door
+# ---------------------------------------------------------------------------
+
+# six frames from two operators through OperatorSession.submit: (operator,
+# prompt, mission time). Each prompt classifies as Context or Insight
+# (core/intent.py), so both edge stages run on the card.
+ENGINE_FRAMES = (
+    ("uav-A", "segment the stranded person on the roof", 0.0),
+    ("uav-B", "how many boats are there", 0.4),
+    ("uav-A", "describe the flooded area", 0.8),
+    ("uav-B", "outline the collapsed bridge", 1.2),
+    ("uav-A", "is there anyone on the road", 1.6),
+    ("uav-B", "highlight the rescue boat", 2.0),
+)
+# 12b: after one pump, uav-A sends frame 0 again (it joins the running
+# batch and hits the prefix store)
+ENGINE_REPEAT_T = 2.4
+# 12d: a blackout window over frame 0's send, and a decode fault on the
+# second cloud_decode_rows call, when both of two rows are live
+FAULT_BLACKOUT = ((0.0, 0.3),)
+FAULT_DECODE_CALL = 1
+# the counters the two fault runs must end with. They are structural: the
+# blackout catches only sends that start in its window, and only frame 0
+# is sent there (the others start at 0.4 s or later, the retry after a
+# 0.5 s backoff); the stage fault is at a decode call's index. Neither
+# depends on a packet's size or the trace's rates, so they hold for
+# LISA-7B's packets on any paper_trace seed. The CPU tests get the same
+# from the reference's engine on lisa_mini (tests/test_torch_engine.py)
+FAULT_COUNTERS = {
+    "blackout": {"retries": 1, "downshifts": 1, "blackouts": 0,
+                 "cloud_errors": 0, "stage_faults": 0},
+    "stage": {"retries": 2, "downshifts": 0, "blackouts": 0,
+              "cloud_errors": 0, "stage_faults": 1},
+}
+# timing: engine pumps on four live rows, each timed whole and around the
+# bare decoder step it makes, on an executor with enough new tokens to
+# keep the rows live through every turn
+TIMING_TURNS = 24
+TIMING_TOKENS = TIMING_TURNS + 2 * INFLIGHT_SLOTS
+# the host cost a step counts as resolved when its quartiles lie within
+# this many ms of its median
+TIMING_RESOLVE_MS = 0.5
+# 12c: a near tie may move a request's tokens off speculative=None's only
+# where the two tokens' logits move by at most TIE_ULPS bf16 steps at
+# their magnitude between the runs, and at most MAX_TIES requests may
+# (2 of 7 measured on the H100: 0 to 2 bf16 steps at the two tokens)
+TIE_ULPS = 4
+MAX_TIES = 2
+
+
+def engine_frames(pcfg, seed):
+    """Seeded images and queries for ENGINE_FRAMES: [(images, query)]."""
+    rng = np.random.RandomState(seed + 12)
+    return [(rng.rand(1, pcfg.image_size, pcfg.image_size,
+                      3).astype(np.float32),
+             rng.randint(0, pcfg.llm.vocab_size,
+                         (1, QUERY_LEN)).astype(np.int32))
+            for _ in ENGINE_FRAMES]
+
+
+def submit_frames(engine, frames, which, sessions=None):
+    """Submit ENGINE_FRAMES[i] for i in ``which`` through each operator's
+    session (made on first use). Returns (futures, sessions)."""
+    sessions = {} if sessions is None else sessions
+    futs = []
+    for i in which:
+        op, prompt, t = ENGINE_FRAMES[i]
+        sess = sessions.get(op) or sessions.setdefault(op,
+                                                       engine.session(op))
+        images, query = frames[i]
+        futs.append(sess.submit(prompt=prompt, images=images, query=query,
+                                time_s=t))
+    return futs, sessions
+
+
+def delivered_packets(transport):
+    """{request id: the packet of its last delivered TransmitRecord}."""
+    return {r.packet.seq_id: r.packet for r in transport.records
+            if r.delivered}
+
+
+def _engine_sessions(engine):
+    """uav-A with the default goal (accuracy), uav-B prioritising
+    throughput: the two select different Insight tiers."""
+    from repro_torch.core.controller import MissionGoal
+    return {"uav-A": engine.session("uav-A"),
+            "uav-B": engine.session(
+                "uav-B", goal=MissionGoal.PRIORITIZE_THROUGHPUT)}
+
+
+def fault_counters(stats):
+    return {k: stats[k] for k in FAULT_COUNTERS["stage"]}
+
+
+def fault_blackout_run(eng, executor, frames, trace):
+    """12d, blackout: four frames through a FaultInjector over a
+    ChannelTransport on ``trace`` whose blackout window covers frame 0's
+    send, with a RetryPolicy, in flight on 4 slots. ``eng`` is the engine
+    package (the port's here; the CPU tests also pass the reference's).
+    Returns (engine, responses)."""
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=4, transport=eng.FaultInjector(
+            eng.ChannelTransport.from_trace(trace),
+            blackouts=FAULT_BLACKOUT),
+        retry=eng.RetryPolicy(max_attempts=3, backoff_base_s=0.5),
+        debug_invariants=True)
+    futs, _ = submit_frames(engine, frames, range(4))
+    engine.drain()
+    return engine, [f.result() for f in futs]
+
+
+def fault_stage_run(eng, executor, packets, faulty=True):
+    """12d, stage fault: two packets through ``submit_packet`` on 4 slots,
+    the executor wrapped in a FaultyExecutor that raises CloudStageError
+    on decode call FAULT_DECODE_CALL (both rows live), with a RetryPolicy
+    (``faulty=False``: the same schedule fault-free). ``packets``:
+    [(packet, query, Intent)]. Returns (engine, responses)."""
+    if faulty:
+        executor = eng.FaultyExecutor(
+            executor, fail_at={"cloud_decode_rows": [FAULT_DECODE_CALL]})
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=4, retry=eng.RetryPolicy(max_attempts=3,
+                                           backoff_base_s=0.1),
+        debug_invariants=True)
+    futs = [engine.submit_packet(p, q, it, time_s=0.5 * i)
+            for i, (p, q, it) in enumerate(packets)]
+    engine.drain()
+    return engine, [f.result() for f in futs]
+
+
+def _engine_outputs(pcfg, responses, new_tokens=MAX_NEW_TOKENS):
+    """Every response served, finite, with the expected shapes."""
+    g = pcfg.image_size // pcfg.patch_size \
+        * int(round(max(1, pcfg.mask_pixels_per_patch) ** 0.5))
+    for r in responses:
+        if r.failure is not None or r.tokens is None:
+            raise AssertionError(f"request {r.request_id} not served: "
+                                 f"{r.failure}")
+        arrs = [r.answer_logits, r.tokens]
+        if r.tokens.shape != (1, new_tokens) or \
+                r.answer_logits.shape != (1, pcfg.llm.vocab_size):
+            raise AssertionError(f"request {r.request_id}: bad shapes")
+        if r.intent.value == "insight":
+            if r.mask_logits is None or r.mask_logits.shape != (1, g, g):
+                raise AssertionError(f"request {r.request_id}: bad mask")
+            arrs.append(r.mask_logits)
+        if not all(np.isfinite(a).all() for a in arrs):
+            raise AssertionError(f"request {r.request_id}: non-finite")
+
+
+def _one_shot(executor, responses, packets, queries, label):
+    """Each response's tokens equal those of its own packet through the
+    one-shot ``cloud_generate_batch``."""
+    for r in responses:
+        want = executor.cloud_generate_batch([packets[r.request_id]],
+                                             [queries[r.request_id]])[0]
+        if not np.array_equal(r.tokens, want[-1]):
+            raise AssertionError(f"{label}: request {r.request_id} tokens "
+                                 f"{r.tokens} != one-shot {want[-1]}")
+    log(f"[engine] {label}: {len(responses)} requests' tokens equal the "
+        f"one-shot cloud_generate_batch on the packets their transport "
+        f"carried")
+
+
+def _log_requests(label, responses, transport):
+    recs = {}
+    for rec in transport.records:
+        recs.setdefault(rec.packet.seq_id, []).append(rec)
+    for r in responses:
+        sends = ", ".join(
+            f"[{x.start_s:.3f}, {x.end_s:.3f}] s {x.packet.payload_bytes} B"
+            f"{'' if x.delivered else ' lost'}"
+            for x in recs.get(r.request_id, []))
+        log(f"[engine] {label}: request {r.request_id} ({r.operator_id}) "
+            f"{r.intent.value}, tier {r.tier_name}, attempts {r.attempts}, "
+            f"sent {sends}; tokens {r.tokens.tolist()[0]}")
+
+
+def engine_generate(executor, pcfg, frames, trace):
+    """12a: ``batching="generate"``, AdaptivePolicy over a ChannelTransport
+    on ``trace``, two sessions of different mission goals, six frames
+    through ``session.submit``. Counters from 0 just before: contiguous
+    decode launches must be steps x layers and no other kernel."""
+    from repro_torch import engine as eng
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="generate",
+        max_batch=4, transport=eng.ChannelTransport.from_trace(trace),
+        policy=eng.AdaptivePolicy())
+    sessions = _engine_sessions(engine)
+    _reset_launch_counts()
+    t0 = _sync_s()
+    futs, _ = submit_frames(engine, frames, range(len(ENGINE_FRAMES)),
+                            sessions)
+    engine.drain()
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    responses = [f.result() for f in futs]
+    stats = engine.stats
+    steps = stats["n_microbatches"] * MAX_NEW_TOKENS
+    expect = _only(decode_attention=steps * pcfg.llm.num_layers)
+    log(f"[engine] 12a generate: {len(responses)} requests in "
+        f"{stats['n_microbatches']} microbatches ({steps} decode steps), "
+        f"wall {wall:.2f} s; launches {launches} (expected {expect})")
+    if launches != expect or steps == 0:
+        raise AssertionError(f"12a: launches {launches}, expected {expect}")
+    kinds = {r.intent.value for r in responses}
+    if kinds != {"context", "insight"}:
+        raise AssertionError(f"12a: intents {kinds}")
+    _engine_outputs(pcfg, responses)
+    _log_requests("12a", responses, engine.transport)
+    packets = delivered_packets(engine.transport)
+    _one_shot(executor, responses, packets,
+              [q for _, q in frames], "12a")
+    return {"wall_s": wall, "launches": launches, "expected": expect,
+            "microbatches": stats["n_microbatches"],
+            "intents": [r.intent.value for r in responses],
+            "tiers": [r.tier_name for r in responses]}
+
+
+def engine_inflight(executor, pcfg, frames, trace):
+    """12b: ``batching="inflight"`` through a QoSScheduler, the sessions
+    and frames of 12a, then uav-A's frame 0 again after a pump. Paged
+    launches must be decode steps x layers and no other kernel; tokens
+    equal the one-shot path's; a late join and a prefix hit. Then the
+    reference's canonical in-flight scenario (three packets through
+    ``submit_packet``, two slots) for the ``stats()`` key set. Returns
+    (report, the engine, [(packet, query, Intent)] in request order)."""
+    from repro_torch import engine as eng
+    from repro_torch.core.intent import Intent
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=INFLIGHT_SLOTS, transport=eng.ChannelTransport.from_trace(
+            trace), policy=eng.AdaptivePolicy(),
+        scheduler=eng.QoSScheduler(), wallclock=time.perf_counter)
+    sessions = _engine_sessions(engine)
+    _reset_launch_counts()
+    t0 = _sync_s()
+    futs, _ = submit_frames(engine, frames, range(len(ENGINE_FRAMES)),
+                            sessions)
+    engine.pump()
+    images, query = frames[0]
+    futs.append(sessions["uav-A"].submit(
+        prompt=ENGINE_FRAMES[0][1], images=images, query=query,
+        time_s=ENGINE_REPEAT_T))
+    engine.drain()
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    responses = [f.result() for f in futs]
+    stats = engine.stats
+    expect = _only(paged_decode_attention=stats["inflight_steps"]
+                   * pcfg.llm.num_layers)
+    log(f"[engine] 12b inflight: {len(responses)} requests on "
+        f"{INFLIGHT_SLOTS} slots in {stats['inflight_steps']} decode steps "
+        f"(mean live slots {stats['mean_live_slots']:.2f}), wall "
+        f"{wall:.2f} s; joined at steps "
+        f"{[r.joined_step for r in responses]}, prefix hits "
+        f"{[int(r.prefix_hit) for r in responses]}, preemptions "
+        f"{[r.preemptions for r in responses]}; launches {launches} "
+        f"(expected {expect})")
+    if launches != expect or stats["inflight_steps"] == 0:
+        raise AssertionError(f"12b: launches {launches}, expected {expect}")
+    if max(r.joined_step for r in responses) < 1 or \
+            not any(r.prefix_hit for r in responses):
+        raise AssertionError("12b: no late join or no prefix hit")
+    _engine_outputs(pcfg, responses)
+    _log_requests("12b", responses, engine.transport)
+    packets = delivered_packets(engine.transport)
+    queries = [q for _, q in frames] + [query]
+    _one_shot(executor, responses, packets, queries, "12b")
+    engine.kv_pool.check_invariants()
+    # the reference's canonical in-flight scenario, for the key set
+    canon = eng.AveryEngine(lut=executor.lut, executor=executor,
+                            batching="inflight", max_batch=2)
+    order = [(packets[r.request_id], queries[r.request_id],
+              Intent(packets[r.request_id].kind)) for r in responses]
+    for i, (p, q, it) in enumerate(order[:3]):
+        canon.submit_packet(p, q, it, time_s=float(i))
+    canon.drain()
+    with open(os.path.join(REPO, "tests", "fixtures",
+                           "engine_stats_keys.json")) as f:
+        want_keys = json.load(f)
+    if sorted(canon.stats) != want_keys:
+        raise AssertionError(
+            f"12b: stats() keys differ from the fixture: "
+            f"{sorted(set(canon.stats) ^ set(want_keys))}")
+    log(f"[engine] 12b: stats() keys of the canonical in-flight scenario "
+        f"equal tests/fixtures/engine_stats_keys.json ({len(want_keys)} "
+        f"keys); compiled_stages {canon.stats['compiled_stages']}")
+    return ({"wall_s": wall, "launches": launches, "expected": expect,
+             "steps": stats["inflight_steps"],
+             "joined_steps": [r.joined_step for r in responses],
+             "prefix_hits": [bool(r.prefix_hit) for r in responses],
+             "preemptions": [r.preemptions for r in responses],
+             "stats_keys": len(want_keys)}, engine, order)
+
+
+def _serve_packets(engine, order):
+    futs = [engine.submit_packet(p, q, it, time_s=0.4 * i)
+            for i, (p, q, it) in enumerate(order)]
+    engine.pump()
+    return futs
+
+
+def _recording(executor, engine, name, calls, logits):
+    """Wrap the executor's stage ``name`` (``cloud_decode_rows`` or
+    ``cloud_verify_rows``) of ``engine``'s decoder: count its calls and
+    record, for every live row, the logits that predict each of the row's
+    next tokens, ``logits[(request id, token index)]`` (a verify chunk's
+    query i predicts token n + i of a row with n tokens)."""
+    stage = getattr(executor, name)
+
+    def run(*args):
+        calls[name] += 1
+        dec, = engine._inflight.values()
+        rows = {s: (st.req.seq_id, len(st.tokens))
+                for s, st in dec.active.items()}
+        out = stage(*args)
+        for s, (rid, n) in rows.items():
+            if name == "cloud_decode_rows":
+                logits[(rid, n)] = out[0][s]
+            else:
+                for i in range(int(args[6][s])):
+                    logits[(rid, n + i)] = out[0][s, i]
+        return out
+    return run
+
+
+def _bf16_steps(x, y):
+    """|x - y| in bf16 steps (2^(e - 7) for the larger magnitude in
+    [2^e, 2^(e + 1)))."""
+    top = max(abs(float(x)), abs(float(y)))
+    if top == 0.0:
+        return 0.0
+    return abs(float(x) - float(y)) / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def engine_spec(executor, pcfg, order):
+    """12c: ``speculative=3`` on phase 9's executor (6 new tokens over
+    pages of 4, the serving weights), 12b's packets through
+    ``submit_packet``. Verify, paged and contiguous launches must be
+    verify steps, plain steps and draft steps, each x layers. Tokens equal
+    the same engine's with ``speculative=None``, but for at most MAX_TIES
+    near ties of the two leading logits. Where a request's tokens first
+    differ, take the logits both runs computed for that token on the same
+    prefix (S through the verify kernel, P through the paged decode
+    kernel), the speculative token a and the plain one b: a must lead S
+    and b lead P (so a kept draft is the verify logits' pick), S[a] and
+    P[a], and S[b] and P[b], must differ by at most TIE_ULPS bf16 steps,
+    and S and P must agree within PATH_RTOL norm-wise, as a kernel's path
+    and its plain version's do. The ``speculative=None`` run's margin
+    P[b] - P[a] is printed beside the two differences."""
+    from repro_torch import engine as eng
+    from repro_torch.core.streams import DualStreamExecutor
+    sx = DualStreamExecutor(pcfg=pcfg, params=executor.params,
+                            bottlenecks=executor.bottlenecks,
+                            lut=executor.lut,
+                            max_new_tokens=SPEC_MAX_NEW_TOKENS,
+                            flash_decode=True, page_size=SPEC_PAGE,
+                            device=executor.device)
+    runs = []
+    for speculative in (3, None):
+        engine = eng.AveryEngine(lut=sx.lut, executor=sx,
+                                 batching="inflight",
+                                 max_batch=INFLIGHT_SLOTS,
+                                 speculative=speculative)
+        calls = {"cloud_verify_rows": 0, "cloud_decode_rows": 0}
+        logits = {}
+        for name in calls:
+            setattr(sx, name, _recording(sx, engine, name, calls, logits))
+        try:
+            _reset_launch_counts()
+            t0 = _sync_s()
+            futs = _serve_packets(engine, order)
+            decoders = list(engine._inflight.values())
+            engine.drain()
+            wall = _sync_s() - t0
+            launches = _launch_counts()
+        finally:
+            for name in calls:
+                delattr(sx, name)
+        runs.append((engine, [f.result() for f in futs], calls, logits,
+                     decoders, wall, launches))
+    engine, responses, calls, spec_logits, decoders, wall, launches = runs[0]
+    L = pcfg.llm.num_layers
+    draft_steps = sum(d.draft.n_steps for d in decoders
+                      if d.draft is not None)
+    expect = _only(paged_verify_attention=calls["cloud_verify_rows"] * L,
+                   paged_decode_attention=calls["cloud_decode_rows"] * L,
+                   decode_attention=draft_steps * L)
+    spec = {k: v for k, v in engine.stats.items() if k.startswith("spec_")}
+    log(f"[engine] 12c speculative=3: {len(responses)} requests in "
+        f"{calls['cloud_verify_rows']} verify and "
+        f"{calls['cloud_decode_rows']} plain steps, {draft_steps} draft "
+        f"steps, wall {wall:.2f} s; launches {launches} (expected "
+        f"{expect})")
+    log(f"[engine] 12c SpecStats {json.dumps(spec)}")
+    if launches != expect or not calls["cloud_verify_rows"] or \
+            not spec["spec_drafted"]:
+        raise AssertionError(f"12c: launches {launches}, expected {expect}")
+    _engine_outputs(pcfg, responses, SPEC_MAX_NEW_TOKENS)
+    _, base, _, plain_logits, _, _, _ = runs[1]
+    ties = []
+    for r, b in zip(responses, base):
+        x, y = r.tokens[0], b.tokens[0]
+        if np.array_equal(x, y):
+            continue
+        d = int(np.argmax(x != y))
+        key = (r.request_id, d)
+        if key not in spec_logits or key not in plain_logits:
+            raise AssertionError(f"12c: request {r.request_id} tokens {x} "
+                                 f"!= speculative=None {y} at token {d}, "
+                                 f"with no logits recorded for it")
+        S, P = (np.asarray(v, np.float64) for v in (spec_logits[key],
+                                                    plain_logits[key]))
+        a, b = int(x[d]), int(y[d])
+        tie = {"request": r.request_id, "token": d, "spec": a, "plain": b,
+               "margin": float(P[b] - P[a]),
+               "diff_spec_token": float(S[a] - P[a]),
+               "diff_plain_token": float(S[b] - P[b]),
+               "ulps_spec_token": _bf16_steps(S[a], P[a]),
+               "ulps_plain_token": _bf16_steps(S[b], P[b]),
+               "spec_leads": bool(S[a] >= S.max()),
+               "plain_leads": bool(P[b] >= P.max()),
+               "max_diff": float(np.abs(S - P).max()), "rel": _rel(S, P)}
+        ties.append(tie)
+        log(f"[engine] 12c: request {r.request_id} tokens {x.tolist()} vs "
+            f"speculative=None {y.tolist()}, first differing at token {d}: "
+            f"speculative=None margin {tie['margin']:.4g} of {b} over {a}; "
+            f"the verify path's logits there differ by "
+            f"{tie['diff_spec_token']:+.4g} at {a} and "
+            f"{tie['diff_plain_token']:+.4g} at {b} "
+            f"({tie['ulps_spec_token']:.3g} and {tie['ulps_plain_token']:.3g}"
+            f" bf16 steps, limit {TIE_ULPS}); {a} leads the verify logits: "
+            f"{tie['spec_leads']}, {b} the decode logits: "
+            f"{tie['plain_leads']}; max abs {tie['max_diff']:.4g}, "
+            f"norm-wise {tie['rel']:.3g} (limit {PATH_RTOL})")
+        if not (tie["spec_leads"] and tie["plain_leads"]
+                and tie["ulps_spec_token"] <= TIE_ULPS
+                and tie["ulps_plain_token"] <= TIE_ULPS
+                and tie["rel"] <= PATH_RTOL):
+            raise AssertionError(f"12c: request {r.request_id} differs from "
+                                 f"speculative=None beyond a near tie: "
+                                 f"{tie}")
+    log(f"[engine] 12c: {len(responses) - len(ties)} of {len(responses)} "
+        f"requests' tokens equal the speculative=None engine's; "
+        f"{len(ties)} differ from a near tie on (at most {MAX_TIES})")
+    if len(ties) > MAX_TIES:
+        raise AssertionError(f"12c: {len(ties)} requests differ from "
+                             f"speculative=None, more than {MAX_TIES}")
+    return {"wall_s": wall, "launches": launches, "expected": expect,
+            "steps": calls, "draft_steps": draft_steps, "spec_stats": spec,
+            "ties": ties}
+
+
+def engine_faults(executor, pcfg, frames, order, trace):
+    """12d: the blackout run and the stage-fault run, each held to
+    FAULT_COUNTERS; the blacked-out request retried, downshifted and
+    served; the stage fault's victims equal to their fault-free run."""
+    from repro_torch import engine as eng
+    out = {}
+    engine, responses = fault_blackout_run(eng, executor, frames, trace)
+    got = fault_counters(engine.stats)
+    _engine_outputs(pcfg, responses)
+    hit = responses[0]
+    kinds = [e.kind for e in hit.events]
+    tiers = [e.data.get("tier") for e in hit.events
+             if e.kind == "tier_selected"]
+    log(f"[engine] 12d blackout: request 0 events {kinds}, tiers {tiers}, "
+        f"attempts {hit.attempts}; counters {got}")
+    if got != FAULT_COUNTERS["blackout"] or hit.attempts != 2 or \
+            "blackout" not in kinds or len(set(tiers)) != 2:
+        raise AssertionError(f"12d blackout: counters {got}, expected "
+                             f"{FAULT_COUNTERS['blackout']}")
+    out["blackout"] = {"counters": got, "tiers": tiers,
+                       "attempts": hit.attempts}
+    engine, responses = fault_stage_run(eng, executor, order[:2])
+    got = fault_counters(engine.stats)
+    _, clean = fault_stage_run(eng, executor, order[:2], faulty=False)
+    for r, c in zip(responses, clean):
+        if r.attempts != 2 or not np.array_equal(r.tokens, c.tokens):
+            raise AssertionError(f"12d stage fault: request {r.request_id}"
+                                 f" attempts {r.attempts}, tokens "
+                                 f"{r.tokens} vs fault-free {c.tokens}")
+    log(f"[engine] 12d stage fault: both rows failed at decode call "
+        f"{FAULT_DECODE_CALL}, retried and equal their fault-free run's "
+        f"tokens; counters {got}")
+    if got != FAULT_COUNTERS["stage"]:
+        raise AssertionError(f"12d stage fault: counters {got}, expected "
+                             f"{FAULT_COUNTERS['stage']}")
+    out["stage"] = {"counters": got}
+    return out
+
+
+def engine_timings(executor, order, card):
+    """TIMING_TURNS warm engine pumps on four live rows (an executor of
+    TIMING_TOKENS new tokens that shares the serving weights), each timed
+    whole and around the bare ``InflightDecoder.step`` it makes, both on
+    the host clock after a synchronise (a step ends in a copy of its
+    logits to the host). The front door's host cost a step is the median
+    of the pumps' own differences, pump minus its step: one call holds
+    both, so the host's drift between calls cancels. It is printed as
+    resolved when its quartiles lie within TIMING_RESOLVE_MS of it."""
+    from repro_torch import engine as eng
+    from repro_torch.core.streams import DualStreamExecutor
+    tx = DualStreamExecutor(pcfg=executor.pcfg, params=executor.params,
+                            bottlenecks=executor.bottlenecks,
+                            lut=executor.lut, max_new_tokens=TIMING_TOKENS,
+                            flash_decode=True, device=executor.device)
+    engine = eng.AveryEngine(lut=tx.lut, executor=tx, batching="inflight",
+                             max_batch=INFLIGHT_SLOTS)
+    rows = [o for o in order if o[0].kind == "context"][:INFLIGHT_SLOTS]
+    rows += order[:INFLIGHT_SLOTS - len(rows)]
+    for p, q, it in rows:
+        engine.submit_packet(p, q, it, time_s=0.0)
+    dec, = engine._inflight.values()
+    if len(dec.active) != INFLIGHT_SLOTS:
+        raise AssertionError("timing decoder has idle slots")
+    turns = []
+    step = dec.step
+
+    def timed_step():
+        t0 = _sync_s()
+        out = step()
+        turns[-1]["step"] = (_sync_s() - t0) * 1e3
+        return out
+    dec.step = timed_step
+    try:
+        for _ in range(TIMING_TURNS):
+            turns.append({})
+            t0 = _sync_s()
+            engine.pump()
+            turns[-1]["pump"] = (_sync_s() - t0) * 1e3
+    finally:
+        del dec.step
+    if len(dec.active) != INFLIGHT_SLOTS or \
+            any("step" not in t for t in turns):
+        raise AssertionError("a timing pump made no step on every row")
+    engine.drain()
+    diff = [t["pump"] - t["step"] for t in turns]
+    pump, step_ms = (float(np.median([t[k] for t in turns]))
+                     for k in ("pump", "step"))
+    q1, med, q3 = (float(np.percentile(diff, q)) for q in (25, 50, 75))
+    resolved = max(med - q1, q3 - med) <= TIMING_RESOLVE_MS
+    log(f"[engine] {TIMING_TURNS} warm engine.pump() calls on "
+        f"{INFLIGHT_SLOTS} live rows, each timed whole and around its bare "
+        f"InflightDecoder.step: pump median {pump:.3f} ms, step "
+        f"{step_ms:.3f} ms; front-door host cost a step (pump minus its "
+        f"step) median {med:.4f} ms, quartiles {q1:.4f} to {q3:.4f}, "
+        f"{'resolved' if resolved else 'unresolved'} (limit "
+        f"±{TIMING_RESOLVE_MS} ms) ({card})")
+    return {"pump_ms": pump, "step_ms": step_ms, "host_cost_ms": med,
+            "host_cost_quartiles_ms": [q1, q3], "resolved": resolved,
+            "turns": turns}
+
+
+def engine_phase(executor, pcfg, seed):
+    """Phase 12: the AveryEngine front door at LISA-7B's full width on the
+    serving weights: 12a generate, 12b in flight, 12c speculative, 12d
+    faults, then timings."""
+    from repro_torch.network import paper_trace
+    frames = engine_frames(pcfg, seed)
+    out = {"generate": engine_generate(executor, pcfg, frames,
+                                       paper_trace(seed))}
+    out["inflight"], engine, order = engine_inflight(
+        executor, pcfg, frames, paper_trace(seed))
+    stats = engine.stats
+    keys = ("ttft_latency_p50_s", "ttft_throughput_p50_s",
+            "transmit_p50_s", "decode_step_p50_s")
+    out["stats"] = {k: stats[k] for k in keys}
+    card = card_line()
+    log(f"[engine] 12b stats(): TTFT p50 latency class "
+        f"{stats['ttft_latency_p50_s']:.4f} s, throughput class "
+        f"{stats['ttft_throughput_p50_s']:.4f} s, transmit p50 "
+        f"{stats['transmit_p50_s']:.4f} s (mission clock: the simulated "
+        f"uplink); decode step p50 {stats['decode_step_p50_s'] * 1e3:.2f} "
+        f"ms over {stats['inflight_steps']} steps (wall, ending in the copy "
+        f"of the step's logits to the host; {card})")
+    out["spec"] = engine_spec(executor, pcfg, order)
+    out["faults"] = engine_faults(executor, pcfg, frames, order,
+                                  paper_trace(seed))
+    out["timings"] = engine_timings(executor, order, card)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the zoo's Mamba path (falcon-mamba-7b, zamba2-7b)
 # ---------------------------------------------------------------------------
 
@@ -3406,6 +4026,11 @@ def main() -> int:
     report["split"] = split_phase(
         executor, pcfg, args.seed, reqs, results, frames, inflight_results,
         report["inflight"]["launches"]["paged_decode_attention"])
+
+    t0 = time.perf_counter()
+    report["engine"] = engine_phase(executor, pcfg, args.seed)
+    report["engine_s"] = time.perf_counter() - t0
+    log(f"[engine] phase 12 in {report['engine_s']:.1f} s")
 
     # phase 11: free LISA-7B, then the zoo's Mamba path
     del executor, params, bns, reqs, results, sched, frames, inflight_results

@@ -101,6 +101,13 @@ class DualStreamExecutor:
     def _dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr)).to(self.device)
 
+    @property
+    def num_compiled_stages(self) -> int:
+        """Always 0: the reference counts its (stage, tier, bucket) jit
+        cache here, and the port runs every stage eagerly, so it compiles
+        none (``AveryEngine.stats()`` reports it as ``compiled_stages``)."""
+        return 0
+
     def bucket_for(self, n: int) -> int:
         """Smallest bucket >= n; oversized calls round up to a multiple of
         the largest bucket."""

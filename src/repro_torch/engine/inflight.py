@@ -31,8 +31,10 @@ roll back past the accepted length (``PagePool.grow_to``/``rollback_to``).
 Output stays token-exact with the plain path: a draft is kept only where
 it equals the serving model's own greedy pick.
 
-The metrics registry, the stage profiler and the cost ledger are not
-ported yet (ROADMAP.md, Queue 1): passing any of them raises.
+With a ``MetricsRegistry`` and a ``wallclock`` the decoder times each
+decode and verify step into the registry's histograms. The stage profiler
+and the cost ledger are not ported yet (ROADMAP.md, Queue 1 item 4b):
+passing either raises.
 """
 from __future__ import annotations
 
@@ -112,15 +114,26 @@ class InflightDecoder:
                  clock: Optional[Callable[[], float]] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[Any] = None,
+                 wallclock: Optional[Callable[[], float]] = None,
                  profiler: Optional[Any] = None,
                  cost: Optional[Any] = None):
-        for name, value in (("the metrics registry (metrics)", metrics),
-                            ("the stage profiler (profiler)", profiler),
+        """``metrics`` (a ``MetricsRegistry``) and ``wallclock`` (a wall
+        time source such as ``time.perf_counter``; this module never reads
+        the wall clock itself) fill the ``decode_step_s`` and
+        ``verify_step_s`` histograms with the wall time of each
+        ``cloud_decode_rows`` / ``cloud_verify_rows`` call. Those calls end
+        in a copy of their logits to the host, so on the card the time
+        includes the step's device work."""
+        for name, value in (("the stage profiler (profiler)", profiler),
                             ("the cost ledger (cost)", cost)):
             if value is not None:
                 raise NotImplementedError(f"{name} {_ROADMAP}")
         self.executor = executor
+        # observability: the engine threads its tracer/registry through; a
+        # standalone decoder records nothing
         self.tracer = tracer if tracer is not None else Tracer()
+        self._metrics = metrics
+        self._wallclock = wallclock
         self.scheduler = scheduler if scheduler is not None \
             else FifoScheduler()
         self._clock = clock or (lambda: 0.0)
@@ -156,6 +169,13 @@ class InflightDecoder:
         self.n_expired = 0                # dead on arrival at admission
         self._admitting = False           # reentrancy guard (see admit)
 
+    @property
+    def pending(self):
+        """View of queued admissions: the FIFO scheduler's real deque, or
+        a read-only snapshot across a QoS scheduler's class queues."""
+        q = getattr(self.scheduler, "queue", None)
+        return q if q is not None else self.scheduler.snapshot()
+
     # ---- geometry (fixed once qlen is known) ----
 
     @property
@@ -175,6 +195,10 @@ class InflightDecoder:
         """Virtual sequence width of one row (page-padded)."""
         return (self.n_prefix_pages + self.n_private_pages) \
             * self.pool.page_size
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.scheduler.has_pending or self.active)
 
     # ---- queueing ----
 
@@ -450,12 +474,16 @@ class InflightDecoder:
             toks[s, 0] = st.tokens[-1]
             pos[s] = st.pos
             write_slot[s] = base + len(st.tokens) - 1
+        wc = self._wallclock
+        w0 = wc() if wc is not None else 0.0
         try:
             logits, seg, self.pool.kv = self.executor.cloud_decode_rows(
                 self.pool.kv, self.page_tables, self.positions, toks, pos,
                 write_slot)
         except CloudStageError as e:
             return self._fail_step(e)
+        if wc is not None and self._metrics is not None:
+            self._metrics.histogram("decode_step_s").observe(wc() - w0)
         live = len(self.active)
         self.n_steps += 1
         self.n_slot_steps += live
@@ -518,12 +546,16 @@ class InflightDecoder:
                 clens[s] = 1 + j
             # cover the chunk (the draft overhang too) with decode pages
             self._grow_private(s, st, n - 1 + int(clens[s]))
+        wc = self._wallclock
+        w0 = wc() if wc is not None else 0.0
         try:
             logits, seg, self.pool.kv = self.executor.cloud_verify_rows(
                 self.pool.kv, self.page_tables, self.positions, toks, pos,
                 write_slot, clens)
         except CloudStageError as e:
             return self._fail_step(e)
+        if wc is not None and self._metrics is not None:
+            self._metrics.histogram("verify_step_s").observe(wc() - w0)
         live = len(self.active)
         self.n_steps += 1
         self.n_slot_steps += live
@@ -561,7 +593,8 @@ class InflightDecoder:
                 # the j-th came off the last feed's logits) already sit in
                 # its cache at their committed positions
                 self.draft.commit(s, n + min(m, j - 1))
-                self.spec_stats.note_chunk(j, m, len(new))
+                self.spec_stats.note_chunk(j, m, len(new),
+                                           metrics=self._metrics)
                 # rollback: free decode pages past the accepted length
                 dropped = self.pool.rollback_to(st.private_ids, n + m)
                 if dropped:

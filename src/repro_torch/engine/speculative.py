@@ -71,13 +71,18 @@ class SpecStats:
         plain-decode floor, k+1 the full-acceptance ceiling."""
         return self.emitted / self.row_steps if self.row_steps else 0.0
 
-    def note_chunk(self, drafted: int, accepted: int, emitted: int) -> None:
-        """Fold one drafting row's verify-chunk outcome in (the reference's
-        ``metrics`` histogram waits for the metrics registry, ROADMAP.md)."""
+    def note_chunk(self, drafted: int, accepted: int, emitted: int,
+                   metrics: Optional[Any] = None) -> None:
+        """Fold one drafting row's verify-chunk outcome in; with a
+        ``MetricsRegistry`` attached the chunk's acceptance fraction also
+        feeds the ``spec_accept_rate`` histogram."""
         self.drafted += drafted
         self.accepted += accepted
         self.emitted += emitted
         self.row_steps += 1
+        if metrics is not None and drafted:
+            metrics.histogram("spec_accept_rate").observe(
+                accepted / drafted)
 
     def merge(self, other: "SpecStats") -> None:
         for f in dataclasses.fields(self):

@@ -198,11 +198,11 @@ def test_repeat_prefix_hits_and_qos_preemption_round_trip(executors,
 
 
 def test_unported_options_raise(executors):
-    """Speculation is ported (tests/test_torch_speculative.py); the
-    metrics registry, the stage profiler and the cost ledger are not."""
+    """Speculation and the metrics hooks are ported
+    (tests/test_torch_speculative.py, tests/test_torch_engine.py); the
+    stage profiler and the cost ledger are not."""
     _, tex = executors
-    for kw in ({"metrics": object()}, {"profiler": object()},
-               {"cost": object()}):
+    for kw in ({"profiler": object()}, {"cost": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TDecoder(tex, slots=2, **kw)
 

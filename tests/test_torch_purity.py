@@ -13,6 +13,13 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # port modules with no reference counterpart
 OWN = {"bridge.py", "kernels/_build.py"}
+# host-only modules: plain Python and numpy, the engine's scheduling,
+# policy, fault, telemetry and network-simulation path between device steps
+HOST_ONLY = ["engine/scheduler.py", "engine/policy.py", "engine/faults.py",
+             "engine/observability.py", "engine/api.py",
+             "engine/transport.py", "core/controller.py",
+             "network/__init__.py", "network/channel.py",
+             "network/energy.py", "network/traces.py"]
 
 
 def _names(node):
@@ -31,6 +38,14 @@ def test_no_jax_no_reference_no_toplevel_triton(path):
     assert not bad, f"{path} imports {bad}"
     top = [n for node in tree.body for n in _names(node) if n == "triton"]
     assert not top, f"{path} imports triton at module level"
+
+
+@pytest.mark.parametrize("rel", HOST_ONLY)
+def test_host_only_modules_import_no_jax_and_no_torch(rel):
+    tree = ast.parse((PORT / rel).read_text(), rel)
+    bad = [n for node in ast.walk(tree) for n in _names(node)
+           if n in ("jax", "jaxlib", "torch", "triton")]
+    assert not bad, f"{rel} imports {bad}"
 
 
 def test_port_package_calls_no_library_attention_or_compile():

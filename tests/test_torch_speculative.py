@@ -33,7 +33,9 @@ from repro.core import vlm as jvlm
 from repro.core.intent import Intent as JIntent
 from repro.core.profile import random_init_system
 from repro.data import floodseg
+from repro.engine import CloudStageError as JStageError
 from repro.engine import InflightDecoder as JDecoder
+from repro.engine import QoSScheduler as JQoS
 from repro.engine import speculative as jspec
 from repro_torch.configs import get_lisa_config
 from repro_torch.configs import lisa_nano as tnano
@@ -41,7 +43,9 @@ from repro_torch.core import lut as tlut
 from repro_torch.core import packets as tpk
 from repro_torch.core.intent import Intent as TIntent
 from repro_torch.core.streams import DualStreamExecutor as TExecutor
+from repro_torch.engine import CloudStageError as TStageError
 from repro_torch.engine import InflightDecoder as TDecoder
+from repro_torch.engine import QoSScheduler as TQoS
 from repro_torch.engine import speculative as tspec
 
 torch.set_num_threads(1)
@@ -172,11 +176,18 @@ def test_shared_draft_accepts_everything(executors, requests):
     assert max(r["joined_step"] for r in done.values()) > 0
 
 
-def test_divergent_draft_rolls_back_pages(executors, requests):
+@pytest.fixture(scope="module")
+def divergent():
+    """A random draft of lisa_mini geometry (other weights than the
+    serving model's)."""
+    return jvlm.init_lisa(JP, jax.random.PRNGKey(99))
+
+
+def test_divergent_draft_rolls_back_pages(executors, requests, divergent):
     """A random draft of lisa_mini geometry (other weights), four drafts
     a round, five requests on two slots: rejections, corrections and page
     rollback, with slot and page reuse."""
-    draft = jvlm.init_lisa(JP, jax.random.PRNGKey(99))
+    draft = divergent
     schedule = [[(i, "uav-A") for i in range(5)]]
     dec, _ = _held_against_reference(
         executors, requests, schedule, 2,
@@ -320,3 +331,108 @@ def test_sharded_draft_stages_raise(executors):
         tspec.DraftModel(tex.params, TP, slots=2, prefix_len=24,
                          max_new_tokens=T, draft_tokens=3,
                          fns_factory=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# speculation under QoS preemption
+# ---------------------------------------------------------------------------
+
+class _FailingVerify:
+    """An executor whose ``cloud_verify_rows`` raises the package's
+    ``CloudStageError`` on its ``fail_at``-th call; every other attribute
+    is the wrapped executor's."""
+
+    def __init__(self, inner, error, fail_at):
+        self.inner, self.error, self.fail_at, self.calls = \
+            inner, error, fail_at, 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def cloud_verify_rows(self, *args):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise self.error("injected verify fault")
+        return self.inner.cloud_verify_rows(*args)
+
+
+# Insight frames 0 and 1 start drafting; one step later the Context frame
+# 2 arrives and, with no latency patience, parks the lowest-ranked
+# speculating row, which later resumes by replaying its tokens; frame 3
+# queues behind them.
+PREEMPT_WAVES = ([(0, "uav-A"), (1, "uav-B")], [(2, "uav-B")],
+                 [(3, "uav-A")])
+
+
+def _serve_preempted(port, executor, reqs, slots, spec, fail_at):
+    cls, intent, qos, error = ((TDecoder, TIntent, TQoS, TStageError)
+                               if port else
+                               (JDecoder, JIntent, JQoS, JStageError))
+    if fail_at is not None:
+        executor = _FailingVerify(executor, error, fail_at)
+    dec = cls(executor, slots=slots, spec=spec,
+              scheduler=qos(latency_patience_s=0.0))
+    done = {}
+    seq = 0
+    for wave in PREEMPT_WAVES:
+        for i, operator in wave:
+            jpkt, tpkt, query, kind = reqs[i]
+            dec.submit(seq, intent(kind), tpkt if port else jpkt, query,
+                       lambda r: done.__setitem__(r["seq_id"], r),
+                       operator_id=operator)
+            seq += 1
+        dec.pump(1)
+    dec.drain()
+    assert sorted(done) == list(range(seq))
+    return dec, done
+
+
+@pytest.mark.parametrize("slots,draft,fail_at", [
+    (1, "shared", None), (2, "shared", None), (1, "divergent", None),
+    (2, "divergent", None), (2, "shared", 2), (1, "divergent", 3)])
+def test_speculation_under_qos_preemption(executors, requests, divergent,
+                                          slots, draft, fail_at):
+    """Speculating rows parked by QoS preemption resume token-exactly, on
+    one and two slots, with a shared and a divergent draft, and with a
+    ``CloudStageError`` from ``cloud_verify_rows`` failing every live row
+    of that step: tokens, failures, ``SpecStats``, preemptions and the
+    pool's stats equal the reference's."""
+    jex, tex = executors
+    cfg = {"shared": (jspec.SpeculativeConfig(3),
+                      tspec.SpeculativeConfig(3)),
+           "divergent": (jspec.SpeculativeConfig(4, draft_params=divergent),
+                         tspec.SpeculativeConfig(4, draft_params=jax.tree.map(
+                             np.asarray, divergent)))}[draft]
+    jdec, jdone = _serve_preempted(False, jex, requests, slots, cfg[0],
+                                   fail_at)
+    tdec, tdone = _serve_preempted(True, tex, requests, slots, cfg[1],
+                                   fail_at)
+    for f in STATS:
+        assert getattr(tdec.spec_stats, f) == getattr(jdec.spec_stats, f), f
+    for attr in ("n_steps", "n_slot_steps", "n_served", "n_preempted",
+                 "n_stage_faults", "step_idx"):
+        assert getattr(tdec, attr) == getattr(jdec, attr), attr
+    assert (tdec.draft.n_steps, tdec.draft.n_prefills) == \
+        (jdec.draft.n_steps, jdec.draft.n_prefills)
+    assert tdec.pool.stats() == jdec.pool.stats()
+    tdec.pool.check_invariants()
+    assert tdec.scheduler.stats() == jdec.scheduler.stats()
+    order = [i for wave in PREEMPT_WAVES for i, _ in wave]
+    for sid, i in enumerate(order):
+        j, t = jdone[sid], tdone[sid]
+        assert t.get("failure") == j.get("failure")
+        if "failure" in t:
+            continue
+        np.testing.assert_array_equal(t["tokens"], np.asarray(j["tokens"]))
+        np.testing.assert_allclose(t["answer_logits"],
+                                   np.asarray(j["answer_logits"]), atol=ATOL)
+        for key in ("joined_step", "prefix_hit", "speculative",
+                    "batch_size", "preemptions"):
+            assert t[key] == j[key], key
+        _, tpkt, query, _ = requests[i]
+        want = tex.cloud_generate_batch([tpkt], [query])[0]
+        np.testing.assert_array_equal(t["tokens"], want[-1])
+    assert tdec.n_preempted >= 1 or fail_at is not None
+    if fail_at is not None:
+        assert tdec.n_stage_faults == 1
+        assert any(r.get("failure") == "cloud_error" for r in tdone.values())
