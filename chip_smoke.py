@@ -131,6 +131,40 @@ Phases, each fatal on failure:
      live rows, each timed whole and around the bare
      ``InflightDecoder.step`` it makes, each beside the card's name and
      power limit.
+ 13. (profile, after 12 and before 11 frees LISA-7B) the stage profiler,
+     cost ledger and runtime sanitizers on phase 12's executor and frames,
+     each run's launch counters set to 0 just before it: (a) 12b's engine
+     and schedule with ``profile=`` (a ``StageProfiler`` on the H100's
+     constants at this card's power limit) and tracing: paged launches
+     steps x layers, tokens equal 12b's, ``cloud_decode_rows`` profiled
+     once a step, the profiled calls equal the device track's (pid 3)
+     spans of ``dump_trace``, every response's ledger equal to the
+     analytic cost of ``network/energy.py``, ``decode_roofline_frac`` in
+     (0, 1], each stage's calls and p50; (b) 12c's ``speculative=3``
+     engine, profiled: verify, paged and contiguous launches verify,
+     plain and draft steps x layers, the profiled ``draft``,
+     ``cloud_verify_rows`` and ``cloud_decode_rows`` calls equal the
+     decoder's own, tokens equal 12c's; (c) ``debug_recompiles=True,
+     debug_transfers=True``: warm-up, ``arm_sanitizers()``, two waves of
+     guarded pumps with a zero budget on every pump and drain (the census:
+     kernel libraries loaded and the allocator's device allocations) and
+     no sync outside the explicit window, a deliberate ``.item()`` inside
+     the guard raising, the guard over ``speculative=3`` (queued rows
+     admitted and verified inside guarded pumps), a census of every host
+     sync on the guarded path with the window off (each site must be a
+     boundary copy or wait the window admits, WINDOW_SITES), and a
+     profiled engine with ``kv_pages=2`` whose pool grows with compile
+     events rising (the flight recorder keeps them); the profiler's cost a decode step (a profiled and a bare
+     engine's warm pumps in turns, each turn's relative difference: median
+     and quartiles beside the reference's 5 % budget; fails when the lower
+     quartile exceeds it); (d) on a lisa-mini executor: ``run_mission`` in
+     executor mode (AVERY against static High Accuracy over
+     ``paper_trace(seed)``, 20 minutes), ``run_fleet`` with 4 UAVs (no
+     kernel launch: the fidelity oracle's ``llm_reason`` is a prefill),
+     and ``python -m repro_torch.launch.serve --smoke --batching inflight``
+     and ``python -m repro_torch.analysis.sanitizers --smoke`` as
+     subprocesses, each exiting 0 with its launches printed (the
+     launcher's paged launches its steps x layers).
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -2148,6 +2182,19 @@ def inflight_phase(executor, pcfg, seed):
 # ---------------------------------------------------------------------------
 
 
+def spec_executor(executor):
+    """An executor of SPEC_MAX_NEW_TOKENS new tokens over pages of
+    SPEC_PAGE slots that shares ``executor``'s weights (phases 9, 12c,
+    13b, 13c)."""
+    from repro_torch.core.streams import DualStreamExecutor
+    return DualStreamExecutor(pcfg=executor.pcfg, params=executor.params,
+                              bottlenecks=executor.bottlenecks,
+                              lut=executor.lut,
+                              max_new_tokens=SPEC_MAX_NEW_TOKENS,
+                              flash_decode=True, page_size=SPEC_PAGE,
+                              device=executor.device)
+
+
 def _spec_submissions(frames):
     """(operator, kind, frame, drafts) of every SPEC_WAVES request."""
     return [(op, frames[f][0], f, drafts) for wave in SPEC_WAVES
@@ -2347,15 +2394,9 @@ def spec_phase(executor, pcfg, seed, frames):
     must give the tokens of a spec=None decoder (answer logits bit-equal)
     and of the one-shot cloud_generate_batch."""
     from repro_torch.core import vlm
-    from repro_torch.core.streams import DualStreamExecutor
     from repro_torch.engine.speculative import SpeculativeConfig
     dev = executor.device
-    sx = DualStreamExecutor(pcfg=pcfg, params=executor.params,
-                            bottlenecks=executor.bottlenecks,
-                            lut=executor.lut,
-                            max_new_tokens=SPEC_MAX_NEW_TOKENS,
-                            flash_decode=True, page_size=SPEC_PAGE,
-                            device=dev)
+    sx = spec_executor(executor)
     if sx.params["llm"]["embed"] is not executor.params["llm"]["embed"]:
         raise AssertionError("the spec executor copied the weights")
     out = {}
@@ -2772,13 +2813,13 @@ def split_point(fx, frame, i):
     from repro_torch.core import bottleneck as bn
     from repro_torch.core import packets as pk
     from repro_torch.core import vlm
-    from repro_torch.core.streams import _host
+    from repro_torch.core.streams import host
     tier, img, query, ctx = frame
     pcfg, p, bp = fx.pcfg, fx.params, fx.bottlenecks[tier.name]
     a = vlm.sam_head(p, pcfg, img)
     codes, scales = bn.encode(bp, a, use_kernel=True)
-    pkt = pk.make_insight_packet(i, 0.0, tier.name, _host(codes),
-                                 _host(scales), clip_feats=_host(ctx))
+    pkt = pk.make_insight_packet(i, 0.0, tier.name, host(codes),
+                                 host(scales), clip_feats=host(ctx))
     a = bn.decode(bp, fx._dev(pkt.content["codes"]),
                   fx._dev(pkt.content["scales"]), out_dtype=pcfg.sam.adtype,
                   use_kernel=True)
@@ -2786,7 +2827,7 @@ def split_point(fx, frame, i):
     tokens, logits0, seg = vlm.llm_generate(p, fx._gen_pcfg, ctx, query,
                                             MAX_NEW_TOKENS)
     mask = vlm.mask_decode(p, pcfg, feats, seg)
-    return (_host(mask), _host(logits0), _host(tokens)), pkt
+    return (host(mask), host(logits0), host(tokens)), pkt
 
 
 def _split_run(fx, frames):
@@ -3229,17 +3270,9 @@ def engine_inflight(executor, pcfg, frames, trace):
         max_batch=INFLIGHT_SLOTS, transport=eng.ChannelTransport.from_trace(
             trace), policy=eng.AdaptivePolicy(),
         scheduler=eng.QoSScheduler(), wallclock=time.perf_counter)
-    sessions = _engine_sessions(engine)
     _reset_launch_counts()
     t0 = _sync_s()
-    futs, _ = submit_frames(engine, frames, range(len(ENGINE_FRAMES)),
-                            sessions)
-    engine.pump()
-    images, query = frames[0]
-    futs.append(sessions["uav-A"].submit(
-        prompt=ENGINE_FRAMES[0][1], images=images, query=query,
-        time_s=ENGINE_REPEAT_T))
-    engine.drain()
+    futs = _inflight_schedule(engine, frames)
     wall = _sync_s() - t0
     launches = _launch_counts()
     responses = [f.result() for f in futs]
@@ -3262,7 +3295,7 @@ def engine_inflight(executor, pcfg, frames, trace):
     _engine_outputs(pcfg, responses)
     _log_requests("12b", responses, engine.transport)
     packets = delivered_packets(engine.transport)
-    queries = [q for _, q in frames] + [query]
+    queries = [q for _, q in frames] + [frames[0][1]]
     _one_shot(executor, responses, packets, queries, "12b")
     engine.kv_pool.check_invariants()
     # the reference's canonical in-flight scenario, for the key set
@@ -3288,7 +3321,24 @@ def engine_inflight(executor, pcfg, frames, trace):
              "joined_steps": [r.joined_step for r in responses],
              "prefix_hits": [bool(r.prefix_hit) for r in responses],
              "preemptions": [r.preemptions for r in responses],
-             "stats_keys": len(want_keys)}, engine, order)
+             "stats_keys": len(want_keys),
+             "tokens": [r.tokens.tolist() for r in responses]}, engine, order)
+
+
+def _inflight_schedule(engine, frames):
+    """12b's schedule (and 13a's): the six frames through the two
+    sessions, a pump, uav-A's frame 0 again (a late join and a prefix
+    hit), then a drain. Returns the futures in submission order."""
+    sessions = _engine_sessions(engine)
+    futs, _ = submit_frames(engine, frames, range(len(ENGINE_FRAMES)),
+                            sessions)
+    engine.pump()
+    images, query = frames[0]
+    futs.append(sessions["uav-A"].submit(
+        prompt=ENGINE_FRAMES[0][1], images=images, query=query,
+        time_s=ENGINE_REPEAT_T))
+    engine.drain()
+    return futs
 
 
 def _serve_packets(engine, order):
@@ -3347,13 +3397,7 @@ def engine_spec(executor, pcfg, order):
     and its plain version's do. The ``speculative=None`` run's margin
     P[b] - P[a] is printed beside the two differences."""
     from repro_torch import engine as eng
-    from repro_torch.core.streams import DualStreamExecutor
-    sx = DualStreamExecutor(pcfg=pcfg, params=executor.params,
-                            bottlenecks=executor.bottlenecks,
-                            lut=executor.lut,
-                            max_new_tokens=SPEC_MAX_NEW_TOKENS,
-                            flash_decode=True, page_size=SPEC_PAGE,
-                            device=executor.device)
+    sx = spec_executor(executor)
     runs = []
     for speculative in (3, None):
         engine = eng.AveryEngine(lut=sx.lut, executor=sx,
@@ -3446,7 +3490,7 @@ def engine_spec(executor, pcfg, order):
                              f"speculative=None, more than {MAX_TIES}")
     return {"wall_s": wall, "launches": launches, "expected": expect,
             "steps": calls, "draft_steps": draft_steps, "spec_stats": spec,
-            "ties": ties}
+            "ties": ties, "tokens": [r.tokens.tolist() for r in responses]}
 
 
 def engine_faults(executor, pcfg, frames, order, trace):
@@ -3553,7 +3597,8 @@ def engine_timings(executor, order, card):
 def engine_phase(executor, pcfg, seed):
     """Phase 12: the AveryEngine front door at LISA-7B's full width on the
     serving weights: 12a generate, 12b in flight, 12c speculative, 12d
-    faults, then timings."""
+    faults, then timings. Returns (report, 12b's [(packet, query,
+    Intent)] in request order)."""
     from repro_torch.network import paper_trace
     frames = engine_frames(pcfg, seed)
     out = {"generate": engine_generate(executor, pcfg, frames,
@@ -3576,6 +3621,718 @@ def engine_phase(executor, pcfg, seed):
     out["faults"] = engine_faults(executor, pcfg, frames, order,
                                   paper_trace(seed))
     out["timings"] = engine_timings(executor, order, card)
+    return out, order
+
+
+# ---------------------------------------------------------------------------
+# phase 13 (profile): the stage profiler, cost ledger and sanitizers
+# ---------------------------------------------------------------------------
+
+# the reference's budget for the profiler's cost a serve (tests/
+# test_profiler.py): the run fails when the lower quartile of the per-turn
+# relative cost a decode step exceeds it
+PROFILE_OVERHEAD_BUDGET = 0.05
+# the overhead's turns (96: a turn's difference spreads by about +-12 % of
+# a step on the host; 24 turns left the median within +-3 %) and the new
+# tokens that keep four rows live through them
+PROFILE_TURNS = 96
+PROFILE_TOKENS = PROFILE_TURNS + 2 * INFLIGHT_SLOTS
+# 13c: pumps after each steady-state wave, as the sanitizers' smoke pumps
+SANITIZER_PUMPS = 16
+# 13c: the pool pre-sized for the steady waves (a pool that grows allocates
+# anew, which the census counts): at most 8 stored prefixes and 4 live
+# ones of ceil(204 / 16) = 13 pages each, and a private page a slot
+SANITIZER_PAGES = 192
+# 13c: distinct prefixes fed to a pool of kv_pages=2
+POOL_GROWTH_REQUESTS = 8
+# 13d: the lisa-mini runs on the card: the paper's 20-minute mission
+# (MissionSpec's default duration), a fleet of 4 UAVs, and the two
+# launchers, each run as ``python -m`` runs a module, its kernel launch
+# counters printed after it (RUN_MODULE)
+FLEET_UAVS = 4
+SERVE_ARGS = ("--smoke", "--batching", "inflight", "--duration", "20",
+              "--seed", "1")
+SUBPROCESS_TIMEOUT_S = 300
+RUN_MODULE = """
+import json, runpy, sys
+from repro_torch.kernels.decode_attention import ops
+module, sys.argv = sys.argv[1], sys.argv[1:]
+code = 0
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+print(json.dumps({"decode_attention": ops.launches,
+                  "paged_decode_attention": ops.paged_launches,
+                  "paged_verify_attention": ops.verify_launches}))
+sys.exit(code)
+"""
+
+
+def card_device(card):
+    """The H100's constants (``network/energy.py:H100_SXM``) at this card's
+    power limit, from the card line ``name, <limit> W``."""
+    from repro_torch.network.energy import H100_SXM
+    watts = float(card.rsplit(",", 1)[1].split()[0])
+    return dataclasses.replace(H100_SXM, power_watts=watts)
+
+
+def _stage_lines(tag, stats, card):
+    """Each profiled stage's calls and p50 wall (ms; the histograms' 8
+    buckets a decade make each p50 a bucket edge)."""
+    from repro_torch.engine.profiler import PROFILED_STAGES
+    ran = [s for s in PROFILED_STAGES if stats[f"stage_{s}_calls"]]
+    log(f"[profile] {tag} stages (calls, p50 ms): " + ", ".join(
+        f"{s} {stats[f'stage_{s}_calls']} x "
+        f"{stats[f'stage_{s}_p50_s'] * 1e3:.3f}" for s in ran)
+        + f" ({card})")
+    return {s: {"calls": stats[f"stage_{s}_calls"],
+                "p50_s": stats[f"stage_{s}_p50_s"]} for s in ran}
+
+
+def _device_track(engine):
+    """The pid-3 spans of the engine's ``dump_trace`` document."""
+    import tempfile
+    from repro_torch.engine.observability import DEVICE_TRACK_PID
+    with tempfile.TemporaryDirectory() as d:
+        with open(engine.dump_trace(os.path.join(d, "trace.json"))) as f:
+            doc = json.load(f)
+    return [e for e in doc["traceEvents"]
+            if e.get("pid") == DEVICE_TRACK_PID and e.get("ph") == "X"]
+
+
+def _ledger_check(tag, pcfg, responses, stats, steps):
+    """Each response's ledger against the analytic cost recomputed from
+    ``network/energy.py``: the prefill of a prefix miss, then one token a
+    decode step at its attended context; the engine's totals against the
+    responses' sums. Rows that were preempted (and replayed) are left out
+    of the per-response check and counted."""
+    from repro_torch.network import energy
+    prefix = pcfg.clip_tokens + QUERY_LEN
+    checked = 0
+    for r in responses:
+        if r.preemptions:
+            continue
+        flops = 0.0 if r.prefix_hit else energy.encoder_flops(pcfg.llm,
+                                                              prefix)
+        hbm = 0.0
+        for i in range(1, steps + 1):
+            flops += energy.decode_token_flops(pcfg.llm, prefix + i)
+            hbm += energy.decode_token_hbm_bytes(pcfg.llm, prefix + i)
+        if (r.cloud_flops, r.cloud_hbm_bytes) != (flops, hbm):
+            raise AssertionError(
+                f"{tag}: request {r.request_id} ledger "
+                f"{(r.cloud_flops, r.cloud_hbm_bytes)} != analytic "
+                f"{(flops, hbm)}")
+        checked += 1
+    for key, field in (("ledger_flops_total", "cloud_flops"),
+                       ("ledger_hbm_bytes_total", "cloud_hbm_bytes"),
+                       ("ledger_energy_j_total", "cloud_energy_j")):
+        want = sum(getattr(r, field) for r in responses)
+        if not math.isclose(stats[key], want, rel_tol=1e-12):
+            raise AssertionError(f"{tag}: {key} {stats[key]} != the "
+                                 f"responses' sum {want}")
+    frac = stats["decode_roofline_frac"]
+    log(f"[profile] {tag} ledger: {checked} of {len(responses)} requests "
+        f"equal the analytic cost; totals {stats['ledger_flops_total']:.6g}"
+        f" FLOPs, {stats['ledger_hbm_bytes_total']:.6g} HBM bytes, "
+        f"{stats['ledger_energy_j_total']:.6g} J; decode_roofline_frac "
+        f"{frac:.6f} (limit (0, 1])")
+    if not 0.0 < frac <= 1.0:
+        raise AssertionError(f"{tag}: decode_roofline_frac {frac} outside "
+                             f"(0, 1]: a wrong count")
+    return checked
+
+
+def profile_inflight(executor, pcfg, frames, trace, base, device, card):
+    """13a: 12b's engine and schedule with ``profile=`` (a StageProfiler on
+    this card's constants) and tracing on. Counters from 0 just before:
+    paged launches steps x layers and no other kernel; tokens equal 12b's;
+    ``cloud_decode_rows`` profiled once a step; the profiled calls equal
+    the device track's spans; the ledger against the analytic cost;
+    ``decode_roofline_frac`` in (0, 1]."""
+    from repro_torch import engine as eng
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=INFLIGHT_SLOTS, transport=eng.ChannelTransport.from_trace(
+            trace), policy=eng.AdaptivePolicy(),
+        scheduler=eng.QoSScheduler(), wallclock=time.perf_counter,
+        trace=True, profile=eng.StageProfiler(time.perf_counter,
+                                              device=device))
+    _reset_launch_counts()
+    t0 = _sync_s()
+    futs = _inflight_schedule(engine, frames)
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    responses = [f.result() for f in futs]
+    stats = engine.stats
+    steps = stats["inflight_steps"]
+    expect = _only(paged_decode_attention=steps * pcfg.llm.num_layers)
+    tokens = [r.tokens.tolist() for r in responses]
+    spans = _device_track(engine)
+    log(f"[profile] 13a profiled inflight: {len(responses)} requests in "
+        f"{steps} decode steps, wall {wall:.2f} s; launches {launches} "
+        f"(expected {expect}); cloud_decode_rows profiled "
+        f"{stats['stage_cloud_decode_rows_calls']} times (steps {steps}); "
+        f"{stats['profiled_stage_calls']} profiled calls, {len(spans)} "
+        f"device-track spans; compile events {stats['compile_events']} "
+        f"({card})")
+    if launches != expect or steps == 0:
+        raise AssertionError(f"13a: launches {launches}, expected {expect}")
+    if tokens != base["tokens"]:
+        raise AssertionError(f"13a: tokens {tokens} != 12b's "
+                             f"{base['tokens']}")
+    if stats["stage_cloud_decode_rows_calls"] != steps:
+        raise AssertionError("13a: cloud_decode_rows calls != steps")
+    if len(spans) != stats["profiled_stage_calls"]:
+        raise AssertionError(f"13a: {len(spans)} device spans, "
+                             f"{stats['profiled_stage_calls']} calls")
+    _engine_outputs(pcfg, responses)
+    checked = _ledger_check("13a", pcfg, responses, stats, MAX_NEW_TOKENS)
+    log("[profile] 13a: tokens equal 12b's")
+    engine.kv_pool.check_invariants()
+    return {"wall_s": wall, "launches": launches, "expected": expect,
+            "steps": steps, "stages": _stage_lines("13a", stats, card),
+            "profiled_calls": stats["profiled_stage_calls"],
+            "device_spans": len(spans), "ledger_checked": checked,
+            **{k: stats[k] for k in (
+                "compile_events", "compile_wall_s", "compiled_roots",
+                "ledger_flops_total", "ledger_hbm_bytes_total",
+                "ledger_energy_j_total", "decode_roofline_frac",
+                "profiled_wall_s")}}
+
+
+def profile_spec(executor, pcfg, order, base, device, card):
+    """13b: 12c's ``speculative=3`` engine on phase 9's executor, profiled.
+    Counters from 0 just before: verify, paged and contiguous launches
+    verify, plain and draft steps x layers; ``draft`` profiled once a
+    drafting round and ``cloud_verify_rows`` once a verify step, each
+    counted at the decoder's own calls; tokens equal 12c's."""
+    from repro_torch import engine as eng
+    from repro_torch.engine.speculative import DraftModel
+    sx = spec_executor(executor)
+    engine = eng.AveryEngine(
+        lut=sx.lut, executor=sx, batching="inflight",
+        max_batch=INFLIGHT_SLOTS, speculative=3, wallclock=time.perf_counter,
+        profile=eng.StageProfiler(time.perf_counter, device=device))
+    calls = {"cloud_verify_rows": 0, "cloud_decode_rows": 0, "draft": 0}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    real_draft = DraftModel.draft
+    for name in ("cloud_verify_rows", "cloud_decode_rows"):
+        setattr(sx, name, counted(name, getattr(sx, name)))
+    try:
+        with mock.patch.object(DraftModel, "draft",
+                               counted("draft", real_draft)):
+            _reset_launch_counts()
+            t0 = _sync_s()
+            futs = _serve_packets(engine, order)
+            decoders = list(engine._inflight.values())
+            engine.drain()
+            wall = _sync_s() - t0
+            launches = _launch_counts()
+    finally:
+        for name in ("cloud_verify_rows", "cloud_decode_rows"):
+            delattr(sx, name)
+    responses = [f.result() for f in futs]
+    stats = engine.stats
+    L = pcfg.llm.num_layers
+    draft_steps = sum(d.draft.n_steps for d in decoders
+                      if d.draft is not None)
+    expect = _only(paged_verify_attention=calls["cloud_verify_rows"] * L,
+                   paged_decode_attention=calls["cloud_decode_rows"] * L,
+                   decode_attention=draft_steps * L)
+    tokens = [r.tokens.tolist() for r in responses]
+    log(f"[profile] 13b profiled speculative=3: {len(responses)} requests "
+        f"in {calls['cloud_verify_rows']} verify and "
+        f"{calls['cloud_decode_rows']} plain steps, {calls['draft']} "
+        f"drafting rounds of {draft_steps} draft steps, wall {wall:.2f} s; "
+        f"launches {launches} (expected {expect}); profiled draft "
+        f"{stats['stage_draft_calls']}, draft_admit "
+        f"{stats['stage_draft_admit_calls']}, cloud_verify_rows "
+        f"{stats['stage_cloud_verify_rows_calls']}, cloud_decode_rows "
+        f"{stats['stage_cloud_decode_rows_calls']} ({card})")
+    if launches != expect or not calls["cloud_verify_rows"]:
+        raise AssertionError(f"13b: launches {launches}, expected {expect}")
+    if (stats["stage_draft_calls"], stats["stage_cloud_verify_rows_calls"],
+            stats["stage_cloud_decode_rows_calls"]) != (
+            calls["draft"], calls["cloud_verify_rows"],
+            calls["cloud_decode_rows"]) or not calls["draft"]:
+        raise AssertionError(f"13b: profiled stage calls differ from the "
+                             f"decoder's {calls}")
+    if tokens != base["tokens"]:
+        raise AssertionError(f"13b: tokens {tokens} != 12c's "
+                             f"{base['tokens']}")
+    _engine_outputs(pcfg, responses, SPEC_MAX_NEW_TOKENS)
+    frac = stats["decode_roofline_frac"]
+    if not 0.0 < frac <= 1.0:
+        raise AssertionError(f"13b: decode_roofline_frac {frac} outside "
+                             f"(0, 1]")
+    log(f"[profile] 13b: tokens equal 12c's; decode_roofline_frac "
+        f"{frac:.6f} (limit (0, 1])")
+    return {"wall_s": wall, "launches": launches, "expected": expect,
+            "calls": calls, "draft_steps": draft_steps,
+            "stages": _stage_lines("13b", stats, card),
+            "decode_roofline_frac": frac}
+
+
+def sanitize_phase(executor, pcfg, order, device, card):
+    """13c: ``debug_recompiles=True, debug_transfers=True`` in flight on
+    the serving weights. Warm up on 12b's packets, ``arm_sanitizers()``,
+    then two steady waves of the same packets under new queries (new
+    prefixes, the same shapes), SANITIZER_PUMPS guarded pumps after each:
+    every pump and drain checks the zero budget and raises on any sync
+    outside the explicit window. Then a deliberate ``.item()`` inside the
+    guard must raise; and a profiled engine with ``kv_pages=2`` fed
+    distinct prefixes must grow its pool with compile events rising (the
+    allocator's), the flight recorder keeping them."""
+    from repro_torch import engine as eng
+    from repro_torch.analysis import sanitizers
+    L, V = pcfg.llm.num_layers, pcfg.llm.vocab_size
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=INFLIGHT_SLOTS, kv_pages=SANITIZER_PAGES,
+        max_prefixes=8, debug_recompiles=True, debug_transfers=True)
+
+    def wave(shift, t0):
+        return [engine.submit_packet(p, (q + shift) % V, it,
+                                     time_s=t0 + 0.4 * i)
+                for i, (p, q, it) in enumerate(order[:6])]
+
+    futs = wave(0, 0.0)
+    engine.drain()
+    armed = engine.arm_sanitizers()
+    warm_steps = engine.stats["inflight_steps"]
+    _reset_launch_counts()
+    t0 = _sync_s()
+    for k in (1, 2):
+        futs += wave(k, 100.0 * k)
+        for _ in range(SANITIZER_PUMPS):
+            engine.pump()
+    engine.drain()
+    wall = _sync_s() - t0
+    launches = _launch_counts()
+    engine.check_sanitizers(budget=0)
+    stats = engine.stats
+    steps = stats["inflight_steps"] - warm_steps
+    expect = _only(paged_decode_attention=steps * L)
+    failed = [f.result().failure for f in futs if f.result().failure]
+    log(f"[profile] 13c sanitizers: census {armed} at arm ("
+        f"{sorted(sanitizers.named_jit_roots(engine))}), "
+        f"{stats['new_compiles_since_arm']} new after two waves of "
+        f"{SANITIZER_PUMPS} guarded pumps ({steps} steps, wall {wall:.2f} "
+        f"s; limit 0); no sync outside the explicit window; launches "
+        f"{launches} (expected {expect}) ({card})")
+    if failed or stats["new_compiles_since_arm"] != 0 or \
+            launches != expect:
+        raise AssertionError(f"13c: failures {failed}, new "
+                             f"{stats['new_compiles_since_arm']}, launches "
+                             f"{launches}")
+    x = torch.ones(4, device=executor.device)
+    try:
+        with sanitizers.transfer_guard_ctx(True, executor.device):
+            x.sum().item()
+    except RuntimeError as e:
+        bite = str(e).splitlines()[0]
+    else:
+        raise AssertionError("13c: .item() inside the guard did not raise")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("13c: the guard left the sync debug mode set")
+    log(f"[profile] 13c: a deliberate .item() inside the guard raised "
+        f"({bite!r}); the mode restored")
+    out = {"armed": armed, "steps": steps, "wall_s": wall,
+           "launches": launches, "roots": sorted(
+               sanitizers.named_jit_roots(engine)), "bite": bite}
+    del engine
+    out["sync_census"] = sync_census(executor, pcfg, order, card)
+    gc.collect()
+    torch.cuda.empty_cache()      # or the caching allocator hides growth
+    engine = eng.AveryEngine(
+        lut=executor.lut, executor=executor, batching="inflight",
+        max_batch=INFLIGHT_SLOTS, kv_pages=2, wallclock=time.perf_counter,
+        profile=eng.StageProfiler(time.perf_counter, device=device))
+
+    def submit(i):
+        p, q, it = order[i % len(order)]
+        return engine.submit_packet(p, (q + 10 + i) % V, it,
+                                    time_s=float(i),
+                                    session=engine.session(f"uav-{i}"))
+
+    futs = [submit(0)]
+    engine.drain()
+    warm, pages0 = (engine.stats[k] for k in ("compile_events",
+                                              "kv_pages_total"))
+    futs += [submit(i) for i in range(1, POOL_GROWTH_REQUESTS)]
+    engine.drain()
+    stats = engine.stats
+    compiles = [e["data"] for e in engine.flight.snapshot()
+                if e["kind"] == "compile"]
+    log(f"[profile] 13c pool growth (kv_pages=2, {POOL_GROWTH_REQUESTS} "
+        f"distinct prefixes): pages {pages0} -> {stats['kv_pages_total']}, "
+        f"compile events {warm} -> {stats['compile_events']} "
+        f"({stats['compile_wall_s'] * 1e3:.2f} ms of calls), flight "
+        f"recorder's compile entries "
+        f"{[(c['stage'], c['root'], c['delta']) for c in compiles]} "
+        f"({card})")
+    if not (stats["kv_pages_total"] > pages0
+            and stats["compile_events"] > warm and compiles
+            and all(c["delta"] >= 1 and c["root"] for c in compiles)
+            and all(f.result().failure is None for f in futs)):
+        raise AssertionError("13c: pool growth not visible as compile "
+                             "events")
+    out["pool_growth"] = {"pages": [pages0, stats["kv_pages_total"]],
+                          "compile_events": [warm, stats["compile_events"]],
+                          "flight_compiles": compiles}
+    return out
+
+
+# the sites whose host syncs the explicit window admits: the executor's
+# (and the draft model's) boundary copies and the profiler's wait, as
+# (file under src/repro_torch, function)
+WINDOW_SITES = {("core/streams.py", "host"),
+                ("core/streams.py", "to_device"),
+                ("engine/profiler.py", "_block")}
+
+
+def sync_census(executor, pcfg, order, card):
+    """13c, every host sync on the guarded pump path: 12b's packets through
+    a profiled engine, and twice (the second time under new queries, so
+    prefix misses) through 12c's ``speculative=3`` engine, one slot each:
+    the rows queued behind it are admitted (prefill and draft prefill) and
+    decoded (verify steps, drafting rounds) inside guarded pumps. The guard
+    is in "warn" mode and the explicit window switched off; each warning is
+    attributed to the innermost frame under ``src/repro_torch``. Every site
+    must be one the window admits (WINDOW_SITES), which shows that the
+    guard's "error" mode would raise on none of them. In the speculative
+    run, counters from 0 after the submissions (each of which makes one
+    unguarded step): verify plus paged launches must be the guarded steps
+    x layers, contiguous launches the draft steps x layers. (The recompile
+    budget is not armed here: the draft prefix rows are not pre-sized as
+    the page pool is.)"""
+    import traceback
+    import warnings
+    from repro_torch import engine as eng
+    from repro_torch.core import streams
+    from repro_torch.engine import engine as engmod
+    from repro_torch.engine import profiler as profmod
+    root = os.path.join(REPO, "src", "repro_torch") + os.sep
+    L, V = pcfg.llm.num_layers, pcfg.llm.vocab_size
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root)]
+        f = mine[-1]
+        caller = mine[-2].name if len(mine) > 1 else "?"
+        key = (os.path.relpath(f.filename, root).replace(os.sep, "/"),
+               f.name, caller)
+        sites[key] = sites.get(key, 0) + 1
+
+    def warn_guard(enabled=True, device="cuda"):
+        if not enabled or not streams.on_card(device):
+            return streams.NULL_CTX
+        return streams.SyncDebugMode("warn")
+
+    def no_window(device):
+        return streams.NULL_CTX
+
+    runs = {"profiled": (dict(executor=executor, profile=True,
+                              wallclock=time.perf_counter), (0,)),
+            "speculative=3": (dict(executor=spec_executor(executor),
+                                   speculative=3), (0, 1))}
+    steps, spec = {}, {}
+    with contextlib.ExitStack() as patches, warnings.catch_warnings():
+        for mod, name, fn in ((engmod, "transfer_guard_ctx", warn_guard),
+                              (streams, "sync_window", no_window),
+                              (profmod, "sync_window", no_window)):
+            patches.enter_context(mock.patch.object(mod, name, fn))
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        for label, (kw, shifts) in runs.items():
+            engine = eng.AveryEngine(lut=executor.lut, batching="inflight",
+                                     max_batch=1, debug_transfers=True,
+                                     **kw)
+            futs = [engine.submit_packet(p, (q + k) % V, it,
+                                         time_s=0.4 * i)
+                    for k in shifts for i, (p, q, it) in enumerate(order)]
+            dec, = engine._inflight.values()
+            steps0 = engine.stats["inflight_steps"]
+            drafted0 = dec.draft.n_steps if dec.draft is not None else 0
+            _reset_launch_counts()
+            for _ in range(SANITIZER_PUMPS):
+                engine.pump()
+            engine.drain()
+            launches = _launch_counts()
+            steps[label] = engine.stats["inflight_steps"] - steps0
+            if dec.has_work or any(f.result().failure for f in futs):
+                raise AssertionError(f"13c sync census: {label} failed or "
+                                     "left rows after the drain")
+            if "speculative" not in kw:
+                continue
+            if dec.draft is None:
+                raise AssertionError("13c speculative: no draft was built")
+            draft_steps = dec.draft.n_steps - drafted0
+            spec = {"requests": len(futs), "steps": steps[label],
+                    "draft_steps": draft_steps, "launches": launches}
+            if launches != _only(
+                    paged_verify_attention=launches["paged_verify_attention"],
+                    paged_decode_attention=launches["paged_decode_attention"],
+                    decode_attention=draft_steps * L) or \
+                    launches["paged_verify_attention"] \
+                    + launches["paged_decode_attention"] \
+                    != steps[label] * L or \
+                    not launches["paged_verify_attention"]:
+                raise AssertionError(f"13c speculative: {spec}")
+    log(f"[profile] 13c sync census, the window off, {steps} guarded "
+        f"steps on one slot: " + "; ".join(
+            f"{n} x {path}:{fn} (from {caller})"
+            for (path, fn, caller), n in sorted(sites.items()))
+        + f" ({card})")
+    log(f"[profile] 13c speculative=3 in the census: {spec['requests']} "
+        f"requests, {spec['steps']} steps and {spec['draft_steps']} draft "
+        f"steps in guarded pumps; launches {spec['launches']} (verify + "
+        f"paged = steps x {L}, contiguous = draft steps x {L}) ({card})")
+    stray = sorted(k for k in sites if k[:2] not in WINDOW_SITES)
+    if stray or not sites:
+        raise AssertionError(f"13c: host syncs outside the window's sites: "
+                             f"{stray}")
+    return {"steps": steps, "spec": spec, "sites": [
+        {"file": k[0], "function": k[1], "caller": k[2], "count": n}
+        for k, n in sorted(sites.items())]}
+
+
+def _run_module(module, args):
+    """``python -m module args`` (through RUN_MODULE, which prints the
+    kernel launch counters after it): (exit code, output lines,
+    launches)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_MODULE, module, *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        log(f"[profile]   {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"13d: python -m {module} {' '.join(args)} "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return wall, lines[:-1], json.loads(lines[-1])
+
+
+def lisa_mini_phase(seed, dev, card):
+    """13d: on a lisa-mini executor on the card (floodseg scenes are
+    32 px, as the reference defines these paths): ``run_mission`` in
+    executor mode (the fidelity oracle through ``cloud_insight``), AVERY
+    against static High Accuracy over ``paper_trace(seed)`` for the paper's
+    20 minutes; ``run_fleet`` with FLEET_UAVS UAVs; then the serving
+    launcher in flight and the sanitizers' smoke, each as ``python -m``
+    runs it. Each prints its kernel launches: the missions and the fleet
+    launch none (the oracle's ``llm_reason`` is a prefill, with flash off),
+    the launcher's paged launches are its decode steps x layers."""
+    from repro_torch import engine as eng
+    from repro_torch.configs.lisa_mini import CONFIG as mini
+    from repro_torch.core import profile as prof
+    from repro_torch.core.streams import DualStreamExecutor
+    from repro_torch.network import paper_trace
+    from repro_torch.runtime.fleet import run_fleet
+    from repro_torch.runtime.mission import MissionSpec, run_mission
+    params, bns, lut = prof.random_init_system(mini, seed=seed, device=dev)
+    ex = DualStreamExecutor(pcfg=mini, params=params, bottlenecks=bns,
+                            lut=lut, max_new_tokens=3, device=dev)
+    out = {}
+    _reset_launch_counts()
+    for name, policy in (("avery", eng.AdaptivePolicy()),
+                         ("static High Accuracy",
+                          eng.StaticTierPolicy("High Accuracy"))):
+        t0 = time.perf_counter()
+        m = run_mission(lut, paper_trace(seed),
+                        MissionSpec(policy=policy, seed=seed), executor=ex)
+        wall = time.perf_counter() - t0
+        ious = [f.iou for f in m.frames]
+        log(f"[profile] 13d mission {name}: {len(m.frames)} frames over "
+            f"{m.spec.duration_s:.0f} s, {m.mean_pps:.4f} pps, mean IoU "
+            f"{m.mean_iou:.4f}, infeasible {m.infeasible_s:.0f} s, tiers "
+            f"{sorted(set(f.tier for f in m.frames))}; host wall "
+            f"{wall:.2f} s ({card})")
+        if not m.frames or not all(0.0 <= x <= 1.0 for x in ious):
+            raise AssertionError(f"13d: mission {name} served no frame or "
+                                 f"an IoU outside [0, 1]")
+        out[name] = {"frames": len(m.frames), "pps": m.mean_pps,
+                     "iou": m.mean_iou, "infeasible_s": m.infeasible_s,
+                     "wall_s": wall}
+    log(f"[profile] 13d: AVERY {out['avery']['pps']:.4f} pps against "
+        f"static High Accuracy {out['static High Accuracy']['pps']:.4f} "
+        f"(the paper's claim: higher)")
+    if not out["avery"]["pps"] > out["static High Accuracy"]["pps"]:
+        raise AssertionError("13d: AVERY does not out-deliver static High "
+                             "Accuracy")
+    t0 = time.perf_counter()
+    fleet = run_fleet(lut, paper_trace(seed), FLEET_UAVS,
+                      MissionSpec(seed=seed), executor=ex)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    log(f"[profile] 13d fleet of {FLEET_UAVS}: {fleet.aggregate_pps:.4f} "
+        f"pps in all, mean IoU {fleet.mean_iou:.4f}, infeasible share "
+        f"{fleet.infeasible_frac:.4f}, {fleet.stats['submitted']} frames "
+        f"submitted; host wall {wall:.2f} s ({card}); the missions' and "
+        f"fleet's launches {launches} (expected none)")
+    if not all(l.frames for l in fleet.logs) or launches != _only():
+        raise AssertionError(f"13d: fleet logs or launches {launches}")
+    out["fleet"] = {"aggregate_pps": fleet.aggregate_pps,
+                    "mean_iou": fleet.mean_iou,
+                    "infeasible_frac": fleet.infeasible_frac,
+                    "wall_s": wall, "launches": launches}
+    wall, lines, launched = _run_module("repro_torch.launch.serve",
+                                        SERVE_ARGS)
+    served = [ln for ln in lines if " in-flight decode steps" in ln]
+    steps = int(served[0].split(" in-flight decode steps")[0]
+                .rsplit(" ", 1)[1]) if served else 0
+    expect = {"decode_attention": 0,
+              "paged_decode_attention": steps * mini.llm.num_layers,
+              "paged_verify_attention": 0}
+    log(f"[profile] 13d python -m repro_torch.launch.serve "
+        f"{' '.join(SERVE_ARGS)}: exit 0 in {wall:.1f} s ({card}), "
+        f"launches {launched} (expected {expect})")
+    if not steps or launched != expect:
+        raise AssertionError(f"13d: serve launches {launched}, expected "
+                             f"{expect}")
+    out["serve"] = {"wall_s": wall, "steps": steps, "launches": launched}
+    wall, lines, launched = _run_module("repro_torch.analysis.sanitizers",
+                                        ("--smoke",))
+    log(f"[profile] 13d python -m repro_torch.analysis.sanitizers --smoke: "
+        f"exit 0 in {wall:.1f} s ({card}), launches {launched}")
+    if not any("smoke ok on cuda" in ln for ln in lines) or \
+            not launched["paged_decode_attention"] or \
+            launched["decode_attention"] or \
+            launched["paged_verify_attention"]:
+        raise AssertionError(f"13d: sanitizer smoke {lines}, {launched}")
+    out["sanitizers_smoke"] = {"wall_s": wall, "launches": launched}
+    return out
+
+
+def profile_overhead(executor, order, device, card):
+    """The profiler's cost a decode step: a profiled and a bare engine on
+    one executor (PROFILE_TOKENS new tokens, the serving weights), four
+    live rows each, PROFILE_TURNS turns in which each makes one warm
+    ``engine.pump()`` (in turns A B, B A), each timed on the host clock
+    after a synchronise. The cost is each turn's relative difference,
+    (profiled - bare) / bare: its median and quartiles, beside the
+    reference's 5 % budget. Fails only when the lower quartile exceeds
+    it. Beside it, the profiler's own host time in the profiled pumps: each
+    profiled call's wall minus the wall of the stage it wraps (the in-call
+    difference, which host drift between calls does not move), summed a
+    pump."""
+    from repro_torch import engine as eng
+    from repro_torch.core.streams import DualStreamExecutor
+    tx = DualStreamExecutor(pcfg=executor.pcfg, params=executor.params,
+                            bottlenecks=executor.bottlenecks,
+                            lut=executor.lut, max_new_tokens=PROFILE_TOKENS,
+                            flash_decode=True, device=executor.device)
+    rows = [o for o in order if o[0].kind == "context"][:INFLIGHT_SLOTS]
+    rows += order[:INFLIGHT_SLOTS - len(rows)]
+    engines = {}
+    for label in ("profiled", "bare"):
+        kw = ({"profile": eng.StageProfiler(time.perf_counter,
+                                            device=device),
+               "wallclock": time.perf_counter}
+              if label == "profiled" else {})
+        e = eng.AveryEngine(lut=tx.lut, executor=tx, batching="inflight",
+                            max_batch=INFLIGHT_SLOTS, **kw)
+        for p, q, it in rows:
+            e.submit_packet(p, q, it, time_s=0.0)
+        e.pump()
+        engines[label] = e
+    profiler = engines["profiled"].profiler
+    real_call, in_call = profiler._call, []
+
+    def timed_call(stage, fn, *rest, **kw):
+        inner = []
+
+        def stage_fn(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            inner.append(time.perf_counter() - t0)
+            return out
+        t0 = time.perf_counter()
+        out = real_call(stage, stage_fn, *rest, **kw)
+        in_call[-1] += (time.perf_counter() - t0 - inner[0]) * 1e3
+        return out
+
+    profiler._call = timed_call
+    walls = {"profiled": [], "bare": []}
+    try:
+        for turn in range(PROFILE_TURNS):
+            for label in (("profiled", "bare") if turn % 2 == 0
+                          else ("bare", "profiled")):
+                if label == "profiled":
+                    in_call.append(0.0)
+                t0 = _sync_s()
+                engines[label].pump()
+                walls[label].append((_sync_s() - t0) * 1e3)
+    finally:
+        del profiler._call
+    for label, e in engines.items():
+        dec, = e._inflight.values()
+        if len(dec.active) != INFLIGHT_SLOTS:
+            raise AssertionError(f"overhead: the {label} engine's rows "
+                                 f"finished before the last turn")
+        e.drain()
+    rel = [(p - b) / b for p, b in zip(walls["profiled"], walls["bare"])]
+    q1, med, q3 = (float(np.percentile(rel, q)) for q in (25, 50, 75))
+    prof_ms, bare_ms = (float(np.median(walls[k]))
+                        for k in ("profiled", "bare"))
+    c1, cmed, c3 = (float(np.percentile(in_call, q)) for q in (25, 50, 75))
+    log(f"[profile] overhead: {PROFILE_TURNS} turns of one profiled and "
+        f"one bare engine.pump() on {INFLIGHT_SLOTS} live rows: profiled "
+        f"median {prof_ms:.3f} ms, bare {bare_ms:.3f} ms; the profiler's "
+        f"cost a step (a turn's (profiled - bare) / bare) median "
+        f"{med * 100:+.2f} %, quartiles {q1 * 100:+.2f} to {q3 * 100:+.2f} "
+        f"% (budget {PROFILE_OVERHEAD_BUDGET * 100:.0f} %, the reference's;"
+        f" fails when the lower quartile exceeds it); the profiler's own "
+        f"host time a profiled pump (in-call) median {cmed:.4f} ms, "
+        f"quartiles {c1:.4f} to {c3:.4f} ms, {cmed / bare_ms * 100:.3f} % "
+        f"of the bare step ({card})")
+    if q1 > PROFILE_OVERHEAD_BUDGET:
+        raise AssertionError(f"the profiler costs {q1 * 100:.2f} % a step "
+                             f"at its lower quartile, over the budget")
+    return {"profiled_ms": prof_ms, "bare_ms": bare_ms, "rel_median": med,
+            "rel_quartiles": [q1, q3], "in_call_ms": cmed,
+            "in_call_quartiles_ms": [c1, c3], "walls": walls,
+            "in_call": in_call}
+
+
+def profile_phase(executor, pcfg, seed, engine_report, order):
+    """Phase 13: the stage profiler, cost ledger and sanitizers on phase
+    12's executor and frames (13a in flight, 13b speculative, 13c the
+    sanitizers and pool growth), the profiler's overhead a step, then 13d
+    on a lisa-mini executor."""
+    from repro_torch.network import paper_trace
+    card = card_line()
+    device = card_device(card)
+    log(f"[profile] cloud device: {device} ({card})")
+    frames = engine_frames(pcfg, seed)
+    out = {"device": dataclasses.asdict(device)}
+    out["inflight"] = profile_inflight(executor, pcfg, frames,
+                                       paper_trace(seed),
+                                       engine_report["inflight"], device,
+                                       card)
+    out["spec"] = profile_spec(executor, pcfg, order,
+                               engine_report["spec"], device, card)
+    out["sanitizers"] = sanitize_phase(executor, pcfg, order, device, card)
+    out["overhead"] = profile_overhead(executor, order, device, card)
+    out["lisa_mini"] = lisa_mini_phase(seed, executor.device, card)
     return out
 
 
@@ -4028,9 +4785,16 @@ def main() -> int:
         report["inflight"]["launches"]["paged_decode_attention"])
 
     t0 = time.perf_counter()
-    report["engine"] = engine_phase(executor, pcfg, args.seed)
+    report["engine"], order = engine_phase(executor, pcfg, args.seed)
     report["engine_s"] = time.perf_counter() - t0
     log(f"[engine] phase 12 in {report['engine_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    report["profiler"] = profile_phase(executor, pcfg, args.seed,
+                                       report["engine"], order)
+    report["profiler_s"] = time.perf_counter() - t0
+    log(f"[profile] phase 13 in {report['profiler_s']:.1f} s")
+    del order
 
     # phase 11: free LISA-7B, then the zoo's Mamba path
     del executor, params, bns, reqs, results, sched, frames, inflight_results

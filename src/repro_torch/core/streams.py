@@ -20,13 +20,21 @@ chunk of tokens per slot in one pass for speculative decoding
 (``vlm.llm_verify_step_paged``, the paged verify CUDA kernel). The pool
 and the SAM features stay on the device; logits, <SEG> states and masks
 come back as numpy.
+
+Every copy between host and card goes through ``to_device`` / ``host``,
+each inside the explicit window (:func:`sync_window`): under
+``AveryEngine(debug_transfers=True)``, whose guard
+(``analysis.sanitizers.transfer_guard_ctx``) sets the sync debug mode to
+"error", these boundary copies stay allowed and any other host-card
+synchronisation raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,12 +72,55 @@ def _pool_write(dst: Dict, src: Dict, page_ids: torch.Tensor) -> Dict:
     return dst
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> numpy. numpy has no bfloat16, so bf16 comes back
-    as float32 (exact; the cloud side casts it back to bf16 losslessly)."""
+def on_card(device: Any) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+class SyncDebugMode:
+    """``torch.cuda.set_sync_debug_mode(mode)`` for a region; the mode
+    found on entry is restored on every exit."""
+
+    def __init__(self, mode: Any):
+        self.mode = mode
+
+    def __enter__(self) -> None:
+        self.prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(self.mode)
+
+    def __exit__(self, *exc: Any) -> bool:
+        torch.cuda.set_sync_debug_mode(self.prev)
+        return False
+
+
+NULL_CTX = contextlib.nullcontext()
+
+
+def sync_window(device: Any):
+    """The explicit window: inside a guarded region, permit the
+    synchronisation of an explicit copy or wait on ``device``. A no-op
+    off the card and outside a guard."""
+    if not on_card(device) or torch.cuda.get_sync_debug_mode() == 0:
+        return NULL_CTX
+    return SyncDebugMode(0)
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """Device tensor -> numpy, an explicit copy. numpy has no bfloat16, so
+    bf16 comes back as float32 (exact; the cloud side casts it back to bf16
+    losslessly)."""
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.detach().cpu().numpy()
+    with sync_window(t.device):
+        return t.detach().cpu().numpy()
+
+
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """numpy (or array-like) -> a tensor on ``device``, an explicit copy;
+    a tensor already there is returned as it is."""
+    with sync_window(device):
+        if isinstance(arr, torch.Tensor):
+            return arr.to(device)
+        return torch.as_tensor(np.asarray(arr)).to(device)
 
 
 @dataclass
@@ -99,7 +150,7 @@ class DualStreamExecutor:
             pcfg, llm=pcfg.llm.replace(use_flash_decode=self.flash_decode))
 
     def _dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr)).to(self.device)
+        return to_device(arr, self.device)
 
     @property
     def num_compiled_stages(self) -> int:
@@ -122,7 +173,7 @@ class DualStreamExecutor:
     @torch.inference_mode()
     def edge_context(self, images, seq_id: int, now: float
                      ) -> Tuple[pk.Packet, np.ndarray]:
-        ctx = _host(vlm.clip_encode(self.params, self.pcfg,
+        ctx = host(vlm.clip_encode(self.params, self.pcfg,
                                     self._dev(images)))
         return pk.make_context_packet(seq_id, now, ctx), ctx
 
@@ -135,10 +186,19 @@ class DualStreamExecutor:
         a = vlm.sam_head(self.params, self.pcfg, img)
         codes, scales = bn.encode(self.bottlenecks[tier.name], a)
         if ctx is None:
-            ctx = _host(vlm.clip_encode(self.params, self.pcfg, img))
-        return pk.make_insight_packet(seq_id, now, tier.name, _host(codes),
-                                      _host(scales),
+            ctx = host(vlm.clip_encode(self.params, self.pcfg, img))
+        return pk.make_insight_packet(seq_id, now, tier.name, host(codes),
+                                      host(scales),
                                       clip_feats=np.asarray(ctx))
+
+    # ---- cloud side (single packet, thin wrappers of the batch stages) ----
+
+    def cloud_context(self, packet: pk.Packet, query) -> np.ndarray:
+        return self.cloud_context_batch([packet], [np.asarray(query)])[0]
+
+    def cloud_insight(self, packet: pk.Packet, query
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        return self.cloud_insight_batch([packet], [np.asarray(query)])[0]
 
     # ---- cloud side (batched) ----
 
@@ -185,7 +245,7 @@ class DualStreamExecutor:
         (ctx,), query, counts, _ = self._stack(packets, queries, ["ctx"])
         logits, _ = vlm.llm_reason(self.params, self.pcfg, self._dev(ctx),
                                    self._dev(query))
-        return [r[0] for r in self._split([_host(logits)], counts)]
+        return [r[0] for r in self._split([host(logits)], counts)]
 
     @torch.inference_mode()
     def cloud_insight_batch(self, packets: Sequence[pk.Packet],
@@ -200,7 +260,7 @@ class DualStreamExecutor:
         logits, seg = vlm.llm_reason(self.params, self.pcfg, self._dev(ctx),
                                      self._dev(query))
         mask = vlm.mask_decode(self.params, self.pcfg, feats, seg)
-        return self._split([_host(mask), _host(logits)], counts)
+        return self._split([host(mask), host(logits)], counts)
 
     @torch.inference_mode()
     def cloud_generate_batch(self, packets: Sequence[pk.Packet],
@@ -215,7 +275,7 @@ class DualStreamExecutor:
             (ctx,), query, counts, _ = self._stack(packets, queries, ["ctx"])
             tokens, logits, _ = vlm.llm_generate(
                 self.params, gcfg, self._dev(ctx), self._dev(query), T)
-            return self._split([_host(logits), _host(tokens)], counts)
+            return self._split([host(logits), host(tokens)], counts)
         tier = self._same_tier(packets)
         (codes, scales, ctx), query, counts, _ = self._stack(
             packets, queries, ["codes", "scales", "clip"])
@@ -223,7 +283,7 @@ class DualStreamExecutor:
         tokens, logits, seg = vlm.llm_generate(
             self.params, gcfg, self._dev(ctx), self._dev(query), T)
         mask = vlm.mask_decode(self.params, self.pcfg, feats, seg)
-        return self._split([_host(mask), _host(logits), _host(tokens)],
+        return self._split([host(mask), host(logits), host(tokens)],
                            counts)
 
     # ---- cloud side (in-flight / paged continuous batching) ----
@@ -254,7 +314,7 @@ class DualStreamExecutor:
             self.params, self.pcfg, self._dev(ctx), self._dev(query),
             self.page_size)
         # one request per pool row: drop the unit batch axis
-        return _host(logits0), {"groups": [
+        return host(logits0), {"groups": [
             {name: a[:, 0] for name, a in g.items()}
             for g in paged["groups"]]}
 
@@ -262,9 +322,8 @@ class DualStreamExecutor:
     def pool_write(self, pool: Dict, paged_kv: Dict, page_ids) -> Dict:
         """Write a prefilled prefix's pages into the shared page pool at
         ``page_ids``, in place; returns the pool."""
-        ids = torch.as_tensor(np.asarray(page_ids, np.int64),
-                              device=self.device)
-        return _pool_write(pool, paged_kv, ids)
+        return _pool_write(pool, paged_kv,
+                           self._dev(np.asarray(page_ids, np.int64)))
 
     @torch.inference_mode()
     def cloud_decode_rows(self, pool: Dict, page_table, positions, tokens,
@@ -282,7 +341,7 @@ class DualStreamExecutor:
                for a in (page_table, positions, tokens, pos, write_slot)]
         logits, seg, pool = vlm.llm_decode_step_paged(
             self.params, self._gen_pcfg, pool, *i32)
-        return _host(logits), _host(seg), pool
+        return host(logits), host(seg), pool
 
     @torch.inference_mode()
     def cloud_verify_rows(self, pool: Dict, page_table, positions, tokens,
@@ -300,13 +359,13 @@ class DualStreamExecutor:
                          chunk_len)]
         logits, seg, pool = vlm.llm_verify_step_paged(
             self.params, self._gen_pcfg, pool, *i32)
-        return _host(logits), _host(seg), pool
+        return host(logits), host(seg), pool
 
     @torch.inference_mode()
     def cloud_mask(self, feats: torch.Tensor, seg) -> np.ndarray:
         """<SEG>-conditioned mask decode from stored SAM feats (the final
         in-flight stage for Insight requests)."""
-        return _host(vlm.mask_decode(self.params, self.pcfg, feats,
+        return host(vlm.mask_decode(self.params, self.pcfg, feats,
                                      self._dev(seg)))
 
     @staticmethod

@@ -354,10 +354,14 @@ def llm_verify_step_paged(params: dict, pcfg: LISAPipelineConfig,
     ws = write_slot.to(dev, torch.int32)[:, None] + offs         # (B, C)
     rows = torch.arange(B, device=dev)[:, None].expand(B, C)
     # only the real entries inside the row record a position (the
-    # reference scatters the rest out of bounds, where JAX drops them)
+    # reference scatters the rest out of bounds, where JAX drops them):
+    # they go to a spare column past the row, sliced off after. A scatter,
+    # not a boolean-mask selection, whose count would cost a host sync
     keep = valid & (ws < n_slots)
-    pos_arr = positions.clone()
-    pos_arr[rows[keep], ws[keep].long()] = pos_c[keep]
+    pos_arr = torch.cat([positions, positions.new_full((B, 1), -1)], dim=1)
+    pos_arr.scatter_(1, torch.where(keep, ws, n_slots).long(),
+                     pos_c.to(positions.dtype))
+    pos_arr = pos_arr[:, :n_slots]
     mask = cache_mask(pos_arr[:, None, :], pos_c[:, :, None],
                       llm.sliding_window)                        # (B, C, W)
     ws_in = ws.clamp(max=n_slots - 1).long()
@@ -413,3 +417,21 @@ def mask_decode(params: dict, pcfg: LISAPipelineConfig,
     s = int(round(pp ** 0.5))
     pix = pix.reshape(B, g, g, s, s).permute(0, 1, 3, 2, 4)
     return pix.reshape(B, g * s, g * s)
+
+
+# ---------------------------------------------------------------------------
+# evaluation (the forward half; the losses come with training)
+# ---------------------------------------------------------------------------
+
+
+def iou_metrics(mask_logits: torch.Tensor, gt: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """gIoU (mean per-image IoU), cIoU (cumulative), and their mean —
+    the paper's 'Average IoU' (Table 3 note)."""
+    pred = (mask_logits > 0).to(torch.float32)
+    gt = gt.to(torch.float32)
+    inter = torch.sum(pred * gt, dim=(1, 2))
+    union = torch.sum(torch.maximum(pred, gt), dim=(1, 2))
+    giou = torch.mean(inter / (union + 1e-6))
+    ciou = torch.sum(inter) / (torch.sum(union) + 1e-6)
+    return {"giou": giou, "ciou": ciou, "avg_iou": 0.5 * (giou + ciou)}

@@ -14,10 +14,10 @@ request/response front door.
   observability — Tracer (per-request spans -> Perfetto JSON),
                 MetricsRegistry (counters/gauges/log-bucket histograms),
                 FlightRecorder (bounded ring, crash dumps)
+  profiler    — StageProfiler (device-level stage timing + Perfetto
+                device track), CompileObservatory, CloudCostModel
+                (per-request FLOPs/bytes/joules ledger)
   engine      — AveryEngine + OperatorSession
-
-The stage profiler (``StageProfiler``, ``CompileObservatory``,
-``CloudCostModel``) is not ported yet (ROADMAP.md, Queue 1 item 4b).
 """
 from repro_torch.engine.api import (Request, RequestFuture, Response,
                                     StreamEvent)
@@ -32,6 +32,8 @@ from repro_torch.engine.observability import (Counter, FlightRecorder,
                                               validate_chrome_trace,
                                               validate_trace,
                                               validate_traces)
+from repro_torch.engine.profiler import (CloudCostModel, CompileObservatory,
+                                         StageProfiler)
 from repro_torch.engine.policy import (AdaptivePolicy, BestEffortPolicy,
                                        ControlPolicy, RetryPolicy,
                                        StaticTierPolicy, TierDecision,
@@ -57,4 +59,5 @@ __all__ = [
     "Tracer", "Span", "RequestTrace", "MetricsRegistry",
     "Counter", "Gauge", "Histogram", "FlightRecorder",
     "validate_trace", "validate_traces", "validate_chrome_trace",
+    "StageProfiler", "CompileObservatory", "CloudCostModel",
 ]

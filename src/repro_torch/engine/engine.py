@@ -24,19 +24,21 @@ requirements, prompt history, an optional per-UAV transport/policy
 override, and the fidelity oracle for profiled missions.
 
 The engine is host code: it touches the device only through the executor.
-Three knobs of the reference are not ported yet and raise
-``NotImplementedError``: ``mesh=`` (ROADMAP.md Queue 1 item 5),
-``profile=`` (item 4b) and ``debug_recompiles=`` / ``debug_transfers=``
-(item 7).
+``profile=`` adds the stage profiler and cost ledger (``engine.profiler``);
+``debug_recompiles=`` / ``debug_transfers=`` the runtime sanitizers
+(``analysis.sanitizers``). One knob of the reference is not ported yet and
+raises ``NotImplementedError``: ``mesh=`` (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.analysis.sanitizers import (RecompileSanitizer,
+                                             executor_device,
+                                             transfer_guard_ctx)
 from repro_torch.configs import lisa_nano
 from repro_torch.configs.lisa7b import CONFIG as LISA7B
 from repro_torch.core import packets as pk
@@ -51,6 +53,7 @@ from repro_torch.engine.observability import (FlightRecorder,
                                               MetricsRegistry, Tracer)
 from repro_torch.engine.policy import (AdaptivePolicy, ControlPolicy,
                                        RetryPolicy, TierDecision)
+from repro_torch.engine.profiler import CloudCostModel, StageProfiler
 from repro_torch.engine.scheduler import (QOS_CLASSES, FifoScheduler,
                                           qos_class)
 from repro_torch.engine.speculative import SpecStats, SpeculativeConfig
@@ -178,20 +181,46 @@ class AveryEngine:
         call; on the card each call ends in a copy of its logits to the
         host, so the time includes the step's device work.
 
-        Not ported yet, each raising ``NotImplementedError``: ``mesh``
-        (tensor-parallel serving, ROADMAP.md Queue 1 item 5), a truthy
-        ``profile`` (the stage profiler, item 4b), ``debug_recompiles``
-        and ``debug_transfers`` (the runtime sanitizers, item 7)."""
+        ``debug_recompiles`` attaches a
+        :class:`repro_torch.analysis.sanitizers.RecompileSanitizer`: call
+        ``arm_sanitizers()`` after warmup and every later pump/drain
+        raises ``RecompileBudgetError`` if steady state loaded a kernel
+        library or made a new device allocation. ``debug_transfers``
+        wraps each in-flight decode pump/drain in the transfer guard
+        (``torch.cuda.set_sync_debug_mode("error")`` on a CUDA executor):
+        any host-card synchronisation on the decode path outside the
+        executor's explicit boundary copies raises.
+
+        ``profile`` (``True`` or a configured
+        :class:`~repro_torch.engine.profiler.StageProfiler`) adds
+        device-level observability: every executor stage call is timed to
+        the end of its device work into per-(stage, tier, bucket)
+        histograms, compile events are recorded per census root (the
+        compile observatory), per-request FLOPs/HBM-bytes/joules ride the
+        responses (the cost ledger, on the profiler's cloud device, by
+        default the H100's), and ``dump_trace`` gains a device track
+        (pid 3). Off by default; ``profile=True`` requires ``wallclock``.
+
+        Not ported yet, raising ``NotImplementedError``: ``mesh``
+        (tensor-parallel serving, ROADMAP.md Queue 1 item 5)."""
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching must be one of {BATCHING_MODES}")
-        for knob, value, item in (("mesh=", mesh is not None, 5),
-                                  ("profile=", bool(profile), "4b"),
-                                  ("debug_recompiles=", debug_recompiles, 7),
-                                  ("debug_transfers=", debug_transfers, 7)):
-            if value:
-                raise NotImplementedError(
-                    f"AveryEngine({knob}...) {_NOT_PORTED.format(item)}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"AveryEngine(mesh=...) {_NOT_PORTED.format(5)}")
         self.lut = lut
+        # device-level profiling: resolve the knob, then wrap the executor
+        # so every stage call is timed (the wrap sits outermost, fault
+        # injectors included)
+        self.profiler = self._resolve_profiler(profile, wallclock)
+        self.cost_model = None
+        if self.profiler is not None:
+            pcfg = getattr(executor, "pcfg", None)
+            if pcfg is not None:
+                self.cost_model = CloudCostModel(pcfg,
+                                                 device=self.profiler.device)
+            if executor is not None:
+                executor = self.profiler.wrap(executor)
         self.executor = executor
         self.transport: Transport = transport or LoopbackTransport()
         self.policy: ControlPolicy = policy or AdaptivePolicy()
@@ -230,6 +259,10 @@ class AveryEngine:
         self.scheduler_proto = scheduler if scheduler is not None \
             else FifoScheduler()
         self.debug_invariants = debug_invariants
+        self.debug_transfers = debug_transfers
+        self._recompile_sanitizer = None
+        if debug_recompiles:
+            self._recompile_sanitizer = RecompileSanitizer(self)
         # mission-clock watermark: the latest time the engine has seen
         # (submissions, deliveries, retry backoffs). Deadline sweeps
         # cancel in-flight requests the watermark has passed.
@@ -255,6 +288,23 @@ class AveryEngine:
         bind = getattr(self.scheduler_proto, "bind_metrics", None)
         if bind is not None:
             bind(self.metrics)
+        if self.profiler is not None:
+            # bind the mission clock, census and flight recorder now that
+            # they all exist
+            self.profiler.attach(self)
+
+    @staticmethod
+    def _resolve_profiler(profile: Any, wallclock):
+        if isinstance(profile, StageProfiler):
+            return profile
+        if not profile:
+            return None
+        if wallclock is None:
+            raise ValueError(
+                "profile=True needs wallclock= (the profiler measures "
+                "wall seconds; engine code never reads the wall clock "
+                "itself: pass time.perf_counter)")
+        return StageProfiler(wallclock)
 
     # ---- counters (registry-backed; n_* is the legacy read surface) ----
 
@@ -695,7 +745,8 @@ class AveryEngine:
                     scheduler=self.scheduler_proto.spawn(),
                     clock=lambda: self._now,
                     tracer=self.tracer, metrics=self.metrics,
-                    wallclock=self._wallclock)
+                    wallclock=self._wallclock,
+                    profiler=self.profiler, cost=self.cost_model)
             dec.submit(rid, fut.request.intent, packet, query,
                        on_done=self._resolve_inflight,
                        operator_id=fut.request.operator_id,
@@ -778,6 +829,19 @@ class AveryEngine:
             fut, answer_logits=out["answer_logits"],
             mask_logits=out["mask_logits"], tokens=out["tokens"],
             batch_size=out["batch_size"])
+        flops = out.get("cloud_flops")
+        if flops is not None:
+            # the cost ledger (profiled engines only): analytic
+            # FLOPs/HBM-bytes accumulated per slot by the decoder, joules
+            # from the cloud device's power
+            resp.cloud_flops = flops
+            resp.cloud_hbm_bytes = out.get("cloud_hbm_bytes", 0.0)
+            if self.cost_model is not None:
+                resp.cloud_energy_j = self.cost_model.energy_j(flops)
+            if self.profiler is not None:
+                self.profiler.note_ledger(
+                    resp.cloud_flops, resp.cloud_hbm_bytes or 0.0,
+                    resp.cloud_energy_j or 0.0)
         resp.joined_step = out["joined_step"]
         resp.prefix_hit = out["prefix_hit"]
         resp.speculative = out.get("speculative")
@@ -832,6 +896,7 @@ class AveryEngine:
                 self.metrics.gauge(key).set(load[key])
         if self.debug_invariants:
             self._audit_pool()
+        self.check_sanitizers()
 
     def drain(self, release_operator: Optional[str] = None
               ) -> List[Response]:
@@ -875,26 +940,38 @@ class AveryEngine:
             self.release_prefixes(release_operator)
         if self.debug_invariants:
             self._audit_pool()
+        self.check_sanitizers()
         return out
 
-    # ---- runtime sanitizers (not ported yet: ROADMAP.md Queue 1 item 7) ----
+    # ---- runtime sanitizers (repro_torch.analysis.sanitizers) ----
 
     def _transfer_guard(self):
-        """The reference's device-transfer guard around the decode pump.
-        ``debug_transfers=True`` raises at construction, so this is a null
-        context."""
-        return contextlib.nullcontext()
+        """The transfer guard around the decode pump when
+        ``debug_transfers`` is on (on a CUDA executor); a no-op context
+        otherwise."""
+        return transfer_guard_ctx(self.debug_transfers,
+                                  executor_device(self.executor))
 
     def arm_sanitizers(self) -> Optional[int]:
-        """The reference snapshots its compile census here when
-        ``debug_recompiles`` attached a sanitizer; none can be attached
-        to the port's engine, so this returns None, as the reference's
-        does without one."""
-        return None
+        """Snapshot the census after warmup. From here on every pump/drain
+        asserts a zero budget (requires ``debug_recompiles=True``; returns
+        the census count at arm, or None when the sanitizer is off)."""
+        if self._recompile_sanitizer is None:
+            return None
+        return self._recompile_sanitizer.arm()
 
     def check_sanitizers(self, budget: int = 0) -> None:
-        """No-op: no recompile sanitizer can be attached (see
-        ``arm_sanitizers``); the engine calls none."""
+        """Raise ``RecompileBudgetError`` if steady state built or
+        allocated more than ``budget`` new items since
+        ``arm_sanitizers()``. No-op until armed. A trip dumps the flight
+        ring first so the failing run leaves a diagnosable artifact."""
+        san = self._recompile_sanitizer
+        if san is not None and san.armed_at is not None:
+            try:
+                san.check(budget)
+            except Exception:
+                self.flight.dump("recompile_budget")
+                raise
 
     def _audit_pool(self) -> None:
         """``PagePool.check_invariants`` with a flight dump on failure:
@@ -911,8 +988,21 @@ class AveryEngine:
     def dump_trace(self, path: str) -> str:
         """Write every recorded request trace as Chrome/Perfetto
         ``trace_event`` JSON (open at https://ui.perfetto.dev). Tracks:
-        one per operator (pid 1), one per decode slot (pid 2)."""
-        return self.tracer.dump(path)
+        one per operator (pid 1), one per decode slot (pid 2), and, with
+        profiling on, one per device stage (pid 3)."""
+        if self.profiler is None:
+            return self.tracer.dump(path)
+        import json
+        import os
+        doc = self.tracer.to_chrome()
+        doc["traceEvents"] = (doc["traceEvents"]
+                              + self.profiler.chrome_events())
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
 
     def dump_flight(self, path: str, reason: str = "manual"
                     ) -> Optional[str]:
@@ -1134,6 +1224,12 @@ class AveryEngine:
                 out.update(self._merged_spec_stats().as_dict())
         if self.executor is not None:
             out["compiled_stages"] = self.executor.num_compiled_stages
+        if self._recompile_sanitizer is not None:
+            out["compiled_traces"] = \
+                self._recompile_sanitizer.compile_count()
+            if self._recompile_sanitizer.armed_at is not None:
+                out["new_compiles_since_arm"] = \
+                    self._recompile_sanitizer.new_compiles()
         # observability summary: fixed keys read off the registry's
         # latency histograms — present whether or not the tracer is on, so
         # traced and untraced runs report the same surface. The full
@@ -1155,4 +1251,8 @@ class AveryEngine:
         out["decode_step_p99_s"] = decode.p99
         out["flight_events"] = len(self.flight)
         out["flight_dumps"] = self.flight.n_dumps
+        # device-level profiler summary: only present when profiling was
+        # requested, so the default stats surface is unchanged without it
+        if self.profiler is not None:
+            out.update(self.profiler.stats_block())
         return out

@@ -32,9 +32,12 @@ Output stays token-exact with the plain path: a draft is kept only where
 it equals the serving model's own greedy pick.
 
 With a ``MetricsRegistry`` and a ``wallclock`` the decoder times each
-decode and verify step into the registry's histograms. The stage profiler
-and the cost ledger are not ported yet (ROADMAP.md, Queue 1 item 4b):
-passing either raises.
+decode and verify step into the registry's histograms. With a
+``StageProfiler`` (``engine.profiler``) a lazily built draft model is
+wrapped so its prefill and proposal steps are timed as stages; with a
+``CloudCostModel`` each slot keeps a ledger of the analytic FLOPs and HBM
+bytes it costs (the prefill on a prefix miss, every fed decode or verify
+token), handed out as the response's ``cloud_flops`` / ``cloud_hbm_bytes``.
 """
 from __future__ import annotations
 
@@ -53,8 +56,6 @@ from repro_torch.engine.observability import Tracer
 from repro_torch.engine.scheduler import FifoScheduler
 from repro_torch.engine.speculative import (DraftModel, SpecStats,
                                             SpeculativeConfig, greedy_accept)
-
-_ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1"
 
 
 @dataclass
@@ -93,6 +94,8 @@ class _SlotState:
     batch_acc: int = 0                # sum of co-active slots over steps
     replay: Optional[Deque[int]] = None  # parked tokens to re-decode
     t_admit: float = 0.0              # this residency segment's start
+    flops: float = 0.0                # attributed cloud FLOPs (cost ledger)
+    hbm_bytes: float = 0.0            # attributed HBM traffic (cost ledger)
 
 
 class InflightDecoder:
@@ -123,12 +126,15 @@ class InflightDecoder:
         ``verify_step_s`` histograms with the wall time of each
         ``cloud_decode_rows`` / ``cloud_verify_rows`` call. Those calls end
         in a copy of their logits to the host, so on the card the time
-        includes the step's device work."""
-        for name, value in (("the stage profiler (profiler)", profiler),
-                            ("the cost ledger (cost)", cost)):
-            if value is not None:
-                raise NotImplementedError(f"{name} {_ROADMAP}")
+        includes the step's device work. ``profiler`` (a
+        ``StageProfiler``) wraps the lazily built draft model; ``cost`` (a
+        ``CloudCostModel``) keeps the per-slot ledger."""
         self.executor = executor
+        # device-level observability (engine.profiler): the profiler wraps
+        # lazily built draft models; the cost model attributes analytic
+        # FLOPs/HBM bytes to each request as it decodes
+        self._profiler = profiler
+        self._cost = cost
         # observability: the engine threads its tracer/registry through; a
         # standalone decoder records nothing
         self.tracer = tracer if tracer is not None else Tracer()
@@ -394,6 +400,10 @@ class InflightDecoder:
             logits0=entry.logits0, feats=feats, pos=self.prefix_len,
             joined_step=self.step_idx, prefix_ids=entry.page_ids,
             private_ids=private, prefix_hit=hit, speculative=speculative)
+        if self._cost is not None and not hit:
+            # a prefix hit rides cached pages: only the miss pays (and is
+            # charged for) the full-sequence prefill
+            st.flops = self._cost.prefill_flops(self.prefix_len)
         if item.resume_tokens:
             # a parked victim resumes from its prefix: token 0 re-emerges
             # from the prefix logits, the rest replay through the decode
@@ -422,7 +432,7 @@ class InflightDecoder:
 
     def _make_draft(self) -> DraftModel:
         cfg = self.spec
-        return DraftModel(
+        draft = DraftModel(
             cfg.draft_params or self.executor.params,
             cfg.draft_pcfg or self.executor.pcfg,
             slots=self.slots, prefix_len=self.prefix_len,
@@ -432,6 +442,9 @@ class InflightDecoder:
             prefix_cap=self.pool.max_prefixes,
             fns_factory=getattr(self.executor, "draft_fns", None),
             device=self.executor.device)
+        if self._profiler is not None:
+            draft = self._profiler.wrap_draft(draft)
+        return draft
 
     # ---- the lockstep decode step ----
 
@@ -494,6 +507,10 @@ class InflightDecoder:
             self.positions[s, base + n - 1] = st.pos
             st.steps_done += 1
             st.batch_acc += live
+            if self._cost is not None:
+                # one fed token attending st.pos + 1 cached positions
+                st.flops += self._cost.token_flops(st.pos + 1)
+                st.hbm_bytes += self._cost.token_hbm_bytes(st.pos + 1)
             if self.tracer.enabled:
                 self.tracer.point(st.req.seq_id, "decode_step", now,
                                   slot=s, step=self.step_idx)
@@ -564,6 +581,13 @@ class InflightDecoder:
         for s, st in list(self.active.items()):
             n = len(st.tokens)
             j = n_drafted.get(s, 0)
+            if self._cost is not None:
+                # every fed chunk token costs device compute whether or
+                # not its draft is accepted: rejected drafts are real FLOPs
+                for i in range(int(clens[s])):
+                    st.flops += self._cost.token_flops(st.pos + i + 1)
+                    st.hbm_bytes += self._cost.token_hbm_bytes(
+                        st.pos + i + 1)
             # greedy[i]: the serving model's own pick after chunk token i
             greedy = np.argmax(logits[s, :1 + j], axis=-1)
             m = greedy_accept(toks[s, 1:1 + j], greedy) if j else 0
@@ -673,6 +697,9 @@ class InflightDecoder:
             "preemptions": st.req.resumes,
             "queue_wait": st.req.queue_wait,
             "t_first_token": st.req.t_first_token,
+            "cloud_flops": st.flops if self._cost is not None else None,
+            "cloud_hbm_bytes": st.hbm_bytes
+            if self._cost is not None else None,
         })
         if st.req.resumes:
             self.scheduler.note_resumed_served()

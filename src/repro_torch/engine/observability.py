@@ -42,8 +42,8 @@ from typing import Any, Dict, List, Optional
 PHASE_SPANS = ("edge_encode", "transmit", "queue", "prefill",
                "prefix_hit", "decode")
 # Chrome-export track families: pid 1 = operators, pid 2 = decode
-# slots, pid 3 = device stages (a stage profiler's wall-clock view; the
-# validator accepts the track, the port's engine writes none yet)
+# slots, pid 3 = device stages (the stage profiler's wall-clock view,
+# engine.profiler)
 DEVICE_TRACK_PID = 3
 _EPS = 1e-9
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch import DeviceLike, bridge, resolve_device
 from repro_torch.core import vlm
+from repro_torch.core.streams import host, to_device
 
 _ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1"
 
@@ -178,12 +179,12 @@ class DraftModel:
         skey = (key, self.width) if key is not None else None
         row_cache = self._prefix_rows.get(skey) if skey is not None else None
         if row_cache is None:
-            ctx = torch.as_tensor(np.asarray(ctx)).to(self.device)
+            ctx = to_device(ctx, self.device)
             if ctx.shape[-1] != self.pcfg.llm.d_model:
                 raise ValueError(
                     f"draft model width {self.pcfg.llm.d_model} does not "
                     f"match context features {ctx.shape[-1]}")
-            query = torch.as_tensor(np.asarray(query)).to(self.device)
+            query = to_device(query, self.device)
             _, _, row_cache = vlm.llm_prefill(self.params, self.pcfg, ctx,
                                               query, width=self.width)
             self.n_prefills += 1
@@ -249,9 +250,8 @@ class DraftModel:
                 feeding.append(r)
             logits, _, self.cache = vlm.llm_decode_step(
                 self.params, self.pcfg, self.cache,
-                torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(pos).to(self.device))
-            logits = logits.float().cpu().numpy()
+                to_device(toks, self.device), to_device(pos, self.device))
+            logits = host(logits.float())
             self.n_steps += 1
             for r in feeding:
                 if not queue[r]:       # fed the stream tail or a draft

@@ -6,13 +6,19 @@ analytic per-block formulas, and the device constants below convert them
 to seconds and joules. The engine's profiled mission path
 (``AveryEngine.submit_frame``) charges each frame's edge compute with them.
 
-Constants (the reference's, unchanged, so both packages derive the same
-numbers):
+Constants:
   * Edge (paper's UAV computer): NVIDIA Jetson AGX Xavier, MODE_30W_ALL,
-    at the effective throughput implied by the paper's Fig. 8 and 15 W.
-  * Cloud: the reference's TPU v5e roofline constants, kept under their
-    own names. They describe the reference's target, not the card the
-    port runs on, and nothing in the port reads them as its own.
+    at the effective throughput implied by the paper's Fig. 8 and 15 W
+    (the reference's, unchanged).
+  * Cloud: the card the port serves on, an NVIDIA H100 SXM (datasheet:
+    989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s HBM3, 700 W
+    board power). ``CloudDevice()`` and the ``H100_SXM`` preset carry
+    them; a card run below 700 W passes its own power limit
+    (``dataclasses.replace(H100_SXM, power_watts=...)``).
+  * The reference's TPU v5e constants stay under their own names
+    (``TPU_V5E_*``, the ``TPU_V5E`` preset). They describe the reference's
+    target, not the card; only the parity tests pass them, to both
+    packages alike, so that FLOPs, bytes and joules compare exactly.
   * Radio: long-range uplink ~ 120 nJ/bit transmit energy.
 """
 from __future__ import annotations
@@ -25,6 +31,9 @@ from repro_torch.models.config import ModelConfig
 JETSON_FLOPS = 1.28e12          # effective fp16 FLOP/s (Fig. 8 calibrated:
                                 # split@1 edge latency == 0.2318 s)
 JETSON_POWER_W = 15.0           # average active power in MODE_30W_ALL
+H100_FLOPS = 989e12             # dense bf16 FLOP/s (H100 SXM datasheet)
+H100_HBM_BPS = 3.35e12          # HBM3 bytes/s
+H100_POWER_W = 700.0            # board power (the maximum power limit)
 TPU_V5E_FLOPS = 197e12          # bf16 FLOP/s per chip
 TPU_V5E_HBM_BPS = 819e9         # bytes/s
 TPU_V5E_ICI_BPS = 50e9          # bytes/s per link
@@ -49,12 +58,12 @@ class EdgeDevice:
 
 @dataclass(frozen=True)
 class CloudDevice:
-    """The cloud serving chip's roofline constants (TPU v5e defaults).
+    """The cloud serving card's roofline constants (H100 SXM defaults).
     ``roofline_s`` is the lower bound a stage's measured wall time is
     compared against: max of compute-bound and bandwidth-bound time."""
-    flops_per_sec: float = TPU_V5E_FLOPS
-    hbm_bytes_per_sec: float = TPU_V5E_HBM_BPS
-    power_watts: float = TPU_V5E_POWER_W
+    flops_per_sec: float = H100_FLOPS
+    hbm_bytes_per_sec: float = H100_HBM_BPS
+    power_watts: float = H100_POWER_W
 
     def latency_s(self, flops: float) -> float:
         return flops / self.flops_per_sec
@@ -65,6 +74,11 @@ class CloudDevice:
 
     def compute_energy_j(self, flops: float) -> float:
         return self.latency_s(flops) * self.power_watts
+
+
+H100_SXM = CloudDevice(H100_FLOPS, H100_HBM_BPS, H100_POWER_W)
+# the reference's default cloud device, for parity tests only
+TPU_V5E = CloudDevice(TPU_V5E_FLOPS, TPU_V5E_HBM_BPS, TPU_V5E_POWER_W)
 
 
 # ---------------------------------------------------------------------------

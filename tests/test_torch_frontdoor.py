@@ -151,7 +151,14 @@ def test_energy_model_equal(config):
             assert (t.latency_s(f), t.compute_energy_j(f),
                     t.tx_energy_j(f / 1e3)) == \
                 (j.latency_s(f), j.compute_energy_j(f), j.tx_energy_j(f / 1e3))
-    tc, jc = ten.CloudDevice(), jen.CloudDevice()
+    # the port's cloud device defaults to the H100's constants; both
+    # packages are given the reference's TPU v5e constants explicitly
+    assert ten.CloudDevice() == ten.H100_SXM
+    assert (ten.H100_SXM.flops_per_sec, ten.H100_SXM.hbm_bytes_per_sec,
+            ten.H100_SXM.power_watts) == (989e12, 3.35e12, 700.0)
+    tpu = (jen.TPU_V5E_FLOPS, jen.TPU_V5E_HBM_BPS, jen.TPU_V5E_POWER_W)
+    assert ten.TPU_V5E == ten.CloudDevice(*tpu)
+    tc, jc = ten.CloudDevice(*tpu), jen.CloudDevice(*tpu)
     assert (tc.roofline_s(1e12, 3e9), tc.latency_s(5e11),
             tc.compute_energy_j(5e11)) == \
         (jc.roofline_s(1e12, 3e9), jc.latency_s(5e11),

@@ -38,6 +38,7 @@ from repro_torch.core.streams import DualStreamExecutor as TExecutor
 from repro_torch.engine import CloudStageError as TStageError
 from repro_torch.engine import InflightDecoder as TDecoder
 from repro_torch.engine import QoSScheduler as TQoS
+from repro_torch.engine import SpeculativeConfig as TSpecConfig
 from repro_torch.engine import Tracer as TTracer
 
 torch.set_num_threads(1)
@@ -197,14 +198,30 @@ def test_repeat_prefix_hits_and_qos_preemption_round_trip(executors,
     assert dec.scheduler.telemetry.tokens_replayed >= 1
 
 
-def test_unported_options_raise(executors):
-    """Speculation and the metrics hooks are ported
-    (tests/test_torch_speculative.py, tests/test_torch_engine.py); the
-    stage profiler and the cost ledger are not."""
+def test_unported_options_raise(executors, requests):
+    """Speculation, the metrics hooks, the stage profiler and the cost
+    ledger are ported (tests/test_torch_speculative.py,
+    tests/test_torch_engine.py, tests/test_torch_profiler.py) and
+    construct; a sharded executor's draft stages (``draft_fns``, ROADMAP
+    Queue 1 item 5) are not: the first speculating admission raises."""
     _, tex = executors
     for kw in ({"profiler": object()}, {"cost": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TDecoder(tex, slots=2, **kw)
+        TDecoder(tex, slots=2, **kw)
+
+    class Sharded:
+        """The executor, with the sharded serving context's draft stages."""
+
+        def __init__(self, inner):
+            self._inner = inner
+            self.draft_fns = object()
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+    dec = TDecoder(Sharded(tex), slots=2, spec=TSpecConfig(draft_tokens=2))
+    _, tpkt, query, kind = requests[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec.submit(0, TIntent(kind), tpkt, query, lambda r: None)
 
 
 class _FailingDecode:

@@ -14,12 +14,15 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # port modules with no reference counterpart
 OWN = {"bridge.py", "kernels/_build.py"}
 # host-only modules: plain Python and numpy, the engine's scheduling,
-# policy, fault, telemetry and network-simulation path between device steps
+# policy, fault, telemetry and network-simulation path between device steps,
+# the procedural data and the fleet loop
 HOST_ONLY = ["engine/scheduler.py", "engine/policy.py", "engine/faults.py",
              "engine/observability.py", "engine/api.py",
              "engine/transport.py", "core/controller.py",
              "network/__init__.py", "network/channel.py",
-             "network/energy.py", "network/traces.py"]
+             "network/energy.py", "network/traces.py",
+             "data/__init__.py", "data/floodseg.py", "data/requests.py",
+             "runtime/fleet.py"]
 
 
 def _names(node):
