@@ -165,6 +165,41 @@ Phases, each fatal on failure:
      and ``python -m repro_torch.analysis.sanitizers --smoke`` as
      subprocesses, each exiting 0 with its launches printed (the
      launcher's paged launches its steps x layers).
+ 14. (zoo14, after 11) the attention and MoE zoo at full width with random
+     bf16 weights from ``--seed``, one config after the other, each freed
+     before the next: granite-moe-3b-a800m (32 MoE layers, 40 experts
+     top-8, GQA G = 3, hd 64), qwen2-vl-2b (28 layers, GQA G = 6, hd 128,
+     M-RoPE, 256 vision embeddings), minicpm3-4b (62 MLA layers),
+     hubert-xlarge (48 non-causal encoder layers, audio frames) and
+     deepseek-v3-671b cut to 2 layers (one dense MLA layer, one MoE layer
+     of 256 experts and a shared one), each with ``use_flash`` and
+     ``use_flash_decode``: (a) the parameter counts, total and active,
+     equal to the reference's ``count_params``; (b) ``prefill_step`` on
+     B = 2 inputs of 1,024 positions, counters from 0: one flash launch a
+     layer on the GQA models and none on the others, finite logits of the
+     expected shape (every position for the encoder), peak memory; (c) on
+     the GQA models every prefill layer of a replay with the flash
+     kernel's plain version held to LAYER_RTOL (``layer_check``, moe
+     layers on the tokens whose top-k set agrees, each routing flip's
+     router logits within ROUTE_TIE_LOGITS), the last logits against that
+     replay and against ``use_flash=False`` (SDPA_PATH_RTOL), and for
+     granite each token's first routing flip between those two runs a
+     near tie (ROUTE_TIE_RUN); (d) a 64-token prompt through
+     ``decode_step`` and 8 greedy tokens: decode launches steps x layers
+     on the GQA models and none on MLA, their tokens against
+     ``use_flash_decode=False`` (near ties under 12c's rule), every decode
+     layer of the plain-kernel replay held to LAYER_RTOL, the decode
+     logits at the prompt's last position against one prefill of the same
+     tokens (DECODE_PREFILL_RTOL; MoE with a capacity that drops nothing,
+     as decode at T = B); hubert-xlarge refuses decode; (e) granite's
+     dispatch modes on each moe layer's input: routing identical, scatter
+     within LAYER_RTOL of einsum, and grouped (capacity per row) too on the
+     tokens whose kept slots agree with einsum's; ``attn_chunk=256``
+     against unchunked attention on each layer's input (granite,
+     minicpm3-4b); (f) a warm prefill and decode step timed beside the
+     card line, one granite prefill and decode step traced (the device
+     time by class, with the MoE dispatch's sorts, scans, index and
+     gather kernels as their own class, and the idle share).
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -192,7 +227,10 @@ at odd widths and ragged tiles, and at the split point's (one frame of
 4096 tokens x 1280, the three tiers' ranks); and the scan kernel at the
 reference test's four shapes, its 512-step long-decay case, a bf16 case
 and the two zoo prefills' shapes, counting the elements that are not
-bit-equal to ``scan_ref``'s.
+bit-equal to ``scan_ref``'s. Phase 14's GQA shapes are timed there too:
+the flash kernel at granite-moe-3b-a800m's and qwen2-vl-2b's prefill (B = 2,
+S = 1,024; G = 3, hd 64 and G = 6, hd 128) and the decode kernel at their
+last decode step's (B = 2, W = 72), each beside SDPA with ``enable_gqa``.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -205,6 +243,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -255,6 +294,14 @@ SDPA_PATH_RTOL = 2.0 ** -3
 # float32 and round the attention output once to bf16, so they may differ
 # by one bf16 rounding: 2**-8. A wrong mask, scale or head mapping is O(1).
 LAYER_RTOL = 2.0 ** -8
+# A moe layer's two runs in layer_check (or two dispatch modes on one input)
+# route the same tokens on router inputs that differ by the attention's
+# rounding: a token whose top-k set differs between them (a routing flip)
+# must have router logits that agree within this bound (absolute, in
+# logits; the random routers' logits are about N(0, 1)). One bf16 rounding
+# of the attention output moves a logit by ~2**-9 of |h| / |x|; a wrong
+# router or a wrong layer moves it by O(1).
+ROUTE_TIE_LOGITS = 2.0 ** -5
 # attention.sdpa_f32 with bf16 operands on the tensor cores against the
 # float32 upcast it replaced, norm-wise, on the same inputs (check_sdpa).
 # Both products are exact, only their order of sums differs, but where the
@@ -2032,13 +2079,22 @@ def _only(**want):
     return {k: want.get(k, 0) for k in KERNELS}
 
 
-def _kernel_class(name: str) -> str:
+# the device functions of a kernel whose names are not "<kernel>_kernel"
+KERNEL_FUNCTIONS = {"flash_attention": ("flash_wgmma_kernel",
+                                        "flash_online_kernel")}
+
+
+def _kernel_class(name: str, classes=None) -> str:
     """The port kernel a traced kernel name belongs to (checked longest
-    name first: one is a suffix of another), else a library class."""
+    name first: one is a suffix of another), else a class of ``classes``
+    (class -> substrings of the lower-case name), else a library class."""
     for k in KERNELS:
-        if f"{k}_kernel" in name:
+        if any(f in name for f in KERNEL_FUNCTIONS.get(k, (f"{k}_kernel",))):
             return k
     low = name.lower()
+    for cls, words in (classes or {}).items():
+        if any(w in low for w in words):
+            return cls
     if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     if "softmax" in low:
@@ -2047,17 +2103,18 @@ def _kernel_class(name: str) -> str:
 
 
 TRACE_SETTLE_S = 0.2
+# a trace that lost kernel events is taken again, up to this many times in
+# all, where the traced function can run again (``trace(attempts=)``): the
+# profiler dropped the first 18 of an Insight microbatch's 128 decode
+# launches once in some forty full runs on an H100 (PERF.md §7); each drop
+# is logged
+TRACE_ATTEMPTS = 3
 
 
-def trace(label, fn):
-    """Run ``fn`` twice under ``torch.profiler``: once as the profiler's
-    warm-up, whose events are discarded (the first traced kernels can be
-    lost while the tracer starts), then once recorded. Reports the recorded
-    run's traced wall time, device time by kernel class, the top kernels,
-    and the device's idle share (1 - kernel time / traced wall). Fails if
-    the trace holds another count of any port kernel than its wrapper
-    launched in the recorded run (the profiler dropped events), or more
-    kernel time than the traced wall (it counted a span as a kernel)."""
+def _profiled(fn, classes):
+    """One profiled warm-up and recorded run of ``fn`` (see ``trace``):
+    (device ms by class, the top kernels, the port kernels in the trace,
+    the launches the wrappers counted, the traced wall in seconds)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -2085,15 +2142,35 @@ def trace(label, fn):
         if (dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA
                 or e.key.startswith("ProfilerStep")):
             continue          # the schedule's step span is no kernel
-        cls = _kernel_class(e.key)
+        cls = _kernel_class(e.key, classes)
         by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
         top.append((dev_us / 1e3, e.count, e.key[:90]))
         if cls in seen:
             seen[cls] += e.count
-    if seen != made:
-        raise AssertionError(
-            f"{label}: the trace holds port kernels {seen} but {made} were "
-            f"launched; the profiler dropped events")
+    return by_class, top, seen, made, traced
+
+
+def trace(label, fn, classes=None, attempts=1):
+    """Run ``fn`` twice under ``torch.profiler``: once as the profiler's
+    warm-up, whose events are discarded (the first traced kernels can be
+    lost while the tracer starts), then once recorded. Reports the recorded
+    run's traced wall time, device time by kernel class (``classes``:
+    extra classes, ``_kernel_class``), the top kernels, and the device's
+    idle share (1 - kernel time / traced wall). Fails if the trace holds
+    another count of any port kernel than its wrapper launched in the
+    recorded run (the profiler dropped events) in each of ``attempts``
+    tries (each a warm-up and a recorded run; for an ``fn`` that can run
+    again), or more kernel time than the traced wall (it counted a span as
+    a kernel)."""
+    for attempt in range(1, attempts + 1):
+        by_class, top, seen, made, traced = _profiled(fn, classes)
+        if seen == made:
+            break
+        msg = (f"{label}: the trace holds port kernels {seen} but {made} "
+               f"were launched; the profiler dropped events")
+        if attempt == attempts:
+            raise AssertionError(msg)
+        log(f"[profile] {msg} (attempt {attempt} of {attempts})")
     busy = sum(by_class.values())
     if not 0 < busy <= traced * 1e3:
         raise AssertionError(f"{label}: the profiler recorded {busy:.2f} ms "
@@ -2107,7 +2184,7 @@ def trace(label, fn):
         log(f"[profile]   {t:8.3f} ms  x{c:<5d} {n}")
     return {"traced_wall_ms": traced * 1e3, "device_ms": busy,
             "idle_share": 1.0 - busy / (traced * 1e3),
-            "port_kernels_traced": seen,
+            "port_kernels_traced": seen, "attempts": attempt,
             "device_ms_by_class": by_class,
             "top_kernels": [{"ms": t, "count": c, "name": n}
                             for t, c, n in top[:10]]}
@@ -2132,7 +2209,8 @@ def profile_microbatches(executor, reqs):
         report[f"{label}_B{len(batch)}"] = dict(
             warm_wall_ms=warm * 1e3,
             **trace(f"{label} B={len(batch)}",
-                    lambda: executor.cloud_generate_batch(*args)))
+                    lambda: executor.cloud_generate_batch(*args),
+                    attempts=TRACE_ATTEMPTS))
     return report
 
 
@@ -2476,23 +2554,88 @@ def _flash_plain(q, k, v, causal=True, block_q=128, block_k=128):
 
 def _layer_kind(kind):
     """What ``layer_check`` wraps for one kind of layer: the stack's block
-    body, the attention function whose output is h, the group pass that
-    starts a new prefill or step, the kernel wrapper's module and name,
-    its plain version, and the word for one group pass."""
+    bodies (dense and moe), the attention function whose output is h, the
+    group pass that starts a new prefill or step, the kernel wrapper's
+    module and name, its plain version, and the word for one group
+    pass."""
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
     return {
-        "flash": ("_dense_block_full", "attn_full", "group_forward", fops,
-                  "flash_attention", _flash_plain, "prefill"),
-        "decode": ("_dense_block_decode", "attn_decode", "group_decode", ops,
-                   "decode_attention", ref.decode_attention_ref, "step"),
-        "paged": ("_dense_block_decode_paged", "attn_decode_paged",
-                  "group_decode_paged", ops, "paged_decode_attention",
-                  ref.paged_decode_attention_ref, "step"),
-        "verify": ("_dense_block_decode_paged", "attn_verify_paged",
-                   "group_verify_paged", ops, "paged_verify_attention",
-                   ref.paged_verify_attention_ref, "step"),
+        "flash": (("_dense_block_full", "_moe_block_full"), "attn_full",
+                  "group_forward", fops, "flash_attention", _flash_plain,
+                  "prefill"),
+        "decode": (("_dense_block_decode", "_moe_block_decode"),
+                   "attn_decode", "group_decode", ops, "decode_attention",
+                   ref.decode_attention_ref, "step"),
+        "paged": (("_dense_block_decode_paged", "_moe_block_decode_paged"),
+                  "attn_decode_paged", "group_decode_paged", ops,
+                  "paged_decode_attention", ref.paged_decode_attention_ref,
+                  "step"),
+        "verify": (("_dense_block_decode_paged", "_moe_block_decode_paged"),
+                   "attn_verify_paged", "group_verify_paged", ops,
+                   "paged_verify_attention", ref.paged_verify_attention_ref,
+                   "step"),
     }[kind]
+
+
+def _route_sets(gate_idx):
+    """Each token's top-k set, as its sorted expert indices (T, k)."""
+    return gate_idx.sort(dim=-1).values
+
+
+def route_flips(a, b):
+    """Two runs' routing of the same tokens, each (gate_idx (T, k), router
+    logits (T, E) in float32): the tokens whose top-k sets agree, and the
+    routing flips, the tokens whose top-k set differs, each with the
+    largest difference of its router logits between the runs (what moved
+    it across its k-th / (k+1)-th boundary) and its boundary gaps (k-th
+    minus (k+1)-th logit) in each run."""
+    (ia, la), (ib, lb) = a[:2], b[:2]
+    agree = (_route_sets(ia) == _route_sets(ib)).all(dim=-1)
+    flips = (~agree).nonzero().flatten()
+    k = ia.shape[-1]
+    out = []
+    for t in flips.tolist():
+        gaps = [float(l[t].topk(k + 1).values[k - 1]
+                      - l[t].topk(k + 1).values[k]) for l in (la, lb)]
+        out.append({"token": t,
+                    "logit_diff": float((la[t] - lb[t]).abs().max()),
+                    "gaps": gaps})
+    return agree, out
+
+
+def _recording_router(record):
+    """A stand-in for ``moe._router`` that appends (gate_idx, router logits
+    as a full float32 product) of each call to ``record``."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import full_fp32
+    router = moe_lib._router
+
+    def routed(p, cfg, xt):
+        out = router(p, cfg, xt)
+        with full_fp32(xt):
+            logits = xt.float() @ p["router"].float()
+        record.append((out[1], logits))
+        return out
+    return routed
+
+
+def _pinned_router(routes, record):
+    """A stand-in for ``moe._router`` whose i-th call routes as the i-th
+    entry of ``routes`` (gate_idx, router logits, ...) did: those top-k
+    experts with those gate values (from the recorded logits, normalised
+    as the router does). Each call appends this run's own choice (as
+    ``_recording_router`` records it) to ``record``."""
+    router, it = _recording_router(record), iter(routes)
+
+    def pinned(p, cfg, xt):
+        _, _, _, aux = router(p, cfg, xt)
+        gate_idx, logits = next(it)[:2]
+        gate = torch.softmax(logits, dim=-1).gather(1, gate_idx)
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+        return gate, gate_idx, torch.nn.functional.one_hot(
+            gate_idx, cfg.moe.num_experts).float(), aux
+    return pinned
 
 
 def layer_check(kind, label, run, kernel=None):
@@ -2501,15 +2644,17 @@ def layer_check(kind, label, run, kernel=None):
     ``kind`` that reaches the kernel: on the layer's input as the plain run
     has it, the layer computed with ``kernel`` (default: the kernel's
     wrapper) against the layer computed with the plain version, in the
-    same weights and dtype. Kinds: "flash" (dense prefill layers,
-    ``_dense_block_full`` / ``attn_full``, each ``group_forward`` pass a
-    prefill), "decode" (``_dense_block_decode`` / ``attn_decode`` with
-    ``decode_attention``, each ``group_decode`` pass a step), "paged"
-    (``_dense_block_decode_paged`` / ``attn_decode_paged`` with
+    same weights and dtype. Kinds: "flash" (prefill layers,
+    ``_dense_block_full`` / ``_moe_block_full`` through ``attn_full``,
+    each ``group_forward`` pass a prefill), "decode"
+    (``_dense_block_decode`` / ``_moe_block_decode`` through
+    ``attn_decode`` with ``decode_attention``, each ``group_decode`` pass a
+    step), "paged" (``_dense_block_decode_paged`` /
+    ``_moe_block_decode_paged`` through ``attn_decode_paged`` with
     ``paged_decode_attention``, each ``group_decode_paged`` pass a step;
-    the same block's verify layers, whose ``attn_fn`` is
+    the same blocks' verify layers, whose ``attn_fn`` is
     ``attn_verify_paged``, pass through unchecked) and "verify" (the same
-    block's verify layers, exactly those called with ``attn_fn=
+    blocks' verify layers, exactly those called with ``attn_fn=
     attn_verify_paged``, with ``paged_verify_attention``, each
     ``group_verify_paged`` pass a step; the plain paged decode layers,
     which pass no ``attn_fn``, pass through unchecked).
@@ -2517,26 +2662,37 @@ def layer_check(kind, label, run, kernel=None):
     Two norm-wise relative errors a layer, each within LAYER_RTOL: the
     attention block's output h (before the residual add, so a small
     attention term cannot hide behind a large residual) and the layer's
-    output. The plain output goes on, so no error carries from one layer
-    to the next. The decode kinds write the new token's k/v into the cache
-    or pool in place before attending; the second run of a layer computes
-    the same k/v from the same input and writes the same values to the
-    same slots. That holds for the paged kinds too, whose pad and idle
-    entries all target the shared trash page, several to one slot, which
-    an idle row attends: the pool write gives every entry of a slot the
-    row of the last entry for it (``attention.write_pool``), so however the
-    card orders the duplicates, both runs leave the same values there.
-    Raises naming the first (prefill or step, layer) past the limit.
-    Returns (what ``run`` returns, which is the plain replay's result, and
-    a summary). Kind "split" is the split point's check
-    (``split_layer_check``; ``kernel`` an (encode, decode) pair)."""
+    output. In a moe layer the two runs' router inputs differ by the
+    attention's rounding, so a token near a tie of its k-th and (k+1)-th
+    expert may choose another top-k set (a routing flip, which would also
+    move other tokens across an expert's capacity), and every gate moves
+    with its logits, which the random experts' large outputs carry into
+    the layer output: the kernel's run of a moe layer therefore routes as
+    the plain run did (its experts and gates, ``_pinned_router``), and the
+    routing is held apart: each token whose own top-k set would differ
+    (``route_flips``) must have router logits within ROUTE_TIE_LOGITS of
+    the plain run's. The plain output
+    goes on, so no error carries from one layer to the next. The decode
+    kinds write the new token's k/v into the cache or pool in place before
+    attending; the second run of a layer computes the same k/v from the
+    same input and writes the same values to the same slots. That holds
+    for the paged kinds too, whose pad and idle entries all target the
+    shared trash page, several to one slot, which an idle row attends: the
+    pool write gives every entry of a slot the row of the last entry for it
+    (``attention.write_pool``), so however the card orders the duplicates,
+    both runs leave the same values there. Raises naming the first
+    (prefill or step, layer) past a limit. Returns (what ``run`` returns,
+    which is the plain replay's result, and a summary). Kind "split" is
+    the split point's check (``split_layer_check``; ``kernel`` an (encode,
+    decode) pair)."""
     if kind == "split":
         return split_layer_check(label, run, kernel)
     from repro_torch.models import attention, stack
-    block_name, attn_name, group_name, mod, name, plain_fn, unit = \
+    from repro_torch.models import moe as moe_lib
+    block_names, attn_name, group_name, mod, name, plain_fn, unit = \
         _layer_kind(kind)
     kernel = getattr(mod, name) if kernel is None else kernel
-    block, attn_fn = getattr(stack, block_name), getattr(attention, attn_name)
+    attn_fn = getattr(attention, attn_name)
     group = getattr(stack, group_name)
     # the paged block's attn_fn: the "paged" kind checks the calls that
     # pass none (its default), the "verify" kind those that pass attn_fn
@@ -2547,8 +2703,8 @@ def layer_check(kind, label, run, kernel=None):
         passes.append([])
         return group(*a, **kw)
 
-    def layer(fn, *a, **kw):
-        seen = {"kernel": 0}
+    def layer(block, fn, pin, *a, **kw):
+        seen = {"kernel": 0, "route": []}
 
         def counted(*x, **y):
             seen["kernel"] += 1
@@ -2561,23 +2717,36 @@ def layer_check(kind, label, run, kernel=None):
         if kind in ("paged", "verify"):   # the block and the group pass
             kw = dict(kw, attn_fn=attn)     # bind attn_fn before this call
         with mock.patch.object(mod, name, counted), \
-                mock.patch.object(attention, attn_name, attn):
-            y, rest = block(*a, **kw)
+                mock.patch.object(attention, attn_name, attn), \
+                mock.patch.object(moe_lib, "_router",
+                                  _recording_router(seen["route"])
+                                  if pin is None else
+                                  _pinned_router(pin, seen["route"])):
+            y, *rest = block(*a, **kw)
         return seen, y, rest
 
-    def checked(*a, **kw):
-        if kw.get("attn_fn", unset) is not attn_fn:
-            return block(*a, **kw)      # a layer of the other paged kind
-        plain, y, rest = layer(plain_fn, *a, **kw)
-        if plain["kernel"]:
-            got, y_k, _ = layer(kernel, *a, **kw)
-            passes[-1].append({"h": _rel(got["h"], plain["h"]),
-                               "out": _rel(y_k, y),
-                               "bit_equal": bool(torch.equal(y_k, y))})
-        return y, rest
+    def checker(block):
+        def checked(*a, **kw):
+            if kw.get("attn_fn", unset) is not attn_fn:
+                return block(*a, **kw)  # a layer of the other paged kind
+            plain, y, rest = layer(block, plain_fn, None, *a, **kw)
+            if plain["kernel"]:
+                # a moe layer's kernel run routes as the plain run did
+                got, y_k, _ = layer(block, kernel, plain["route"], *a, **kw)
+                r = {"h": _rel(got["h"], plain["h"]), "out": _rel(y_k, y),
+                     "bit_equal": bool(torch.equal(y_k, y)), "flips": []}
+                if plain["route"]:
+                    _, r["flips"] = route_flips(plain["route"][0],
+                                                got["route"][0])
+                passes[-1].append(r)
+            return (y, *rest)
+        return checked
 
-    with mock.patch.object(stack, block_name, checked), \
-            mock.patch.object(stack, group_name, grouped):
+    with contextlib.ExitStack() as patches:
+        for bn in block_names:
+            patches.enter_context(mock.patch.object(
+                stack, bn, checker(getattr(stack, bn))))
+        patches.enter_context(mock.patch.object(stack, group_name, grouped))
         result = run()
     passes = [p for p in passes if p]   # e.g. the encoders take no flash
     layers = [(i, j, r) for i, p in enumerate(passes)
@@ -2587,25 +2756,40 @@ def layer_check(kind, label, run, kernel=None):
     i, j, r = max(layers, key=lambda t: max(t[2]["h"], t[2]["out"]))
     per_pass = [max(max(r["h"], r["out"]) for r in p) for p in passes]
     off = sum(not r["bit_equal"] for _, _, r in layers)
+    flips = [(i, j, f) for i, j, r in layers for f in r["flips"]]
     summary = {"layers": len(layers), f"{unit}s": len(passes),
                "worst": {unit: i, "layer": j, "h": r["h"], "out": r["out"]},
                f"per_{unit}_max": per_pass,
-               "outputs_not_bit_equal": off, "limit": LAYER_RTOL}
+               "outputs_not_bit_equal": off, "limit": LAYER_RTOL,
+               "route_flips": [{unit: i, "layer": j, **f}
+                               for i, j, f in flips],
+               "route_tie_limit": ROUTE_TIE_LOGITS}
     log(f"[layers] {label}: {len(layers)} layers in {len(passes)} {unit}s, "
         f"each against the plain version on its own input; worst {unit} "
         f"{i} layer {j}: attention h {r['h']:.3g}, layer output "
         f"{r['out']:.3g} (limit {LAYER_RTOL}); per-{unit} max "
         + ", ".join(f"{m:.3g}" for m in per_pass)
         + f"; {off} of {len(layers)} layer outputs not bit-equal")
+    if flips:
+        worst_flip = max(f["logit_diff"] for _, _, f in flips)
+        log(f"[layers] {label}: {len(flips)} routing flips (a token's own "
+            f"top-k set in the kernel's layer differs from the plain "
+            f"version's, whose routing that layer takes); largest "
+            f"router-logit difference of a flipped token {worst_flip:.3g} "
+            f"(limit {ROUTE_TIE_LOGITS}); boundary gaps "
+            + ", ".join(f"{min(f['gaps']):.3g}" for _, _, f in flips[:8]))
     bad = [(i, j, r) for i, j, r in layers
-           if not max(r["h"], r["out"]) <= LAYER_RTOL]
+           if not max(r["h"], r["out"]) <= LAYER_RTOL
+           or any(not f["logit_diff"] <= ROUTE_TIE_LOGITS
+                  for f in r["flips"])]
     if bad:
         i, j, r = bad[0]
         raise AssertionError(
             f"{label}: {unit} {i} layer {j} with the {name} kernel is off "
             f"the plain version's on the same input: attention h by "
             f"{r['h']:.3g}, layer output by {r['out']:.3g} (norm-wise), "
-            f"limit {LAYER_RTOL}; {len(bad)} layers past it")
+            f"limit {LAYER_RTOL}; routing flips {r['flips'][:4]} (router "
+            f"logits limit {ROUTE_TIE_LOGITS}); {len(bad)} layers past it")
     return result, summary
 
 
@@ -4563,7 +4747,7 @@ def zoo_run(name, seed, dev):
     cache = init_cache(cfg, ZOO_BATCH, ZOO_DECODE_PROMPT, dev)
     tok = tokens[:, :1]
     decode_step(params, cfg, cache, tok, 0)
-    pos = iter(range(1, 6))
+    pos = itertools.count(1)
     out["decode_step_wall_ms"], dwalls = _median_wall_ms(
         lambda: decode_step(params, cfg, cache, tok, next(pos)))
     log(f"[zoo] {name}: warm prefill wall {out['prefill_wall_ms']:.1f} ms "
@@ -4573,10 +4757,12 @@ def zoo_run(name, seed, dev):
     if name == "falcon-mamba-7b":
         out["profile"] = trace(f"{name} prefill B={ZOO_BATCH} "
                                f"S={ZOO_PROMPT}",
-                               lambda: prefill_step(params, cfg, batch))
+                               lambda: prefill_step(params, cfg, batch),
+                               attempts=TRACE_ATTEMPTS)
         out["decode_profile"] = trace(
             f"{name} decode step B={ZOO_BATCH}",
-            lambda: decode_step(params, cfg, cache, tok, next(pos)))
+            lambda: decode_step(params, cfg, cache, tok, next(pos)),
+            attempts=TRACE_ATTEMPTS)
     return out
 
 
@@ -4585,6 +4771,540 @@ def zoo_phase(seed, dev):
     report = {}
     for name in ZOO:
         report[name] = zoo_run(name, seed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the attention and MoE zoo (granite-moe-3b-a800m, qwen2-vl-2b,
+# minicpm3-4b, hubert-xlarge, the deepseek-v3-671b cut)
+# ---------------------------------------------------------------------------
+
+# each config of the phase with its count of parameters and of active
+# parameters (the reference's count_params, total and active_only)
+ZOO14 = {
+    "granite-moe-3b-a800m": (3_374_295_552, 958_376_448),
+    "qwen2-vl-2b": (1_779_054_080, 1_779_054_080),
+    "minicpm3-4b": (4_261_902_848, 4_261_902_848),
+    "hubert-xlarge": (945_912_320, 945_912_320),
+    "deepseek-v3-671b": (14_278_064_128, 3_356_096_512),
+}
+# deepseek-v3-671b at full widths, its depth cut to 2 layers: one dense MLA
+# layer and one MoE layer (256 routed experts, top-8, and the shared
+# expert), with its MTP block's parameters
+ZOO14_CUT = {"deepseek-v3-671b": {"num_layers": 2, "first_k_dense": 1}}
+# the two GQA models, served through the flash and decode kernels (G = 3
+# and 6); the others take neither (MLA, a non-causal encoder)
+ZOO14_GQA = ("granite-moe-3b-a800m", "qwen2-vl-2b")
+ZOO14_NEW_TOKENS = 8
+ZOO14_CHUNK = 256
+ZOO14_CHUNKED = ("granite-moe-3b-a800m", "minicpm3-4b")
+# A MoE model's outputs follow its routing: a token that takes another
+# expert (a routing flip at a near tie) changes by that expert's share, and
+# the change spreads, so two runs that differ in rounding soon differ in
+# routing (a random granite at 4 layers on the CPU: 481 of 2048 tokens);
+# with the experts pinned but each run's own gate values, the random
+# granite's large expert outputs still carry the gates' rounding into a
+# router drift of 0.112 by layer 32 on an H100 (PERF.md §6). The path
+# comparisons of phase 14 therefore pin the other run's routing to the
+# kernel run's (``_pinned_router``: each moe layer takes the kernel run's
+# top-k experts and gate values) and hold the routing apart: at each moe
+# layer of the pinned run, a token whose own top-k set would differ from the
+# kernel run's (a flip) must sit at a near tie in both runs' router logits,
+# its k-th and (k+1)-th within ROUTE_TIE_RUN (absolute; the random routers'
+# logits are about N(0, 1), whose spacing at the 8th of 40 is about 0.09),
+# and the layer's router logits must agree with the kernel run's within
+# SDPA_PATH_RTOL (norm-wise), the drift of the stream they are computed on.
+ROUTE_TIE_RUN = 2.0 ** -2
+# the traced prefill's extra class: sorts, scans, index, gather and
+# scatter kernels (the MoE dispatch's ranks and one-hots, the scatter and
+# the gather of expert outputs; also the embedding lookup)
+DISPATCH_CLASS = {"dispatch_gather": ("sort", "scan", "index", "gather",
+                                      "scatter", "one_hot", "cumsum")}
+
+
+def zoo14_kernel_cases():
+    """The flash kernel at phase 14's prefill shapes (B = 2, S = 1,024,
+    causal, bf16) and the decode kernel at its last decode step's (B = 2,
+    W = 64 + 8 slots, all filled) for the two GQA models: (flash cases,
+    decode cases)."""
+    from repro_torch.configs import get_config
+    W = ZOO_DECODE_PROMPT + ZOO14_NEW_TOKENS
+    flash, decode = [], []
+    for name in ZOO14_GQA:
+        c = get_config(name)
+        short = name.split("-")[0]
+        H, K, hd = c.num_heads, c.num_kv_heads, c.resolved_head_dim
+        flash.append(dict(name=f"zoo_{short}_B{ZOO_BATCH}_S{ZOO_PROMPT}",
+                          B=ZOO_BATCH, S=ZOO_PROMPT, H=H, K=K, hd=hd,
+                          causal=True, dtype=c.adtype, pad=0))
+        decode.append(dict(name=f"zoo_{short}_B{ZOO_BATCH}_W{W}",
+                           B=ZOO_BATCH, H=H, K=K, hd=hd, W=W,
+                           dtype=c.adtype, lens=[W] * ZOO_BATCH))
+    return flash, decode
+
+
+def zoo14_config(name):
+    """The phase's config: full widths, ``use_flash`` and
+    ``use_flash_decode`` on, and the cut of ZOO14_CUT."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name).replace(use_flash=True, use_flash_decode=True)
+    cut = ZOO14_CUT.get(name)
+    if cut:
+        cfg = cfg.replace(num_layers=cut["num_layers"],
+                          moe=dataclasses.replace(
+                              cfg.moe, first_k_dense=cut["first_k_dense"]))
+    return cfg
+
+
+def _moe(cfg, **kw):
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, **kw))
+
+
+def zoo14_batch(cfg, gen, dev):
+    """ZOO_BATCH inputs of ZOO_PROMPT positions in the model's batch format
+    (tests/helpers.py:make_batch's keys and shapes), from the seed: text
+    tokens; audio frames (B, S, 512); the VLM's tokens, 256 vision
+    embeddings (B, 256, 1280) and M-RoPE positions (3, B, S), the vision
+    tokens on a (t = 0, h, w) 16 x 16 grid and the text after it, one
+    position for all three streams."""
+    B, seq = ZOO_BATCH, ZOO_PROMPT
+    if cfg.modality == "audio":
+        return {"frames": torch.randn(B, seq, cfg.frontend_dim,
+                                      generator=gen, device=dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, seq),
+                                     generator=gen, device=dev)}
+    if cfg.modality == "vlm":
+        nv = cfg.num_vision_tokens
+        side = int(round(nv ** 0.5))
+        batch["vision_embeds"] = torch.randn(B, nv, cfg.frontend_dim,
+                                             generator=gen, device=dev)
+        i = torch.arange(nv, device=dev)
+        pos = torch.zeros((3, B, seq), dtype=torch.int32, device=dev)
+        pos[1, :, :nv], pos[2, :, :nv] = i // side, i % side
+        pos[:, :, nv:] = side + torch.arange(seq - nv, device=dev)
+        batch["positions"] = pos
+    return batch
+
+
+def _text_prefill_batch(cfg, prompt):
+    """What ``decode_step`` computes over ``prompt`` as one prefill: the
+    tokens alone, and for the VLM no vision tokens and M-RoPE's three
+    streams at one position each (as decode broadcasts it). Returns
+    (cfg, batch)."""
+    if cfg.modality != "vlm":
+        return cfg, {"tokens": prompt}
+    B, S = prompt.shape
+    pos = torch.arange(S, dtype=torch.int32, device=prompt.device)
+    return cfg.replace(num_vision_tokens=0), {
+        "tokens": prompt, "positions": pos.expand(3, B, S).contiguous(),
+        "vision_embeds": torch.zeros((B, 0, cfg.frontend_dim),
+                                     device=prompt.device)}
+
+
+def _routes(run):
+    """``run()`` with every router call recorded: (its result, a list of
+    (gate_idx, router logits) a moe layer)."""
+    from repro_torch.models import moe as moe_lib
+    record = []
+    with mock.patch.object(moe_lib, "_router", _recording_router(record)):
+        out = run()
+    return out, record
+
+
+def pinned_run(routes, run):
+    """``run()`` with its routing pinned to ``routes`` (``_pinned_router``):
+    (its result, its own routing choices). Every recorded route must be
+    taken, and no more."""
+    from repro_torch.models import moe as moe_lib
+    own = []
+    with mock.patch.object(moe_lib, "_router", _pinned_router(routes, own)):
+        out = run()
+    if len(own) != len(routes):
+        raise AssertionError(f"the pinned run routed {len(own)} times, the "
+                             f"recorded one {len(routes)}")
+    return out, own
+
+
+def zoo14_route_flips(label, kernel_routes, own_routes):
+    """The routing of a run pinned to the kernel run's, held apart: at each
+    moe layer (or step and layer) the tokens whose own top-k set would
+    differ from the kernel run's, each at a near tie in both runs' router
+    logits (ROUTE_TIE_RUN), and the router logits within SDPA_PATH_RTOL of
+    the kernel run's (ROUTE_TIE_RUN's comment)."""
+    per_layer, flips, drift = [], [], []
+    for j, (a, b) in enumerate(zip(kernel_routes, own_routes)):
+        _, fl = route_flips(a, b)
+        per_layer.append(len(fl))
+        flips += [dict(f, layer=j) for f in fl]
+        drift.append(_rel(b[1], a[1]))
+    T = kernel_routes[0][0].shape[0]
+    bad = [f for f in flips if not max(f["gaps"]) <= ROUTE_TIE_RUN]
+    gaps = sorted(max(f["gaps"]) for f in flips)
+    log(f"[zoo14] {label}: routing flips (a token's own top-k set against "
+        f"the kernel run's, routing pinned) {len(flips)} of "
+        f"{T * len(per_layer)} token-layers ("
+        + (f"per layer {per_layer}" if len(per_layer) <= 64 else
+           f"{sum(n > 0 for n in per_layer)} of {len(per_layer)} layer "
+           f"calls with any")
+        + "); each "
+        f"flip's larger boundary gap of the two runs: median "
+        f"{np.median(gaps) if gaps else 0:.3g}, max "
+        f"{gaps[-1] if gaps else 0:.3g} (limit {ROUTE_TIE_RUN}); router "
+        f"logits against the kernel run's, worst layer {max(drift):.3g} "
+        f"(limit {SDPA_PATH_RTOL})")
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} routing flips are no "
+                             f"near tie: {bad[:4]}")
+    _within(f"{label} router logits vs the kernel run's, worst layer",
+            max(drift), SDPA_PATH_RTOL)
+    return {"flips": len(flips), "token_layers": T * len(per_layer),
+            "per_layer": per_layer, "max_gap": gaps[-1] if gaps else 0.0,
+            "gap_limit": ROUTE_TIE_RUN, "router_drift": max(drift)}
+
+
+def zoo14_dispatch(params, cfg, batch):
+    """(e) granite's prefill (einsum dispatch), and at each moe layer, on
+    that layer's input, ``moe_mlp`` once more under "scatter" and
+    "grouped": the routing equal to einsum's and the output within
+    LAYER_RTOL of einsum's; grouped keeps per row (capacity
+    ``capacity(cfg, S)``), so it is held on the tokens whose kept slots
+    agree with einsum's."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import prefill_step
+    mlp, readings = moe_lib.moe_mlp, []
+
+    def kept(gate_idx, groups, C):
+        return moe_lib._scatter_plan(gate_idx.reshape(groups, -1),
+                                     cfg.moe.num_experts, C)[1]
+
+    def checked(p, c, x):
+        (out, aux), rec = _routes(lambda: mlp(p, c, x))
+        B, S, d = x.shape
+        gate = rec[0][0]
+        # the tokens whose kept slots agree under the two capacities
+        same = (kept(gate, 1, moe_lib.capacity(c, B * S)).reshape(B * S, -1)
+                == kept(gate, B, moe_lib.capacity(c, S)).reshape(B * S, -1)
+                ).all(dim=-1)
+        r = {}
+        for mode, tokens in (("scatter", slice(None)), ("grouped", same)):
+            c2 = _moe(c, dispatch=mode)
+            (y, _), rec2 = _routes(lambda: mlp(p, c2, x))
+            if not torch.equal(rec2[0][0], gate):
+                raise AssertionError(f"{c.name}: {mode} dispatch routed "
+                                     f"otherwise than einsum")
+            r[mode] = {"rel": _rel(y.reshape(-1, d)[tokens],
+                                   out.reshape(-1, d)[tokens]),
+                       "bit_equal": bool(torch.equal(y, out))}
+        r["grouped"]["kept_differs"] = int((~same).sum())
+        readings.append(r)
+        return out, aux
+
+    with mock.patch.object(moe_lib, "moe_mlp", checked):
+        prefill_step(params, cfg, batch)
+    worst = {m: max(r[m]["rel"] for r in readings)
+             for m in ("scatter", "grouped")}
+    equal = {m: sum(r[m]["bit_equal"] for r in readings)
+             for m in ("scatter", "grouped")}
+    differs = sum(r["grouped"]["kept_differs"] for r in readings)
+    log(f"[zoo14] {cfg.name} dispatch on each of {len(readings)} moe "
+        f"layers' inputs: routing identical in all three modes; against "
+        f"einsum, scatter {worst['scatter']:.3g} ({equal['scatter']} layers "
+        f"bit-equal), grouped {worst['grouped']:.3g} (per-row capacity: "
+        f"kept slots differ on {differs} token-layers, held on the rest; "
+        f"{equal['grouped']} bit-equal) (limit {LAYER_RTOL})")
+    for m in worst:
+        _within(f"{cfg.name} {m} vs einsum, worst moe layer (norm-wise)",
+                worst[m], LAYER_RTOL)
+    return {"layers": len(readings), "worst": worst,
+            "grouped_kept_differs": differs, "bit_equal_layers": equal,
+            "limit": LAYER_RTOL}
+
+
+def zoo14_chunk(params, cfg, batch):
+    """(e) ``attn_chunk=ZOO14_CHUNK`` against unchunked attention: on each
+    attention layer's input of an unchunked plain prefill (use_flash off,
+    so the chunked branch is reached), the chunked attention's output
+    within LAYER_RTOL of the unchunked one's."""
+    from repro_torch.models import attention, prefill_step
+    full, readings = attention.attn_full, []
+    plain = cfg.replace(use_flash=False)
+    chunked = plain.replace(attn_chunk=ZOO14_CHUNK)
+
+    def checked(p, c, x, positions, mask):
+        out, kv = full(p, c, x, positions, mask)
+        out_c, _ = full(p, chunked, x, positions, mask)
+        readings.append((_rel(out_c, out), bool(torch.equal(out_c, out))))
+        return out, kv
+
+    with mock.patch.object(attention, "attn_full", checked):
+        prefill_step(params, plain, batch)
+    worst = max(r for r, _ in readings)
+    log(f"[zoo14] {cfg.name} attn_chunk={ZOO14_CHUNK} vs unchunked on each "
+        f"of {len(readings)} attention layers' inputs: worst {worst:.3g}, "
+        f"{sum(e for _, e in readings)} bit-equal (limit {LAYER_RTOL})")
+    _within(f"{cfg.name} attn_chunk={ZOO14_CHUNK} worst layer", worst,
+            LAYER_RTOL)
+    return {"layers": len(readings), "worst": worst,
+            "bit_equal": sum(e for _, e in readings)}
+
+
+def zoo14_decode(params, cfg, prompt, dev, forced=None):
+    """The prompt through ``decode_step`` from ``init_cache``, then
+    ZOO14_NEW_TOKENS greedy tokens fed back (or, teacher-forced, the
+    tokens ``forced`` (B, new)): (the greedy tokens (B, new), the last
+    logits of each step from the prompt's last on, as float32)."""
+    from repro_torch.models import decode_step, init_cache
+    S = prompt.shape[1]
+    cache = init_cache(cfg, ZOO_BATCH, S + ZOO14_NEW_TOKENS, dev)
+    new, logits = [], []
+    fed = new if forced is None else list(forced.split(1, dim=1))
+    for t in range(S + ZOO14_NEW_TOKENS):
+        tok = prompt[:, t:t + 1] if t < S else fed[t - S]
+        lg, cache = decode_step(params, cfg, cache, tok, t)
+        if t >= S - 1:
+            logits.append(lg[:, -1].float())
+            if len(new) < ZOO14_NEW_TOKENS:
+                new.append(torch.argmax(lg[:, -1], dim=-1)[:, None].int())
+    return torch.cat(new, dim=1), logits
+
+
+def decode_ties(label, tokens, logits, other_tokens, other_logits, limit):
+    """Each row's greedy tokens against another path's: equal, or first
+    differing at a near tie (12c's rule): at that token the two runs'
+    logits (on the same prefix) must each lead with its own token, the two
+    tokens' logits must agree between the runs within TIE_ULPS bf16 steps,
+    the rows within ``limit`` norm-wise; at most MAX_TIES rows."""
+    ties = []
+    for b in range(tokens.shape[0]):
+        x, y = tokens[b].tolist(), other_tokens[b].tolist()
+        if x == y:
+            continue
+        d = next(i for i, (u, v) in enumerate(zip(x, y)) if u != v)
+        A = logits[d][b].double().cpu().numpy()
+        P = other_logits[d][b].double().cpu().numpy()
+        a, o = x[d], y[d]
+        tie = {"row": b, "token": d, "kernel": a, "other": o,
+               "margin": float(P[o] - P[a]),
+               "ulps_kernel_token": _bf16_steps(A[a], P[a]),
+               "ulps_other_token": _bf16_steps(A[o], P[o]),
+               "kernel_leads": bool(A[a] >= A.max()),
+               "other_leads": bool(P[o] >= P.max()), "rel": _rel(A, P)}
+        ties.append(tie)
+        log(f"[zoo14] {label}: row {b} tokens {x} vs {y}, first differing "
+            f"at token {d}: margin {tie['margin']:.4g} of {o} over {a}; "
+            f"{tie['ulps_kernel_token']:.3g} and "
+            f"{tie['ulps_other_token']:.3g} bf16 steps (limit {TIE_ULPS}), "
+            f"each leads its own logits: {tie['kernel_leads']}, "
+            f"{tie['other_leads']}; norm-wise {tie['rel']:.3g} (limit "
+            f"{limit})")
+        if not (tie["kernel_leads"] and tie["other_leads"]
+                and tie["ulps_kernel_token"] <= TIE_ULPS
+                and tie["ulps_other_token"] <= TIE_ULPS
+                and tie["rel"] <= limit):
+            raise AssertionError(f"{label}: row {b} differs beyond a near "
+                                 f"tie: {tie}")
+    if len(ties) > MAX_TIES:
+        raise AssertionError(f"{label}: {len(ties)} rows differ, more than "
+                             f"{MAX_TIES}")
+    return ties
+
+
+def zoo14_decode_checks(params, cfg, prompt, dev, gqa):
+    """(d) greedy decode with use_flash_decode, counters from 0: decode
+    launches steps x layers on the GQA models, none on the others; on the
+    GQA models the tokens against use_flash_decode=False, teacher-forced on
+    the kernel run's tokens, with its routing (experts and gates; near ties
+    under 12c's rule, routing flips held to ROUTE_TIE_RUN), and every
+    decode layer of a replay with the kernel's plain version held to
+    LAYER_RTOL (``layer_check`` "decode"); the logits at the prompt's last
+    position against one prefill of the same tokens with the decode run's
+    routing (DECODE_PREFILL_RTOL; MLA's absorbed decode against its full
+    form; an MoE config with a capacity that drops nothing, as decode at
+    T = B never drops)."""
+    from repro_torch.models import prefill_step, stack
+    S = prompt.shape[1]
+    steps = S + ZOO14_NEW_TOKENS
+    _reset_launch_counts()
+    t0 = _sync_s()
+    (tokens, logits), routes = _routes(lambda: zoo14_decode(params, cfg,
+                                                            prompt, dev))
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    want = _only(decode_attention=steps * cfg.num_layers if gqa else 0)
+    log(f"[zoo14] {cfg.name} decode: prompt {S} + {ZOO14_NEW_TOKENS} greedy "
+        f"tokens, {steps} steps in {wall:.2f} s; launches {counts} "
+        f"(expected {want}); tokens {tokens.tolist()}")
+    if counts != want:
+        raise AssertionError(f"{cfg.name} decode: launches {counts}, "
+                             f"expected {want}")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()) \
+            or not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError(f"{cfg.name}: bad decode tokens or logits")
+    out = {"steps": steps, "wall_s": wall, "launches": counts,
+           "tokens": tokens.tolist()}
+    if gqa:     # MLA decode takes no kernel: use_flash_decode changes nothing
+        (plain_tokens, plain_logits), own = pinned_run(routes, lambda: (
+            zoo14_decode(params, cfg.replace(use_flash_decode=False),
+                         prompt, dev, forced=tokens)))
+        out["ties"] = decode_ties(
+            f"{cfg.name} decode vs use_flash_decode=False", tokens, logits,
+            plain_tokens, plain_logits, SDPA_PATH_RTOL)
+        log(f"[zoo14] {cfg.name}: {ZOO_BATCH - len(out['ties'])} of "
+            f"{ZOO_BATCH} rows' tokens equal use_flash_decode=False's")
+        if routes:
+            out["route_flips"] = zoo14_route_flips(
+                f"{cfg.name} decode, use_flash_decode=False", routes, own)
+        _, out["layers"] = layer_check(
+            "decode", f"{cfg.name} decode", lambda: zoo14_decode(
+                params, cfg, prompt, dev))
+    pcfg, pbatch = _text_prefill_batch(cfg, prompt)
+    n_moe = sum(g.count for g in stack.layer_groups(cfg) if g.kind == "moe")
+    pre = [tuple(torch.stack([routes[t * n_moe + j][i] for t in range(S)],
+                             dim=1).reshape(ZOO_BATCH * S, -1)
+                 for i in (0, 1)) for j in range(n_moe)]
+    if cfg.moe is not None:
+        pcfg = _moe(pcfg, capacity_factor=cfg.moe.num_experts
+                    / cfg.moe.top_k)
+    (want_logits, _), _ = pinned_run(pre, lambda: prefill_step(
+        params, pcfg, pbatch))
+    out["vs_prefill_rel"] = _within(
+        f"{cfg.name} decode logits at position {S - 1} vs one prefill "
+        f"(norm-wise)", _rel(logits[0], want_logits[:, -1].float()),
+        DECODE_PREFILL_RTOL)
+    return out
+
+
+def zoo14_run(name, seed, dev):
+    """Phase 14 for one config: init at full width (a), the counted
+    prefill (b), the kernel checks against the plain path (c), decode (d),
+    the same function two ways (e) and timings (f). Frees nothing itself:
+    the caller drops its references."""
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, stack)
+    cfg = zoo14_config(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = _sync_s()
+    params = init_params(cfg, gen, dev)
+    init_s = _sync_s() - t0
+    n_params = sum(t.numel() for t in stack.leaves(params))
+    active = stack.count_params(cfg, active_only=True)
+    if (n_params, active) != ZOO14[name] \
+            or stack.count_params(cfg) != n_params:
+        raise AssertionError(f"{name}: {n_params} parameters, {active} "
+                             f"active, expected {ZOO14[name]}")
+    nbytes = sum(t.numel() * t.element_size() for t in stack.leaves(params))
+    cut = ZOO14_CUT.get(name)
+    log(f"[zoo14] {name}: {n_params:,} parameters ({active:,} active; "
+        f"{nbytes / 1e9:.2f} GB) initialised in {init_s:.1f} s"
+        + (f"; depth cut: {cut}" if cut else ""))
+    batch = zoo14_batch(cfg, gen, dev)
+    layers = cfg.num_layers
+    gqa = name in ZOO14_GQA
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = _sync_s()
+    (logits, cache), routes = _routes(lambda: prefill_step(params, cfg,
+                                                           batch))
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    want = _only(flash_attention=layers if gqa else 0)
+    S = ZOO_PROMPT
+    shape = (ZOO_BATCH, S if cfg.modality == "audio" else 1, cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[zoo14] {name} prefill B={ZOO_BATCH} S={S}: launches {counts} "
+        f"(expected {want}); logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; wall {wall:.2f} s (first "
+        f"call), peak memory {peak:.1f} GiB")
+    if counts != want:
+        raise AssertionError(f"{name} prefill: launches {counts}, expected "
+                             f"{want}")
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
+                             f"(expected {shape}) or not finite")
+    if (cache is None) != (cfg.modality == "audio"):
+        raise AssertionError(f"{name}: prefill cache {type(cache)}")
+    out = {"params": n_params, "active_params": active, "init_s": init_s,
+           "cut": cut, "first_prefill_s": wall, "launches": counts,
+           "logits_shape": list(logits.shape), "peak_gib": peak}
+    del cache
+
+    if gqa:     # (c) the flash kernel against the plain path
+        from repro_torch.kernels.flash_attention import ops as fops
+        _, out["layers"] = layer_check(
+            "flash", f"{name} prefill", lambda: prefill_step(params, cfg,
+                                                             batch))
+        # the last logits against the plain-kernel replay and the plain
+        # path, each run with the counted run's routing (ROUTE_TIE_RUN)
+        with mock.patch.object(fops, "flash_attention", _flash_plain):
+            (replay, _), _ = pinned_run(routes, lambda: prefill_step(
+                params, cfg, batch))
+        out["plain_replay_rel"] = _within(
+            f"{name} last logits vs the plain-kernel replay (norm-wise)",
+            _rel(logits, replay), SDPA_PATH_RTOL)
+        (plain, _), own = pinned_run(routes, lambda: prefill_step(
+            params, cfg.replace(use_flash=False), batch))
+        out["plain_path_rel"] = _within(
+            f"{name} last logits vs use_flash=False (norm-wise)",
+            _rel(logits, plain), SDPA_PATH_RTOL)
+        if routes:
+            out["route_flips"] = zoo14_route_flips(
+                f"{name} prefill, use_flash=False", routes, own)
+        del replay, plain, own
+    del routes
+    if cfg.supports_decode:
+        out["decode"] = zoo14_decode_checks(
+            params, cfg, batch["tokens"][:, :ZOO_DECODE_PROMPT], dev, gqa)
+    else:
+        try:
+            decode_step(params, cfg, None, None, 0)
+        except ValueError as e:
+            log(f"[zoo14] {name}: no decode step (ValueError: {e})")
+        else:
+            raise AssertionError(f"{name}: decode_step did not refuse")
+    if name == ZOO14_GQA[0]:
+        out["dispatch"] = zoo14_dispatch(params, cfg, batch)
+    if name in ZOO14_CHUNKED:
+        out["attn_chunk"] = zoo14_chunk(params, cfg, batch)
+
+    # (f) timings: a warm prefill and one decode step, wall to a
+    # synchronise, median of 3; one traced granite prefill and decode step
+    out["prefill_wall_ms"], walls = _median_wall_ms(
+        lambda: prefill_step(params, cfg, batch))
+    msg = (f"[zoo14] {name}: warm prefill wall {out['prefill_wall_ms']:.1f}"
+           f" ms (median of {[round(w, 1) for w in walls]})")
+    if cfg.supports_decode:
+        cache = init_cache(cfg, ZOO_BATCH, ZOO_DECODE_PROMPT, dev)
+        tok = batch["tokens"][:, :1]
+        decode_step(params, cfg, cache, tok, 0)
+        pos = itertools.count(1)
+        out["decode_step_wall_ms"], dwalls = _median_wall_ms(
+            lambda: decode_step(params, cfg, cache, tok, next(pos)))
+        msg += (f", decode step wall {out['decode_step_wall_ms']:.2f} ms "
+                f"(median of {[round(w, 2) for w in dwalls]})")
+    log(msg + f"; {card_line()}")
+    if name == ZOO14_GQA[0]:
+        out["profile"] = trace(f"{name} prefill B={ZOO_BATCH} S={S}",
+                               lambda: prefill_step(params, cfg, batch),
+                               DISPATCH_CLASS, TRACE_ATTEMPTS)
+        out["decode_profile"] = trace(
+            f"{name} decode step B={ZOO_BATCH}",
+            lambda: decode_step(params, cfg, cache, tok, next(pos)),
+            DISPATCH_CLASS, TRACE_ATTEMPTS)
+    return out
+
+
+def zoo14_phase(seed, dev):
+    """Phase 14: each config in turn, freed before the next."""
+    report = {}
+    for name in ZOO14:
+        t0 = time.perf_counter()
+        report[name] = zoo14_run(name, seed, dev)
+        report[name]["phase_s"] = time.perf_counter() - t0
+        log(f"[zoo14] {name} in {report[name]['phase_s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
     return report
@@ -4667,8 +5387,9 @@ def main() -> int:
     phase3 = {
         "decode_attention": lambda: [
             check_decode_attention(rng, c, dev,
-                                   timed=c["name"] in DECODE_TIMED)
-            for c in kernel_cases(pcfg, (1, 4))],
+                                   timed=c["name"] in DECODE_TIMED
+                                   or c["name"].startswith("zoo_"))
+            for c in kernel_cases(pcfg, (1, 4)) + zoo14_kernel_cases()[1]],
         "paged_decode_attention": lambda: [
             check_paged_decode_attention(
                 rng, c, dev, timed=c["name"] in (paged_main, "main_B1"))
@@ -4680,8 +5401,9 @@ def main() -> int:
             for c in verify_cases(pcfg)],
         "flash_attention": lambda: [
             check_flash_attention(rng, c, dev,
-                                  timed=c["name"] in FLASH_TIMED)
-            for c in flash_cases(pcfg)],
+                                  timed=c["name"] in FLASH_TIMED
+                                  or c["name"].startswith("zoo_"))
+            for c in flash_cases(pcfg) + zoo14_kernel_cases()[0]],
         "bottleneck_encode": lambda: [
             check_bottleneck_encode(rng, c, dev,
                                     timed=c["name"].startswith("main"))
@@ -4806,6 +5528,10 @@ def main() -> int:
     report["zoo"] = zoo_phase(args.seed, dev)
     report["zoo_s"] = time.perf_counter() - t0
     log(f"[zoo] phase 11 in {report['zoo_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["zoo14"] = zoo14_phase(args.seed, dev)
+    report["zoo14_s"] = time.perf_counter() - t0
+    log(f"[zoo14] phase 14 in {report['zoo14_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

@@ -1,22 +1,27 @@
-"""Config registries: the LISA pipeline configs and the ported configs of
-the architecture zoo.
+"""Config registries: the LISA pipeline configs and the ten configs of the
+architecture zoo.
 
 ``get_config(name)`` returns a zoo config as assigned; ``get_reduced(name)``
-the smoke-test variant of the same family (2 layers, d_model 256), by the
-reference's reduction rules. The zoo registry holds the two SSM configs;
-the attention and MoE zoo waits for ROADMAP.md, Queue 1 item 3a.
+the smoke-test variant of the same family (2 layers, d_model 256, at most
+4 experts), by the reference's reduction rules.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (falcon_mamba_7b, lisa7b, lisa_mini,
-                                 lisa_nano, zamba2_7b)
+from repro_torch.configs import (deepseek_v3_671b, falcon_mamba_7b,
+                                 granite_moe_3b, hubert_xlarge, lisa7b,
+                                 lisa_mini, lisa_nano, minicpm3_4b,
+                                 nemotron_4_340b, phi4_mini_3p8b, qwen15_32b,
+                                 qwen2_vl_2b, zamba2_7b)
 from repro_torch.models import ModelConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.CONFIG.name: c.CONFIG for c in (falcon_mamba_7b, zamba2_7b)
+    c.CONFIG.name: c.CONFIG
+    for c in (falcon_mamba_7b, nemotron_4_340b, qwen15_32b, phi4_mini_3p8b,
+              zamba2_7b, hubert_xlarge, granite_moe_3b, deepseek_v3_671b,
+              minicpm3_4b, qwen2_vl_2b)
 }
 
 LISA_REGISTRY = {
@@ -42,7 +47,8 @@ def get_lisa_config(name: str = "lisa-7b"):
 
 
 def get_reduced(name: str) -> ModelConfig:
-    """Reduced same-family variant: 2 layers, d_model 256, float32."""
+    """Reduced same-family variant: 2 layers, d_model 256, <=4 experts,
+    float32."""
     cfg = get_config(name)
     kw: dict = {
         "name": cfg.name + "-reduced",
@@ -59,9 +65,22 @@ def get_reduced(name: str) -> ModelConfig:
         "num_vision_tokens": min(cfg.num_vision_tokens, 8),
         "frontend_dim": min(cfg.frontend_dim, 32) if cfg.frontend_dim else 0,
     }
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+            qk_rope_head_dim=16, v_head_dim=32)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2, d_ff_expert=64,
+            d_ff_shared=64 if cfg.moe.num_shared_experts else 0,
+            first_k_dense=min(1, cfg.moe.first_k_dense),
+            d_ff_dense=256 if cfg.moe.first_k_dense else 0)
+        kw["d_ff"] = 64
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, state_size=min(cfg.ssm.state_size, 16), head_dim=32)
     if cfg.hybrid is not None:
         kw["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=1)
+    if cfg.rope_style == "mrope":
+        kw["mrope_sections"] = (16, 8, 8)  # half-dim 32 with head_dim 64
     return cfg.replace(**kw)

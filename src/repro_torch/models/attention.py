@@ -1,16 +1,22 @@
-"""GQA attention: full-sequence (encoders, prefill), single-token decode
-against a ring KV cache or a shared KV page pool, and multi-token
-(speculative verify) decode against the page pool (port of
-``repro/models/attention.py``).
+"""Attention variants: GQA (optionally biased / sliding-window) and MLA
+(port of ``repro/models/attention.py``).
 
-Cache layout per layer: {"k": (B, W, K, hd), "v": (B, W, K, hd)}, or, for
-the page pool, {"k": (P, page, K, hd), "v": ...}; k stored post-RoPE. Slot
-positions live at the model level and arrive here as an additive mask.
-With ``use_flash`` a causal full-sequence pass without a sliding window
-runs the flash-attention CUDA kernel (``kernels/flash_attention``), as the
-reference routes it to its Pallas kernel. MLA, query chunking
-(``attn_chunk``), the scores stub and ``shard_cache_hd`` are not ported yet
-(ROADMAP.md).
+GQA runs full-sequence (encoders, prefill), single-token decode against a
+ring KV cache or a shared KV page pool, and multi-token (speculative
+verify) decode against the page pool; MLA runs full-sequence and absorbed
+single-token decode against its latent ring cache.
+
+Cache layout per layer: GQA {"k": (B, W, K, hd), "v": (B, W, K, hd)}, or,
+for the page pool, {"k": (P, page, K, hd), "v": ...}, k stored post-RoPE;
+MLA {"ckv": (B, W, r_kv), "krope": (B, W, d_r)}. Slot positions live at
+the model level and arrive here as an additive mask. With ``use_flash`` a
+causal full-sequence GQA pass without a sliding window runs the
+flash-attention CUDA kernel (``kernels/flash_attention``), and with
+``use_flash_decode`` a single-token GQA decode runs the decode-attention
+kernel, as the reference routes them to its Pallas kernels.
+``shard_cache_hd`` is a placement hint for a head-dim-sharded cache; on
+one device it only keeps contiguous decode off the kernel, as in the
+reference. Its mesh form waits for ROADMAP.md, Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -19,10 +25,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import apply_rope, fan_in_init, linear
+from repro_torch.models.common import (apply_mrope, apply_rope, fan_in_init,
+                                       full_fp32, linear, rms_norm)
 from repro_torch.models.config import ModelConfig
-
-_ROADMAP = "not ported yet; see ROADMAP.md"
 
 
 def init_gqa(generator: torch.Generator, cfg: ModelConfig,
@@ -45,12 +50,49 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def init_mla(generator: torch.Generator, cfg: ModelConfig,
+             layers: Optional[int], device=None) -> dict:
+    """Stacked MLA weights with a leading layer axis; ``layers=None`` for
+    one unstacked layer."""
+    m = cfg.mla
+    d, H, dt = cfg.d_model, cfg.num_heads, cfg.pdtype
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    lead = () if layers is None else (layers,)
+
+    def ones(n):
+        return torch.ones((*lead, n), dtype=dt, device=device)
+
+    return {
+        "wq_a": fan_in_init(generator, (d, m.q_lora_rank), dt, device,
+                            layers),
+        "q_norm": ones(m.q_lora_rank),
+        "wq_b": fan_in_init(generator, (m.q_lora_rank, H * qk), dt, device,
+                            layers),
+        "wkv_a": fan_in_init(generator,
+                             (d, m.kv_lora_rank + m.qk_rope_head_dim), dt,
+                             device, layers),
+        "kv_norm": ones(m.kv_lora_rank),
+        "wkv_b": fan_in_init(generator,
+                             (m.kv_lora_rank,
+                              H * (m.qk_nope_head_dim + m.v_head_dim)), dt,
+                             device, layers),
+        "wo": fan_in_init(generator, (H * m.v_head_dim, d), dt, device,
+                          layers),
+    }
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   layers: Optional[int], device=None) -> dict:
+    init = init_mla if cfg.attn_type == "mla" else init_gqa
+    return init(generator, cfg, layers, device)
+
+
 def _rope_q_or_k(cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope_style == "none":
         return x
     if cfg.rope_style == "mrope":
-        raise NotImplementedError(f"M-RoPE is {_ROADMAP}")
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -93,6 +135,17 @@ def sdpa_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, scale: float,
+                  chunk: int) -> torch.Tensor:
+    """Query-chunked attention: ``_sdpa`` over blocks of ``chunk`` queries
+    (the reference's ``lax.scan``), so only a (chunk, T) score tile is live
+    at once. mask (Bm, S, T)."""
+    S = q.shape[1]
+    return torch.cat([_sdpa(q[:, i:i + chunk], k, v, mask[:, i:i + chunk],
+                            scale) for i in range(0, S, chunk)], dim=1)
+
+
 def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q.k of each kv head's query group on the native operands with a
     float32 result (``aten::bmm.dtype``; CUDA only): q (B,S,H,hd), k
@@ -122,13 +175,14 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _check_decode_supported(cfg: ModelConfig) -> None:
-    """The decode paths read ``shard_cache_hd`` alone of the unported
-    switches; like the reference's, they ignore ``use_flash``,
-    ``attn_chunk`` and ``attn_scores_stub``, which only the full-sequence
-    pass reads."""
+def _refuse_sharded_pool(cfg: ModelConfig, what: str) -> None:
+    """The paged paths refuse the head-dim-sharded cache, as the
+    reference's do. Like the reference's decode paths they ignore
+    ``use_flash``, ``attn_chunk`` and ``attn_scores_stub``, which only the
+    full-sequence pass reads."""
     if cfg.shard_cache_hd:
-        raise NotImplementedError(f"shard_cache_hd is {_ROADMAP}")
+        raise NotImplementedError(
+            f"{what} does not support the head_dim-sharded cache")
 
 
 def gqa_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -145,15 +199,18 @@ def gqa_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _qkv(p, cfg, x)
     q = _rope_q_or_k(cfg, q, positions)
     k = _rope_q_or_k(cfg, k, positions)
+    scale = 1.0 / math.sqrt(hd)
     if cfg.attn_scores_stub:
-        raise NotImplementedError(f"attn_scores_stub is {_ROADMAP}")
+        # perf-analysis stub: keep the q/k/v projections alive, skip the
+        # score/softmax/PV stage
+        out = q + 1e-6 * (torch.mean(k) + torch.mean(v))
     elif cfg.use_flash and cfg.causal and cfg.sliding_window is None:
         from repro_torch.kernels.flash_attention import ops as flash_ops
         out = flash_ops.flash_attention(q, k, v, causal=True)
     elif cfg.attn_chunk and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
-        raise NotImplementedError(f"attn_chunk is {_ROADMAP}")
+        out = _sdpa_chunked(q, k, v, mask, scale, cfg.attn_chunk)
     else:
-        out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
+        out = _sdpa(q, k, v, mask, scale)
     out = linear(out.reshape(B, S, H * hd), p["wo"])
     return out, {"k": k, "v": v}
 
@@ -167,8 +224,8 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     The cache is updated IN PLACE (the reference rebuilds it with
     ``dynamic_update_slice``/``.at[].set``); the returned dict holds the
-    same tensors."""
-    _check_decode_supported(cfg)
+    same tensors. Under ``shard_cache_hd`` the kernel is skipped, as in the
+    reference (whose sharding hints are no-ops on one device)."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -182,7 +239,7 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         k_cache[:, int(slot)] = k[:, 0]
         v_cache[:, int(slot)] = v[:, 0]
-    if cfg.use_flash_decode and S == 1:
+    if cfg.use_flash_decode and S == 1 and not cfg.shard_cache_hd:
         from repro_torch.kernels.decode_attention import ops as decode_ops
         out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache,
                                           mask)[:, None]
@@ -248,7 +305,7 @@ def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     with ``.at[].set``); the returned dict holds the same tensors. Idle
     rows may all write the same trash-page slot; the last of them keeps
     it, as in the reference."""
-    _check_decode_supported(cfg)
+    _refuse_sharded_pool(cfg, "paged decode")
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -288,7 +345,7 @@ def gqa_verify_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
     chunk's k/v are written IN PLACE before attention, so chunk token i
     attends chunk tokens <= i through the pool as C successive decode
     steps would. Returns (out, pool)."""
-    _check_decode_supported(cfg)
+    _refuse_sharded_pool(cfg, "paged verify")
     B, C, _ = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -318,36 +375,149 @@ def gqa_empty_cache(cfg: ModelConfig, batch: int, width: int,
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_n, qk_r = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = linear(rms_norm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps),
+               p["wq_b"]).reshape(B, S, H, qk_n + qk_r)
+    q_nope = q[..., :qk_n]
+    q_rope = apply_rope(q[..., qk_n:], positions, cfg.rope_theta)
+    kv_a = linear(x, p["wkv_a"])
+    ckv = rms_norm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., m.kv_lora_rank:].reshape(B, S, 1, qk_r)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor,
+             mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence MLA: keys and values expanded from the latent, the
+    attention on float32 copies (as the reference's), query-chunked under
+    ``attn_chunk``. Returns (out, {"ckv", "krope"})."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_n, qk_r, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q_nope, q_rope, ckv, k_rope = _mla_qkv_full(p, cfg, x, positions)
+    kv = linear(ckv, p["wkv_b"]).reshape(B, S, H, qk_n + dv)
+    k_nope, v = kv[..., :qk_n].float(), kv[..., qk_n:].float()
+    kr = k_rope.float()
+    scale = 1.0 / math.sqrt(float(qk_n + qk_r))
+
+    def attend(qn, qr, mb):
+        with full_fp32(qn):
+            scores = (torch.einsum("bshn,bthn->bhst", qn.float(), k_nope)
+                      + torch.einsum("bshr,btr->bhst", qr.float(), kr)
+                      ) * scale
+            scores = scores + mb.reshape(mb.shape[0], 1, *mb.shape[1:])
+            probs = torch.softmax(scores, dim=-1)
+            return torch.einsum("bhst,bthv->bshv", probs, v).to(x.dtype)
+
+    c = cfg.attn_chunk
+    if c and S > c and S % c == 0:
+        out = torch.cat([attend(q_nope[:, i:i + c], q_rope[:, i:i + c],
+                                mask[:, i:i + c]) for i in range(0, S, c)],
+                        dim=1)
+    else:
+        out = attend(q_nope, q_rope, mask)
+    out = linear(out.reshape(B, S, H * dv), p["wo"])
+    return out, {"ckv": ckv, "krope": k_rope}
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, cache: dict, slot,
+               mask: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Absorbed-matmul MLA decode: scores in the latent space, so the cache
+    stays (r_kv + d_r) a token. ``wkv_b`` (r, H*(qk_n + dv)) is read as
+    (r, H, qk_n + dv), the layout ``mla_full`` expands with. slot an int
+    (the shared ring slot); the cache is updated IN PLACE and returned."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_n, qk_r, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv_full(p, cfg, x, positions)
+    slot = int(slot)
+    cache["ckv"][:, slot:slot + S] = ckv_new
+    cache["krope"][:, slot:slot + S] = krope_new
+    ckv, krope = cache["ckv"].float(), cache["krope"].float()
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, qk_n + dv).float()
+    w_uk, w_uv = wkv_b[..., :qk_n], wkv_b[..., qk_n:]
+    scale = 1.0 / math.sqrt(float(qk_n + qk_r))
+    with full_fp32(x):
+        # absorb the k up-projection into the query
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+        scores = (torch.einsum("bshr,bwr->bhsw", q_lat, ckv)
+                  + torch.einsum("bshr,bwr->bhsw", q_rope.float(), krope)
+                  ) * scale
+        probs = torch.softmax(scores + mask[:, None, None, :], dim=-1)
+        o_lat = torch.einsum("bhsw,bwr->bshr", probs, ckv)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv).to(x.dtype)
+    out = linear(out.reshape(B, S, H * dv), p["wo"])
+    return out, cache
+
+
+def mla_empty_cache(cfg: ModelConfig, batch: int, width: int,
+                    device=None) -> dict:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, width, m.kv_lora_rank),
+                               dtype=cfg.adtype, device=device),
+            "krope": torch.zeros((batch, width, m.qk_rope_head_dim),
+                                 dtype=cfg.adtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
 def empty_cache(cfg: ModelConfig, batch: int, width: int,
                 device=None) -> dict:
     if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+        return mla_empty_cache(cfg, batch, width, device)
     return gqa_empty_cache(cfg, batch, width, device)
 
 
 def attn_full(p, cfg: ModelConfig, x, positions, mask):
     if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+        return mla_full(p, cfg, x, positions, mask)
     return gqa_full(p, cfg, x, positions, mask)
 
 
 def attn_decode(p, cfg: ModelConfig, x, positions, cache, slot, mask):
     if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+        if isinstance(slot, torch.Tensor) and slot.dim() != 0:
+            raise NotImplementedError(
+                "per-row decode slots (in-flight batching) are only "
+                "implemented for the GQA cache layout")
+        return mla_decode(p, cfg, x, positions, cache, slot, mask)
     return gqa_decode(p, cfg, x, positions, cache, slot, mask)
+
+
+def _refuse_mla_pool(cfg: ModelConfig) -> None:
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            "the paged KV pool is only implemented for the GQA cache "
+            "layout (MLA's latent cache pages differently)")
 
 
 def attn_decode_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
                       write_page, write_off, mask, write_src):
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    _refuse_mla_pool(cfg)
     return gqa_decode_paged(p, cfg, x, positions, pool, page_table,
                             write_page, write_off, mask, write_src)
 
 
 def attn_verify_paged(p, cfg: ModelConfig, x, positions, pool, page_table,
                       write_page, write_off, mask, write_src):
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA attention is {_ROADMAP}")
+    _refuse_mla_pool(cfg)
     return gqa_verify_paged(p, cfg, x, positions, pool, page_table,
                             write_page, write_off, mask, write_src)

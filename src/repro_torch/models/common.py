@@ -1,12 +1,14 @@
-"""Shared NN primitives: norms, activations, RoPE, masks, inits (port of
-``repro/models/common.py``).
+"""Shared NN primitives: norms, activations, RoPE (incl. M-RoPE), masks,
+inits (port of ``repro/models/common.py``).
 
 Plain functions on tensors; every function takes its parameters
 explicitly. Norms and RoPE compute in float32 and cast back, as the
-reference does.
+reference does. The reference's ``wsc`` (a sharding hint that is a no-op
+without a mesh) has no counterpart: the port runs on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -88,6 +90,24 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"silu": silu, "relu2": relu2, "gelu": gelu}
 
 
+@contextlib.contextmanager
+def full_fp32(*tensors: torch.Tensor):
+    """Float32 products on CUDA inside this block are full float32
+    products, not TF32, whatever the caller's flags (restored on exit).
+    Used where the reference multiplies in float32 on purpose: the MoE
+    router, whose top-k ranks near ties, and MLA's float32 attention."""
+    if not any(t.is_cuda for t in tensors):
+        yield
+        return
+    flags = torch.backends.cuda.matmul
+    old = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = old
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     y = x @ w.to(x.dtype)
@@ -127,6 +147,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Standard 1-D RoPE. x: (B, S, H, D), positions: (B, S)."""
     return _apply_angles(x, _rope_angles(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). x (B, S, H, D); positions (3, B, S), the
+    (t, h, w) streams. ``sections`` partitions the half-dim (their sum must
+    be D // 2); section i takes its angles from stream i."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"the half head dim {half}")
+    parts, lo = [], 0
+    for i, sec in enumerate(sections):
+        exps = torch.arange(lo, lo + sec, dtype=torch.float32,
+                            device=positions.device) / half
+        parts.append(positions[i].float()[..., None] * (1.0 / theta ** exps))
+        lo += sec
+    return _apply_angles(x, torch.cat(parts, dim=-1))
+
+
+def sinusoid_positions(seq_len: int, dim: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """Additive sinusoidal position table (S, dim) for encoder-only
+    models: sines then cosines."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,18 @@
 """Top-level model API: init / forward / prefill / decode (port of
 ``repro/models/model.py``).
 
-Batch format: text, {"tokens": (B, S) int}. The audio and VLM frontends,
-multi-token prediction, ``loss_fn`` and ``make_train_step`` are not ported
-yet (ROADMAP.md, Queue 1: items 3a and 6).
+Batch formats:
+
+  text : {"tokens": (B,S) int}
+  audio: {"frames": (B,S,frontend_dim) float, ...}   (HuBERT; the masked-
+         prediction targets are the training loss's)
+  vlm  : {"tokens": (B,S) int, "vision_embeds": (B,n_vis,frontend_dim)
+         float, "positions": (3,B,S) int}             (M-RoPE streams)
+
+The audio feature extractor and the VLM's ViT are stubs, as in the
+reference: inputs arrive as frame / patch embeddings. The multi-token
+prediction block's parameters are initialised; its loss, ``loss_fn`` and
+``make_train_step`` are training (ROADMAP.md, Queue 1 item 6).
 
 Entry points run on the card unless the caller asks for another device.
 Decode caches are updated IN PLACE (the reference returns a rebuilt
@@ -18,20 +27,11 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import stack
 from repro_torch.models.common import (cache_mask, causal_mask, fan_in_init,
-                                       linear, normal_init)
+                                       linear, normal_init,
+                                       sinusoid_positions)
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
-
-_ROADMAP_3A = "not ported yet; see ROADMAP.md, Queue 1 item 3a"
-
-
-def _check_text(cfg: ModelConfig) -> None:
-    if cfg.modality != "text":
-        raise NotImplementedError(f"the {cfg.modality} modality is "
-                                  f"{_ROADMAP_3A}")
-    if cfg.mtp:
-        raise NotImplementedError(f"multi-token prediction is {_ROADMAP_3A}")
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +45,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     distributions (not its bits). ``generator`` must live on ``device``
     (any generator will do for ``device="meta"``, which allocates
     nothing)."""
-    _check_text(cfg)
     dev = resolve_device(device)
     p: Params = {
         "embed": normal_init(generator, (cfg.vocab_size, cfg.d_model), 0.02,
@@ -60,6 +59,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.arch_type == "hybrid":
         p["shared_attn"] = stack._init_dense_layer(generator, cfg, cfg.d_ff,
                                                    dev)
+    if cfg.modality in ("audio", "vlm"):
+        name = "feat_proj" if cfg.modality == "audio" else "vision_proj"
+        p[name] = fan_in_init(generator, (cfg.frontend_dim, cfg.d_model),
+                              cfg.pdtype, dev)
+    if cfg.mtp:
+        p["mtp"] = {
+            "proj": fan_in_init(generator, (2 * cfg.d_model, cfg.d_model),
+                                cfg.pdtype, dev),
+            "block": stack._init_dense_layer(
+                generator, cfg,
+                cfg.d_ff or (cfg.moe.d_ff_dense if cfg.moe else 0), dev),
+            "norm": stack.init_norm(cfg, device=dev),
+        }
     return p
 
 
@@ -75,8 +87,27 @@ def _embed_tokens(p: Params, cfg: ModelConfig,
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]):
-    """Returns (x (B,S,d), positions (B,S))."""
-    _check_text(cfg)
+    """Returns (x (B,S,d), positions), positions (B,S) or, for the VLM,
+    the batch's (3,B,S) M-RoPE streams. Audio frames are projected and
+    given sinusoid positions; the VLM's projected vision embeddings take
+    the first ``num_vision_tokens`` positions, the embedded
+    ``tokens[:, nv:]`` the rest."""
+    if cfg.modality == "audio":
+        frames = batch["frames"]
+        B, S, _ = frames.shape
+        x = linear(frames.to(cfg.adtype), p["feat_proj"])
+        x = x + sinusoid_positions(S, cfg.d_model, cfg.adtype,
+                                   x.device)[None]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+        return x, positions
+    if cfg.modality == "vlm":
+        tokens = batch["tokens"]
+        nv = cfg.num_vision_tokens
+        x_vis = linear(batch["vision_embeds"].to(cfg.adtype),
+                       p["vision_proj"])
+        x_txt = _embed_tokens(p, cfg, tokens[:, nv:])
+        return torch.cat([x_vis, x_txt], dim=1), batch["positions"]
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(p, cfg, tokens)
@@ -142,8 +173,11 @@ def prefill_step(p: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]):
     """Full forward that also returns cache contents (width == S) and the
     last-position logits. As in the reference, SSM groups hand no state
-    to decode (their cache entry is None)."""
+    to decode (their cache entry is None), and an encoder-only (audio)
+    model returns (logits at every position, None)."""
     logits, _, caches, _ = forward(p, cfg, batch, want_cache=True)
+    if cfg.modality == "audio":
+        return logits, None
     B, S = batch["tokens"].shape[0], logits.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=logits.device)[None].expand(B, S)
@@ -157,8 +191,6 @@ def decode_step(p: Params, cfg: ModelConfig, cache: Dict[str, Any],
     (logits (B,1,V), cache), the cache updated in place."""
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
-    if cfg.rope_style == "mrope":
-        raise NotImplementedError(f"M-RoPE is {_ROADMAP_3A}")
     B = tokens.shape[0]
     x = _embed_tokens(p, cfg, tokens)
     pos = int(pos)
@@ -170,7 +202,9 @@ def decode_step(p: Params, cfg: ModelConfig, cache: Dict[str, Any],
     else:
         slot = 0
         mask = torch.zeros((B, 1), dtype=torch.float32, device=x.device)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    # M-RoPE: the one position drives all three streams
+    shape = (3, B, 1) if cfg.rope_style == "mrope" else (B, 1)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     for spec, gparams, gcache in zip(specs, p["groups"], cache["groups"]):
         x, _ = stack.group_decode(gparams, cfg, spec, x, positions, gcache,
                                   slot, mask,

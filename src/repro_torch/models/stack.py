@@ -5,14 +5,15 @@ the reference's stacked layout, a leading layer axis on every leaf. The
 reference's ``lax.scan`` over layers is a Python loop over that axis here.
 
 Group kinds:
-  dense   — attention + dense FFN
+  dense   — attention + dense FFN             (dense / audio / vlm archs)
+  moe     — attention + MoE FFN               (granite, deepseek)
   mamba1  — Mamba-1 mixer                     (falcon-mamba)
   mamba2  — Mamba-2 mixer                     (zamba2 backbone)
   hybrid  — Zamba2 super-group: one *shared* attention block (parameters
             shared across all invocations, ``params["shared_attn"]``)
             followed by ``attn_every`` Mamba-2 layers; its leaves carry
             two leading axes, (count, attn_every, ...).
-The ``moe`` kind is not ported yet and raises.
+Attention is GQA or MLA (``cfg.attn_type``) in the dense and moe kinds.
 """
 from __future__ import annotations
 
@@ -25,8 +26,6 @@ from repro_torch.models import attention, moe as moe_lib, ssm
 from repro_torch.models.common import (Layers, layer_norm, leading_axes,
                                        rms_norm)
 from repro_torch.models.config import ModelConfig
-
-_ROADMAP = "not ported yet; see ROADMAP.md"
 
 
 @dataclass(frozen=True)
@@ -79,17 +78,13 @@ def apply_norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_moe(spec: GroupSpec) -> None:
-    if spec.kind == "moe":
-        raise NotImplementedError(f"moe groups are {_ROADMAP}")
-
-
 def _init_dense_layer(generator: torch.Generator, cfg: ModelConfig,
                       d_ff: int, device=None) -> dict:
-    """One unstacked dense layer (the hybrid's shared block)."""
+    """One unstacked dense layer (the hybrid's shared block, the MTP
+    block)."""
     return {
         "norm1": init_norm(cfg, device=device),
-        "attn": attention.init_gqa(generator, cfg, None, device),
+        "attn": attention.init_attention(generator, cfg, None, device),
         "norm2": init_norm(cfg, device=device),
         "mlp": moe_lib.init_dense_mlp(generator, cfg, d_ff, None, device),
     }
@@ -106,15 +101,21 @@ def init_group(generator: torch.Generator, cfg: ModelConfig,
                spec: GroupSpec, device=None) -> dict:
     """Stacked parameters of one group: every leaf (count, ...), or
     (count, attn_every, ...) for a hybrid group."""
-    _refuse_moe(spec)
     n = spec.count
     if spec.kind == "dense":
         return {
             "norm1": init_norm(cfg, n, device),
-            "attn": attention.init_gqa(generator, cfg, n, device),
+            "attn": attention.init_attention(generator, cfg, n, device),
             "norm2": init_norm(cfg, n, device),
             "mlp": moe_lib.init_dense_mlp(generator, cfg, spec.d_ff, n,
                                           device),
+        }
+    if spec.kind == "moe":
+        return {
+            "norm1": init_norm(cfg, n, device),
+            "attn": attention.init_attention(generator, cfg, n, device),
+            "norm2": init_norm(cfg, n, device),
+            "moe": moe_lib.init_moe(generator, cfg, n, device),
         }
     if spec.kind in ("mamba1", "mamba2"):
         return _init_mamba_layers(generator, cfg, (n,), device)
@@ -134,7 +135,7 @@ def layer_slice(tree: Any, idx) -> Any:
 
 
 # ---------------------------------------------------------------------------
-# dense block bodies
+# dense and moe block bodies
 # ---------------------------------------------------------------------------
 
 
@@ -167,6 +168,35 @@ def _dense_block_decode_paged(p, cfg, x, positions, pool, page_table,
     return x, c2
 
 
+def _moe_block_full(p, cfg, x, positions, mask):
+    h, kv = attention.attn_full(p["attn"], cfg,
+                                apply_norm(x, p["norm1"], cfg), positions,
+                                mask)
+    x = x + h
+    y, aux = moe_lib.moe_mlp(p["moe"], cfg, apply_norm(x, p["norm2"], cfg))
+    return x + y, kv, aux
+
+
+def _moe_block_decode(p, cfg, x, positions, cache, slot, mask):
+    h, c2 = attention.attn_decode(p["attn"], cfg,
+                                  apply_norm(x, p["norm1"], cfg), positions,
+                                  cache, slot, mask)
+    x = x + h
+    y, _ = moe_lib.moe_mlp(p["moe"], cfg, apply_norm(x, p["norm2"], cfg))
+    return x + y, c2
+
+
+def _moe_block_decode_paged(p, cfg, x, positions, pool, page_table,
+                            write_page, write_off, mask, write_src,
+                            attn_fn=attention.attn_decode_paged):
+    h, c2 = attn_fn(p["attn"], cfg, apply_norm(x, p["norm1"], cfg),
+                    positions, pool, page_table, write_page, write_off,
+                    mask, write_src)
+    x = x + h
+    y, _ = moe_lib.moe_mlp(p["moe"], cfg, apply_norm(x, p["norm2"], cfg))
+    return x + y, c2
+
+
 def _mamba_block_full(p, cfg, x):
     full = ssm.mamba1_full if cfg.ssm.version == 1 else ssm.mamba2_full
     return x + full(p["mixer"], cfg, apply_norm(x, p["norm"], cfg))
@@ -181,34 +211,35 @@ def _mamba_block_decode(p, cfg, x, state):
 def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
                   x: torch.Tensor, positions: torch.Tensor,
                   mask: torch.Tensor, shared_attn: Optional[dict] = None,
-                  want_cache: bool = False
-                  ) -> Tuple[torch.Tensor, float, Optional[dict]]:
+                  want_cache: bool = False):
     """Run one group full-sequence. Returns (x, aux_loss, cache_or_None);
-    the attention cache leaves are stacked (count, B, S, K, hd). Mamba
-    groups return no cache, as the reference's do: their decode starts
-    from ``group_empty_cache``."""
-    _refuse_moe(spec)
+    the attention cache leaves are stacked (count, B, S, ...). A moe
+    group's aux is its layers' router losses summed (a float32 scalar
+    tensor), other groups' 0.0. Mamba groups return no cache, as the
+    reference's do: their decode starts from ``group_empty_cache``."""
     if spec.kind in ("mamba1", "mamba2"):
         for i in range(spec.count):
             x = _mamba_block_full(layer_slice(params, i), cfg, x)
         return x, 0.0, None
-    if spec.kind not in ("dense", "hybrid"):
+    if spec.kind not in ("dense", "moe", "hybrid"):
         raise ValueError(spec.kind)
-    ks, vs = [], []
+    aux, kvs = 0.0, []
     for i in range(spec.count):
         lp = layer_slice(params, i)
         if spec.kind == "dense":
             x, kv = _dense_block_full(lp, cfg, x, positions, mask)
+        elif spec.kind == "moe":
+            x, kv, a = _moe_block_full(lp, cfg, x, positions, mask)
+            aux = aux + a
         else:
             x, kv = _dense_block_full(shared_attn, cfg, x, positions, mask)
             for j in range(cfg.hybrid.attn_every):
                 x = _mamba_block_full(layer_slice(lp, j), cfg, x)
         if want_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)}
+            kvs.append(kv)
+    cache = ({n: torch.stack([kv[n] for kv in kvs]) for n in kvs[0]}
              if want_cache else None)
-    return x, 0.0, cache
+    return x, aux, cache
 
 
 def group_decode(params: Any, cfg: ModelConfig, spec: GroupSpec,
@@ -219,11 +250,12 @@ def group_decode(params: Any, cfg: ModelConfig, spec: GroupSpec,
     """Single-token decode through one group. ``cache`` is the group's
     ``group_empty_cache`` layout, its leaves updated in place, layer by
     layer. Returns (x, cache)."""
-    _refuse_moe(spec)
     for i in range(spec.count):
         lp, c = layer_slice(params, i), layer_slice(cache, i)
         if spec.kind == "dense":
             x, _ = _dense_block_decode(lp, cfg, x, positions, c, slot, mask)
+        elif spec.kind == "moe":
+            x, _ = _moe_block_decode(lp, cfg, x, positions, c, slot, mask)
         elif spec.kind in ("mamba1", "mamba2"):
             x, _ = _mamba_block_decode(lp, cfg, x, c)
         elif spec.kind == "hybrid":
@@ -237,13 +269,16 @@ def group_decode(params: Any, cfg: ModelConfig, spec: GroupSpec,
     return x, cache
 
 
-def _attention_stacks_only(spec: GroupSpec, what: str) -> None:
-    """The paged caches hold attention k/v alone: SSM recurrent state has
-    no sequence axis to page (the reference refuses the same kinds)."""
-    _refuse_moe(spec)
-    if spec.kind != "dense":
-        raise NotImplementedError(
-            f"{what} covers attention stacks only, not {spec.kind}")
+def _paged_block(spec: GroupSpec, what: str):
+    """The block body of a paged pass: the paged caches hold attention k/v
+    alone, and SSM recurrent state has no sequence axis to page (the
+    reference refuses the same kinds)."""
+    if spec.kind == "dense":
+        return _dense_block_decode_paged
+    if spec.kind == "moe":
+        return _moe_block_decode_paged
+    raise NotImplementedError(
+        f"{what} covers attention stacks only, not {spec.kind}")
 
 
 def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
@@ -257,13 +292,12 @@ def group_decode_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     kernel. Each layer writes the same slots, so which entry keeps a
     slot is resolved once (``attention.last_writes``). Returns (x,
     pool)."""
-    _attention_stacks_only(spec, "paged decode")
+    block = _paged_block(spec, "paged decode")
     src = _write_src(pool, write_page, write_off)
     for i in range(spec.count):
-        x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
-                                         positions, layer_slice(pool, i),
-                                         page_table, write_page, write_off,
-                                         mask, src)
+        x, _ = block(layer_slice(params, i), cfg, x, positions,
+                     layer_slice(pool, i), page_table, write_page,
+                     write_off, mask, src)
     return x, pool
 
 
@@ -285,14 +319,13 @@ def group_verify_paged(params: Any, cfg: ModelConfig, spec: GroupSpec,
     write_page / write_off (B, C), mask (B, C, n_pages*page). The layer
     loop of ``group_decode_paged`` with the multi-query attention body.
     Returns (x, pool), the pool updated in place."""
-    _attention_stacks_only(spec, "paged verify")
+    block = _paged_block(spec, "paged verify")
     src = _write_src(pool, write_page, write_off)
     for i in range(spec.count):
-        x, _ = _dense_block_decode_paged(layer_slice(params, i), cfg, x,
-                                         positions, layer_slice(pool, i),
-                                         page_table, write_page, write_off,
-                                         mask, src,
-                                         attn_fn=attention.attn_verify_paged)
+        x, _ = block(layer_slice(params, i), cfg, x, positions,
+                     layer_slice(pool, i), page_table, write_page,
+                     write_off, mask, src,
+                     attn_fn=attention.attn_verify_paged)
     return x, pool
 
 
@@ -314,9 +347,8 @@ def group_empty_cache(cfg: ModelConfig, spec: GroupSpec, batch: int,
     """One group's decode cache: attention k/v (count, B, width, K, hd),
     Mamba states (count, B, ...), and for a hybrid group both, the states
     (count, attn_every, B, ...)."""
-    _refuse_moe(spec)
     n = spec.count
-    if spec.kind == "dense":
+    if spec.kind in ("dense", "moe"):
         return _zeros_stacked(
             attention.empty_cache(cfg, batch, width, device), (n,))
     if spec.kind in ("mamba1", "mamba2"):
@@ -339,12 +371,19 @@ def group_empty_cache(cfg: ModelConfig, spec: GroupSpec, batch: int,
 # ---------------------------------------------------------------------------
 
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count: ``init_params`` on the meta device, which
-    allocates nothing."""
+    allocates nothing. ``active_only``: the parameters a token touches
+    (MoE layers count top_k of their routed experts)."""
     from repro_torch.models import model as model_lib
     params = model_lib.init_params(cfg, torch.Generator(), device="meta")
-    return sum(t.numel() for t in leaves(params))
+    total = sum(t.numel() for t in leaves(params))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        per_expert = (3 if cfg.gated_mlp else 2) * cfg.d_model * m.d_ff_expert
+        n_moe_layers = cfg.num_layers - m.first_k_dense
+        total -= n_moe_layers * (m.num_experts - m.top_k) * per_expert
+    return total
 
 
 def leaves(tree: Any):

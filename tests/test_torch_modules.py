@@ -247,25 +247,30 @@ def test_gqa_full_use_flash_ignores_mask(system):
 
 def test_gqa_full_unported_switches_raise_where_reached(system):
     """The reference's order of branches: the scores stub, then flash, then
-    query chunking (only where S splits into chunks), then SDPA."""
-    _, tparams, _, _ = system
+    query chunking (only where S splits into chunks), then SDPA. The stub
+    and the chunking are ported: each equals the reference's."""
+    params, tparams, _, _ = system
+    jp = _layer(params["llm"]["groups"][0]["attn"], 0)
     tp = _tlayer(tparams["llm"]["groups"][0]["attn"], 0)
     S = 8
-    x = torch.from_numpy(_llm_x(41, S))
-    pos = torch.arange(S, dtype=torch.int32)[None].expand(2, S)
-    mask = tc.causal_mask(S)[None]
-    plain, _ = tattn.gqa_full(tp, TP.llm, x, pos, mask)
-    with pytest.raises(NotImplementedError, match="attn_scores_stub"):
-        tattn.gqa_full(tp, TP.llm.replace(attn_scores_stub=True,
-                                          use_flash=True), x, pos, mask)
-    with pytest.raises(NotImplementedError, match="attn_chunk"):
-        tattn.gqa_full(tp, TP.llm.replace(attn_chunk=4), x, pos, mask)
+    x = _llm_x(41, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    mask = np.array(jc.causal_mask(S))[None]
+    args = (torch.from_numpy(x), torch.from_numpy(pos),
+            torch.from_numpy(mask))
+    plain, _ = tattn.gqa_full(tp, TP.llm, *args)
+    for kw in (dict(attn_scores_stub=True, use_flash=True),
+               dict(attn_chunk=4)):
+        jo, _ = jattn.gqa_full(jp, JP.llm.replace(**kw), x, pos,
+                               jnp.asarray(mask))
+        to, _ = tattn.gqa_full(tp, TP.llm.replace(**kw), *args)
+        _close(jo, to)
+    chunked, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=4), *args)
+    _close(plain.numpy(), chunked)
     flash, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=4,
-                                                 use_flash=True),
-                              x, pos, mask)
+                                                 use_flash=True), *args)
     _close(plain.numpy(), flash)
-    unchunked, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=3), x, pos,
-                                  mask)
+    unchunked, _ = tattn.gqa_full(tp, TP.llm.replace(attn_chunk=3), *args)
     assert torch.equal(unchunked, plain)
 
 
@@ -590,8 +595,8 @@ def test_group_decode_paged(system):
     _close(jx, tx)
     _close(jpool["k"], tpool["k"])
     _close(jpool["v"], tpool["v"])
-    with pytest.raises(NotImplementedError):
-        tstack.group_decode_paged({}, tcfg, tstack.GroupSpec("moe", 1), tx,
+    with pytest.raises(NotImplementedError, match="attention stacks"):
+        tstack.group_decode_paged({}, tcfg, tstack.GroupSpec("mamba1", 1), tx,
                                   None, tpool, None, None, None, None)
 
 
@@ -734,8 +739,8 @@ def test_group_verify_paged(system):
     _close_live(jx, tx, chunk_len)
     _close_pool(jpool["k"], tpool["k"])
     _close_pool(jpool["v"], tpool["v"])
-    with pytest.raises(NotImplementedError):
-        tstack.group_verify_paged({}, tcfg, tstack.GroupSpec("moe", 1), tx,
+    with pytest.raises(NotImplementedError, match="attention stacks"):
+        tstack.group_verify_paged({}, tcfg, tstack.GroupSpec("mamba1", 1), tx,
                                   None, tpool, None, None, None, None)
 
 

@@ -325,8 +325,9 @@ def test_configs_equal_reference(name):
 
 
 def test_unported_paths_raise():
-    """SSM state has no sequence axis to page (as in the reference); MoE
-    groups, non-text modalities and MTP are not ported yet."""
+    """SSM state has no sequence axis to page, and an encoder-only model
+    has no decode step (both as in the reference); the MoE group, the
+    other modalities and MTP are ported (tests/test_torch_zoo.py)."""
     cfg = tconfigs.get_reduced("falcon-mamba-7b")
     spec = tstack.layer_groups(cfg)[0]
     with pytest.raises(NotImplementedError, match="attention stacks"):
@@ -335,9 +336,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="attention stacks"):
         tstack.group_verify_paged(None, cfg, spec, None, None, None, None,
                                   None, None, None)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tstack.init_group(torch.Generator(), cfg, tstack.GroupSpec("moe", 1))
-    for kw in ({"modality": "audio"}, {"mtp": True}):
-        with pytest.raises(NotImplementedError, match="3a"):
-            tmodels.init_params(cfg.replace(**kw), torch.Generator(),
-                                device="cpu")
+    moe = tconfigs.get_reduced("granite-moe-3b-a800m")
+    p = tstack.init_group(torch.Generator(), moe, tstack.GroupSpec("moe", 1))
+    assert p["moe"]["router"].dtype == torch.float32
+    with pytest.raises(ValueError, match="encoder-only"):
+        tmodels.decode_step(None, tconfigs.get_reduced("hubert-xlarge"),
+                            None, None, 0)
