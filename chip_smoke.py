@@ -153,8 +153,10 @@ Phases, each fatal on failure:
      admitted and verified inside guarded pumps), a census of every host
      sync on the guarded path with the window off (each site must be a
      boundary copy or wait the window admits, WINDOW_SITES), and a
-     profiled engine with ``kv_pages=2`` whose pool grows with compile
-     events rising (the flight recorder keeps them); the profiler's cost a decode step (a profiled and a bare
+     profiled engine with ``kv_pages=2`` whose pool grows, each growth
+     read at the pool's own write (its bytes handed out by the allocator
+     there; the flight recorder keeps the compile events the census saw);
+     the profiler's cost a decode step (a profiled and a bare
      engine's warm pumps in turns, each turn's relative difference: median
      and quartiles beside the reference's 5 % budget; fails when the lower
      quartile exceeds it); (d) on a lisa-mini executor: ``run_mission`` in
@@ -200,6 +202,30 @@ Phases, each fatal on failure:
      card line, one granite prefill and decode step traced (the device
      time by class, with the MoE dispatch's sorts, scans, index and
      gather kernels as their own class, and the idle share).
+ 15. (train15, after 14) the generic training path (``make_train_step``,
+     ``optim.adamw`` with ``cosine_with_warmup``, ``data/lm.py``'s
+     batches), no kernel on it (the wrappers refuse under grad): (a) each
+     of the ten reduced configs in float32, one step on the card and on
+     the CPU from the same weights and batch: metrics within TRAIN15_RTOL,
+     each gradient leaf and each leaf's update within TRAIN15_NORM; (b)
+     qwen2-vl-2b whole at full width in random bf16 from ``--seed``, B = 2
+     x S = 1,024 (256 vision embeddings): (i) one step, its metrics and
+     gradients finite, every parameter with a gradient changed, the step
+     1, the peak memory beside a reckoning; (ii) its loss and gradients
+     against the same step replayed in float32 (TRAIN15_F32_RTOL, each
+     stacked leaf a layer at a time), which a step with one layer's
+     attention probabilities detached must fail; (iii) ``sdpa_f32``'s
+     tensor-core route under autograd against the float32 upcast at
+     qwen2-vl-2b's layer and SAM's shape (each product, then dq, dk, dv,
+     with a control); (iv) four steps on one batch, the loss falling; (v)
+     one step under ``transfer_guard_ctx`` (no host sync); (vi) a warm
+     step's wall and one traced step; (c) granite-moe-3b-a800m at full
+     width cut to 8 layers: (i) as (b), the aux loss positive, the router's
+     gradient nonzero in every layer and an expert's nonzero exactly where
+     it kept a token, a warm step's wall and peak memory; (d)
+     ``python -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced
+     --steps 4`` as a subprocess, its checkpoint read back with
+     ``init_params``' leaves, shapes, dtypes and structure.
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -3824,8 +3850,9 @@ PROFILE_TOKENS = PROFILE_TURNS + 2 * INFLIGHT_SLOTS
 # 13c: pumps after each steady-state wave, as the sanitizers' smoke pumps
 SANITIZER_PUMPS = 16
 # 13c: the pool pre-sized for the steady waves (a pool that grows allocates
-# anew, which the census counts): at most 8 stored prefixes and 4 live
-# ones of ceil(204 / 16) = 13 pages each, and a private page a slot
+# anew, which the census counts where the cache lacks the room): at most 8
+# stored prefixes and 4 live ones of ceil(204 / 16) = 13 pages each, and a
+# private page a slot
 SANITIZER_PAGES = 192
 # 13c: distinct prefixes fed to a pool of kv_pages=2
 POOL_GROWTH_REQUESTS = 8
@@ -4073,8 +4100,9 @@ def sanitize_phase(executor, pcfg, order, device, card):
     every pump and drain checks the zero budget and raises on any sync
     outside the explicit window. Then a deliberate ``.item()`` inside the
     guard must raise; and a profiled engine with ``kv_pages=2`` fed
-    distinct prefixes must grow its pool with compile events rising (the
-    allocator's), the flight recorder keeping them."""
+    distinct prefixes must grow its pool, each growth read at the pool's
+    own write (``pool_growths``), and serve on; the flight recorder keeps
+    the compile events (the allocator's) that the census saw."""
     from repro_torch import engine as eng
     from repro_torch.analysis import sanitizers
     L, V = pcfg.llm.num_layers, pcfg.llm.vocab_size
@@ -4151,28 +4179,71 @@ def sanitize_phase(executor, pcfg, order, device, card):
     engine.drain()
     warm, pages0 = (engine.stats[k] for k in ("compile_events",
                                               "kv_pages_total"))
-    futs += [submit(i) for i in range(1, POOL_GROWTH_REQUESTS)]
-    engine.drain()
+    with pool_growths(engine.kv_pool, device) as growths:
+        futs += [submit(i) for i in range(1, POOL_GROWTH_REQUESTS)]
+        engine.drain()
     stats = engine.stats
     compiles = [e["data"] for e in engine.flight.snapshot()
                 if e["kind"] == "compile"]
     log(f"[profile] 13c pool growth (kv_pages=2, {POOL_GROWTH_REQUESTS} "
-        f"distinct prefixes): pages {pages0} -> {stats['kv_pages_total']}, "
-        f"compile events {warm} -> {stats['compile_events']} "
+        f"distinct prefixes): pages {pages0} -> {stats['kv_pages_total']}; "
+        f"at each growth of the pool (pages, pool bytes, bytes the "
+        f"allocator handed out in it, new device allocations, reserved "
+        f"bytes added): {growths}; compile events {warm} -> "
+        f"{stats['compile_events']} "
         f"({stats['compile_wall_s'] * 1e3:.2f} ms of calls), flight "
         f"recorder's compile entries "
         f"{[(c['stage'], c['root'], c['delta']) for c in compiles]} "
         f"({card})")
-    if not (stats["kv_pages_total"] > pages0
-            and stats["compile_events"] > warm and compiles
+    if not (growths and stats["kv_pages_total"] > pages0
+            and all(g["allocated_bytes"] >= g["pool_bytes"][1]
+                    and g["pool_bytes"][1] > g["pool_bytes"][0]
+                    for g in growths)
             and all(c["delta"] >= 1 and c["root"] for c in compiles)
             and all(f.result().failure is None for f in futs)):
-        raise AssertionError("13c: pool growth not visible as compile "
-                             "events")
+        raise AssertionError(f"13c: pool growth not seen at the pool: "
+                             f"{growths}")
     out["pool_growth"] = {"pages": [pages0, stats["kv_pages_total"]],
+                          "growths": growths,
                           "compile_events": [warm, stats["compile_events"]],
                           "flight_compiles": compiles}
     return out
+
+
+@contextlib.contextmanager
+def pool_growths(pool, device):
+    """Reads the allocator around each call of ``pool.ensure`` that grows
+    the pool: its pages and bytes before and after, the bytes the caching
+    allocator handed out inside the call (at least the grown pool's, a
+    fresh tensor a leaf), and the new device allocations and reserved
+    bytes it took (none when the cache already held the room). Yields the
+    list it fills."""
+    growths, ensure = [], pool.ensure
+
+    def stat(key):
+        return int(torch.cuda.memory_stats(device).get(key, 0))
+
+    def read():
+        return (pool.num_pages if pool.kv is not None else 0,
+                pool.pool_bytes, stat("allocated_bytes.all.allocated"),
+                stat("num_device_alloc"), stat("reserved_bytes.all.current"))
+
+    def watched(*args, **kwargs):
+        before = read()
+        ensure(*args, **kwargs)
+        after = read()
+        if before[0] and after[0] > before[0]:
+            growths.append({"pages": [before[0], after[0]],
+                            "pool_bytes": [before[1], after[1]],
+                            "allocated_bytes": after[2] - before[2],
+                            "device_allocs": after[3] - before[3],
+                            "reserved_bytes": after[4] - before[4]})
+
+    pool.ensure = watched
+    try:
+        yield growths
+    finally:
+        del pool.ensure
 
 
 # the sites whose host syncs the explicit window admits: the executor's
@@ -4292,10 +4363,10 @@ def sync_census(executor, pcfg, order, card):
         for k, n in sorted(sites.items())]}
 
 
-def _run_module(module, args):
+def _run_module(module, args, tag="profile", phase="13d"):
     """``python -m module args`` (through RUN_MODULE, which prints the
-    kernel launch counters after it): (exit code, output lines,
-    launches)."""
+    kernel launch counters after it), its output logged under ``tag``:
+    (wall seconds, output lines, launches)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(REPO, "src")] + ([env["PYTHONPATH"]]
@@ -4307,9 +4378,9 @@ def _run_module(module, args):
     wall = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
     for ln in lines[:-1]:
-        log(f"[profile]   {ln}")
+        log(f"[{tag}]   {ln}")
     if proc.returncode != 0:
-        raise AssertionError(f"13d: python -m {module} {' '.join(args)} "
+        raise AssertionError(f"{phase}: python -m {module} {' '.join(args)} "
                              f"exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
     return wall, lines[:-1], json.loads(lines[-1])
@@ -5310,6 +5381,625 @@ def zoo14_phase(seed, dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: generic training (models/model.py:make_train_step, optim/)
+# ---------------------------------------------------------------------------
+
+
+# (a) one step of every reduced config on the card against the same step
+# on the CPU (float32, TF32 off): the loss and each metric within
+# TRAIN15_RTOL, each gradient leaf and each leaf's update p' - p norm-wise
+# within TRAIN15_NORM, as the CPU tests hold the port against the
+# reference. TRAIN15_EPS is AdamW's eps there (tests/test_torch_train_zoo
+# .py: EPS): at the default 1e-8 an element whose gradient cancels to near
+# eps turns the float32 rounding of its gradient into its whole update, and
+# the reference disagrees with itself there by 2e-3 to 4e-3.
+TRAIN15_RTOL = 1e-5
+TRAIN15_NORM = 1e-4
+TRAIN15_EPS = 1e-4
+TRAIN15_LR = 3e-4
+# the rate of the checked first step of (b) and (c): every parameter with a
+# nonzero gradient must change, and bf16 parameters near 1 (the norms'
+# weights) move only when lr * |update| passes half a bf16 step below 1,
+# 2**-9; AdamW's first update is about 1 a parameter
+TRAIN15_CHECK_LR = 1e-2
+# (b) qwen2-vl-2b whole at full width, (c) granite-moe-3b-a800m at full
+# width cut in depth (all 32 layers need about 54 GB of parameters and
+# optimizer state alone), both at B = 2 x S = 1,024
+TRAIN15_BATCH, TRAIN15_SEQ = 2, 1024
+TRAIN15_QWEN = "qwen2-vl-2b"
+TRAIN15_GRANITE = "granite-moe-3b-a800m"
+TRAIN15_GRANITE_LAYERS = 8
+# (b ii) the bf16 step's loss and gradients against the same step replayed
+# in float32 from the same weights, norm-wise per leaf, each stacked layer
+# leaf a layer at a time (a stack of 28 layers hides one wrong layer: the
+# control read 0.080 on the whole `bk` stack, 1.0 on its layer). bf16
+# activations and gradient signals, each rounded to 2**-9, through 28
+# layers: the worst layer read 0.0372 (`bk`, layer 0), the median 0.0156
+# of 340 leaves, the loss 1.22e-4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+# The limit keeps a factor of 3 over the worst and 8 under the control.
+TRAIN15_F32_RTOL = 2.0 ** -3
+# (b ii) the control: the same bf16 step with this layer's attention
+# probabilities detached must fail TRAIN15_F32_RTOL
+TRAIN15_CONTROL_LAYER = 13
+TRAIN15_LAUNCHER = ("--arch", "phi4-mini-3.8b", "--reduced", "--steps", "4")
+# (b iii) each of the route's two products under autograd against the
+# float32 upcast product's autograd on the same operands and cotangent,
+# norm-wise: both multiply the same float32 values (TF32 off)
+TRAIN15_PRODUCT_RTOL = 1e-6
+# (b iii) dq, dk, dv of the route against the upcast route's, norm-wise.
+# Not SDPA_RTOL: where the two routes' scores differ in the last float32
+# bit, the bf16 rounding of P flips (SDPA_RTOL's forward reads 2.1e-5 to
+# 3.3e-5), and dv sums those P over queries: dv read 1.19e-4 at qwen2-vl's
+# layer (dq 2.63e-5, dk 2.21e-5) while each product's own gradients are
+# held to TRAIN15_PRODUCT_RTOL. A backward that rounds its cotangent to
+# bf16 reads 2.6e-3 to 3.8e-3 and must fail this limit.
+TRAIN15_SDPA_GRAD_RTOL = 5e-4
+# (b iii) (name, B, S, H, K, hd, causal)
+TRAIN15_SDPA_CASES = (("qwen2-vl-2b_layer", 2, 1024, 12, 2, 128, True),
+                      ("sam", 1, 4096, 16, 16, 80, False))
+TRAIN_CLASSES = {"elementwise": ("elementwise",),
+                 "reduce": ("reduce",),
+                 "index_gather": ("index", "gather", "scatter")}
+
+
+def _paths(tree, pre=""):
+    """(path, leaf) of a dict / list / tuple tree, depth first."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{pre}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{pre}/{i}")
+    else:
+        yield pre, tree
+
+
+def _norm_rel(a, b):
+    """||a - b|| / ||b|| of two leaves, in float64 on ``b``'s device
+    (``None`` is zeros); 0 when both are zero."""
+    if a is None and b is None:
+        return 0.0
+    ref = b if b is not None else a
+    a = torch.zeros_like(ref) if a is None else a
+    b = torch.zeros_like(ref) if b is None else b
+    a, b = a.detach().to(b.device).double(), b.detach().double()
+    n = float(torch.linalg.vector_norm(b))
+    d = float(torch.linalg.vector_norm(a - b))
+    return d / n if n > 0 else d
+
+
+def _layer_paths(tree):
+    """``_paths`` with each stacked layer leaf (under ``groups``) split
+    into its layers: "/groups/0/attn/wq[13]"."""
+    for path, leaf in _paths(tree):
+        if path.startswith("/groups/") and leaf is not None:
+            for i, t in enumerate(leaf.unbind(0)):
+                yield f"{path}[{i}]", t
+        else:
+            yield path, leaf
+
+
+def _worst(a_tree, b_tree):
+    """(the largest ``_norm_rel`` over the leaves, its path)."""
+    return max(((_norm_rel(a, b), p) for (p, a), (_, b) in
+                zip(_paths(a_tree), _paths(b_tree))), default=(0.0, ""))
+
+
+def _recording_opt(opt):
+    """``opt`` whose ``apply`` also keeps the gradients it was given."""
+    from repro_torch.optim import Optimizer
+    seen = []
+
+    def apply(p, s, g):
+        seen.append(g)
+        return opt.apply(p, s, g)
+    return Optimizer(init=opt.init, apply=apply), seen
+
+
+def _to(tree, dev):
+    from repro_torch.models.stack import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def train15_cpu_parity(seed, dev):
+    """(a) each reduced config: one step on the card and on the CPU from
+    the same weights (made on the CPU, then copied) and batch."""
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.data import lm
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import adamw, cosine_with_warmup
+    out = {}
+    for name in ARCH_IDS:
+        cfg = get_reduced(name)
+        params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        nb = lm.lm_batch(np.random.RandomState(seed), cfg, 2, 16)
+        runs = {}
+        for where in ("cpu", dev):
+            opt, seen = _recording_opt(adamw(cosine_with_warmup(
+                1e-3, 1, 4), eps=TRAIN15_EPS))
+            p = _to(params, where)
+            new, state, metrics = make_train_step(cfg, opt)(
+                p, opt.init(p), {k: torch.from_numpy(v).to(where)
+                                 for k, v in nb.items()})
+            upd = [None if a is None else a.float() - b.float() for a, b in
+                   ((n, o) for (_, n), (_, o) in zip(_paths(new),
+                                                     _paths(p)))]
+            runs[str(where)] = (metrics, seen[0], upd)
+        (mc, gc_, uc), (md, gd, ud) = runs["cpu"], runs[str(dev)]
+        rel = {k: abs(float(md[k]) - float(mc[k]))
+               / max(abs(float(mc[k])), 1e-30) if float(mc[k]) else
+               abs(float(md[k])) for k in mc}
+        g_err, g_path = _worst(gd, gc_)
+        u_err, u_path = max((_norm_rel(a, b), p) for (p, _), a, b in
+                            zip(_paths(params), ud, uc))
+        log(f"[train15] (a) {name}: metrics rel "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (limit {TRAIN15_RTOL:g}); worst gradient leaf {g_path} "
+            f"{g_err:.2e}, worst update leaf {u_path} {u_err:.2e} (limit "
+            f"{TRAIN15_NORM:g}, norm-wise)")
+        if sorted(md) != sorted(mc) or max(rel.values()) > TRAIN15_RTOL \
+                or g_err > TRAIN15_NORM or u_err > TRAIN15_NORM:
+            raise AssertionError(f"15a {name}: the card's step is off the "
+                                 f"CPU's")
+        out[name] = {"metrics_rel": rel, "grad_worst": [g_err, g_path],
+                     "update_worst": [u_err, u_path],
+                     "loss": float(md["loss"])}
+    return out
+
+
+def _mem_gb(params):
+    """(parameters, their gradients, the float32 moments, the float32
+    clipped gradients) in GB."""
+    from repro_torch.models.stack import leaves
+    n = sum(t.numel() for t in leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    return nbytes / 1e9, nbytes / 1e9, 8 * n / 1e9, 4 * n / 1e9
+
+
+def _step_checks(label, params, new, state, metrics, grads, moe=False):
+    """(i): the loss, aux_loss and grad_norm finite (aux_loss positive on
+    an MoE model), every gradient finite, every parameter with a nonzero
+    gradient changed, the state's step 1."""
+    for k in ("loss", "aux_loss", "grad_norm", "total_loss"):
+        if not bool(torch.isfinite(metrics[k])):
+            raise AssertionError(f"{label}: {k} {float(metrics[k])}")
+    if moe and not float(metrics["aux_loss"]) > 0:
+        raise AssertionError(f"{label}: aux_loss {float(metrics['aux_loss'])}")
+    n_grad = n_changed = n_none = 0
+    for (path, g), (_, a), (_, b) in zip(_paths(grads), _paths(new),
+                                         _paths(params)):
+        if g is None:
+            n_none += 1
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: gradient {path} not finite")
+        if bool(g.any()):
+            n_grad += 1
+            if torch.equal(a, b):
+                raise AssertionError(f"{label}: {path} has a gradient but "
+                                     f"did not change")
+            n_changed += 1
+    if int(state["step"]) != 1 or state["step"].dtype != torch.int32:
+        raise AssertionError(f"{label}: state step {state['step']}")
+    log(f"[train15] {label}: loss {float(metrics['loss']):.4f}, aux_loss "
+        f"{float(metrics['aux_loss']):.4g}, grad_norm "
+        f"{float(metrics['grad_norm']):.4f}; {n_grad} leaves with a "
+        f"nonzero gradient, all finite, all {n_changed} changed; "
+        f"{n_none} without a gradient; state step 1")
+    return n_grad
+
+
+def _sdpa_probs_detached(q, k, v, mask, scale):
+    """``attention.sdpa_tc`` with its probabilities detached: no gradient
+    reaches q and k through this attention (the control of 15b ii)."""
+    from repro_torch.models import attention
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    mask = mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
+    scores = attention.scores_f32(q, k).reshape(B, K, G, S, T) * scale \
+        + mask
+    probs = torch.softmax(scores, dim=-1).detach().to(v.dtype)
+    out = attention.pv_f32(probs.reshape(B * K, G * S, T), v)
+    return out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, S, H, hd)
+
+
+def _control_grads(params, cfg, batch, layer):
+    """``loss_and_grads`` with layer ``layer``'s attention probabilities
+    detached."""
+    from repro_torch.models import attention, loss_and_grads
+    calls = itertools.count()
+    tc = attention.sdpa_tc
+
+    def sdpa(*args):
+        return (_sdpa_probs_detached if next(calls) == layer else tc)(*args)
+    with mock.patch.object(attention, "sdpa_tc", sdpa):
+        out = loss_and_grads(params, cfg, batch)
+    if next(calls) != cfg.num_layers:
+        raise AssertionError("15b control: not one attention a layer")
+    return out
+
+
+def _count_nodes(fn, name):
+    """Autograd nodes named ``name`` in the graph behind ``fn``."""
+    seen, todo, n = set(), [fn], 0
+    while todo:
+        f = todo.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        n += type(f).__name__ == name
+        todo.extend(g for g, _ in f.next_functions)
+    return n
+
+
+class _MatmulF32Bf16Cotangent(torch.autograd.Function):
+    """The control of 15b iii: ``_MatmulF32`` with a backward that rounds
+    the float32 cotangent to the operands' dtype first (what autograd of a
+    bf16 product computes)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype).float()
+        return (torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype),
+                torch.bmm(a.float().transpose(1, 2), g).to(b.dtype))
+
+
+def _product_grads(a, b, cot, fn):
+    leaves = [a.clone().requires_grad_(), b.clone().requires_grad_()]
+    out = fn(*leaves)
+    return (out.detach(), *torch.autograd.grad((out * cot).sum(), leaves))
+
+
+def train15_sdpa_backward(gen, dev):
+    """(b iii) ``sdpa_f32``'s tensor-core route under autograd (two
+    ``_MatmulF32`` products) against autograd of the float32 upcast on the
+    same bf16 inputs, at qwen2-vl-2b's layer (B = 2, S = 1,024, H 12 / K 2,
+    hd 128, causal) and SAM's (4,096 tokens, 16 heads, hd 80): each
+    product's gradients against the upcast product's on the same operands
+    and cotangent (TRAIN15_PRODUCT_RTOL; the forwards differ in their
+    order of sums, ``check_sdpa``), and dq, dk, dv of the whole
+    attention (TRAIN15_SDPA_GRAD_RTOL), which a route with a bf16
+    cotangent must fail."""
+    from repro_torch.models import attention
+    from repro_torch.models.common import causal_mask
+
+    def upcast(a, b):
+        return torch.bmm(a.float(), b.float())
+    out = {}
+    for name, B, S, H, K, hd, causal in TRAIN15_SDPA_CASES:
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev
+                               ).to(torch.bfloat16) for n in (H, K, K))
+        cot = torch.randn(B, S, H, hd, generator=gen, device=dev)
+        mask = causal_mask(S, device=dev)[None] if causal else \
+            torch.zeros((1, S, S), device=dev)
+        # each product on its own operands: the route's shapes
+        G = H // K
+        qg = q.reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4).reshape(
+            B * K, G * S, hd)
+        kt = k.permute(0, 2, 3, 1).reshape(B * K, hd, S)
+        vg = v.permute(0, 2, 1, 3).reshape(B * K, S, hd)
+        probs = torch.softmax(torch.randn(B * K, G * S, S, generator=gen,
+                                          device=dev), -1).to(v.dtype)
+        prod = {}
+        for pname, a, b in (("q.k", qg, kt), ("p.v", probs, vg)):
+            c = torch.randn(a.shape[0], a.shape[1], b.shape[2],
+                            generator=gen, device=dev)
+            got = _product_grads(a, b, c, attention._MatmulF32.apply)
+            want = _product_grads(a, b, c, upcast)
+            prod[pname] = max(_rel(x, y) for x, y in zip(got[1:], want[1:]))
+        del qg, kt, vg, probs
+        res = {}
+        for route, fn in (("tc", attention.sdpa_f32),
+                          ("upcast", sdpa_upcast_f32),
+                          ("control", attention.sdpa_f32)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            with (mock.patch.object(attention._MatmulF32, "apply",
+                                    _MatmulF32Bf16Cotangent.apply)
+                  if route == "control" else contextlib.nullcontext()):
+                o = fn(*leaves, mask, hd ** -0.5)
+                if route == "tc" and _count_nodes(
+                        o.grad_fn, "_MatmulF32Backward") != 2:
+                    raise AssertionError(f"15b iii {name}: the route has "
+                                         f"no two _MatmulF32 products")
+                res[route] = (o.detach(), *torch.autograd.grad(
+                    (o * cot).sum(), leaves))
+            del o, leaves
+        errs = {n: _rel(a, b) for n, a, b in zip(
+            ("out", "dq", "dk", "dv"), res["tc"], res["upcast"])}
+        ctl = {n: _rel(a, b) for n, a, b in zip(
+            ("dq", "dk", "dv"), res["control"][1:], res["upcast"][1:])}
+        log(f"[train15] (b iii) sdpa backward {name}: each product's "
+            f"gradients against the upcast product's "
+            + ", ".join(f"{n} {e:.2e}" for n, e in prod.items())
+            + f" (limit {TRAIN15_PRODUCT_RTOL:g}); the attention against "
+            f"the upcast route "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (limit {TRAIN15_SDPA_GRAD_RTOL}, norm-wise); control (a "
+            f"bf16 cotangent) "
+            + ", ".join(f"{n} {e:.2e}" for n, e in ctl.items()))
+        if max(prod.values()) > TRAIN15_PRODUCT_RTOL:
+            raise AssertionError(f"15b iii {name}: products {prod}")
+        if max(errs[n] for n in ("dq", "dk", "dv")) > TRAIN15_SDPA_GRAD_RTOL:
+            raise AssertionError(f"15b iii {name}: {errs}")
+        if not min(ctl.values()) > TRAIN15_SDPA_GRAD_RTOL:
+            raise AssertionError(f"15b iii {name}: the control {ctl} passes")
+        out[name] = {"products": prod, "route": errs, "control": ctl}
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_batch(cfg, seed, dev):
+    from repro_torch.data import lm
+    nb = lm.lm_batch(np.random.RandomState(seed), cfg, TRAIN15_BATCH,
+                     TRAIN15_SEQ)
+    return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+
+
+def train15_qwen(seed, dev, card):
+    """(b) qwen2-vl-2b whole at full width."""
+    from repro_torch.analysis.sanitizers import transfer_guard_ctx
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_and_grads, \
+        make_train_step, stack
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.models.stack import tree_map
+    cfg = get_config(TRAIN15_QWEN)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, dev)
+    n_params = sum(t.numel() for t in stack.leaves(params))
+    if n_params != ZOO14[TRAIN15_QWEN][0]:
+        raise AssertionError(f"15b: {n_params} parameters")
+    batch = _lm_batch(cfg, seed, dev)
+    gb = _mem_gb(params)
+    out = {"params": n_params, "reckoning_gb": {
+        "params": gb[0], "grads": gb[1], "moments": gb[2],
+        "clipped_f32_grads": gb[3]}}
+
+    def opt_(lr=TRAIN15_LR):
+        return adamw(cosine_with_warmup(lr, 1, 8))
+    opt, seen = _recording_opt(opt_(TRAIN15_CHECK_LR))
+    step = make_train_step(cfg, opt)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = _sync_s()
+    new, state, metrics = step(params, opt.init(params), batch)
+    out["first_step_s"] = _sync_s() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = seen.pop()
+    log(f"[train15] (b) {TRAIN15_QWEN}: {n_params:,} parameters, B="
+        f"{TRAIN15_BATCH} x S={TRAIN15_SEQ} ({cfg.num_vision_tokens} vision "
+        f"embeddings); first step {out['first_step_s']:.2f} s; peak memory "
+        f"{out['peak_gib']:.2f} GiB (parameters and batch "
+        f"{base:.2f} GiB before it; reckoning: parameters {gb[0]:.2f} GB, "
+        f"gradients {gb[1]:.2f}, moments {gb[2]:.2f}, float32 clipped "
+        f"gradients {gb[3]:.2f}, plus activations)")
+    out["n_grad_leaves"] = _step_checks(f"(b i) {TRAIN15_QWEN} step", params,
+                                        new, state, metrics, grads)
+    loss16 = metrics["total_loss"]
+    del new, state
+    out["grad_none"] = [p for p, g in _paths(grads) if g is None]
+
+    # (ii) the same step's loss and gradients replayed in float32
+    cfg32 = cfg.replace(param_dtype="float32", act_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    total32, _, g32 = loss_and_grads(p32, cfg32, batch)
+    del p32
+    errs = sorted(((_norm_rel(a, b), p) for (p, a), (_, b) in
+                   zip(_layer_paths(grads), _layer_paths(g32))),
+                  reverse=True)
+    loss_rel = _rel(loss16, total32)
+    _, _, gctl = _control_grads(params, cfg, batch, TRAIN15_CONTROL_LAYER)
+    ctl = max((_norm_rel(a, b), p) for (p, a), (_, b) in
+              zip(_layer_paths(gctl), _layer_paths(g32)))
+    del gctl, g32
+    out["f32_replay"] = {"loss_rel": loss_rel, "worst": errs[:5],
+                         "median": float(np.median([e for e, _ in errs])),
+                         "control_worst": list(ctl)}
+    log(f"[train15] (b ii) bf16 step against its float32 replay: loss rel "
+        f"{loss_rel:.2e}; gradient leaves norm-wise: worst "
+        + ", ".join(f"{p} {e:.3e}" for e, p in errs[:5])
+        + f"; median {out['f32_replay']['median']:.3e} over "
+        f"{len(errs)} leaves, each stacked leaf a layer at a time (limit "
+        f"{TRAIN15_F32_RTOL}); control (layer {TRAIN15_CONTROL_LAYER}'s "
+        f"attention probabilities detached): worst {ctl[1]} {ctl[0]:.3e}")
+    if errs[0][0] > TRAIN15_F32_RTOL or loss_rel > TRAIN15_F32_RTOL:
+        raise AssertionError(f"15b ii: {errs[0]} beyond {TRAIN15_F32_RTOL}")
+    if not ctl[0] > TRAIN15_F32_RTOL:
+        raise AssertionError(f"15b ii: the control {ctl} passes "
+                             f"{TRAIN15_F32_RTOL}")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["sdpa_backward"] = train15_sdpa_backward(gen, dev)
+
+    # (iv) four AdamW steps on one fixed batch: the loss falls
+    step = make_train_step(cfg, opt_())
+    p, s = params, opt_().init(params)
+    losses = []
+    for _ in range(4):
+        p, s, m = step(p, s, batch)
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    log(f"[train15] (b iv) four steps on one batch: losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"15b iv: the loss did not fall: {losses}")
+
+    # (v) one step under the transfer guard, the batch on the card before
+    with transfer_guard_ctx(True, dev):
+        p, s, m = step(p, s, batch)
+    torch.cuda.synchronize()
+    log("[train15] (b v) one step under the transfer guard: no host sync")
+
+    # (vi) a warm step's wall (median of 3), one step traced, peak memory
+    hold = {"p": p, "s": s}
+    del p, s
+
+    def one():
+        hold["p"], hold["s"], _ = step(hold["p"], hold["s"], batch)
+    out["step_wall_ms"], walls = _median_wall_ms(one)
+    out["profile"] = trace(f"{TRAIN15_QWEN} train step B={TRAIN15_BATCH} "
+                           f"S={TRAIN15_SEQ}", one, TRAIN_CLASSES)
+    out["peak_gib_end"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] {TRAIN15_QWEN} (whole, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters, bf16) B={TRAIN15_BATCH} x "
+        f"S={TRAIN15_SEQ}: warm step wall {out['step_wall_ms']:.1f} ms "
+        f"(median of {[round(w, 1) for w in walls]}), device "
+        f"{out['profile']['device_ms']:.1f} ms (idle share "
+        f"{out['profile']['idle_share']:.3f}), peak memory "
+        f"{out['peak_gib']:.2f} GiB; {card}")
+    return out
+
+
+def train15_granite(seed, dev, card):
+    """(c) granite-moe-3b-a800m at full width, cut to
+    TRAIN15_GRANITE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_train_step, moe, stack
+    from repro_torch.optim import adamw, cosine_with_warmup
+    cfg = get_config(TRAIN15_GRANITE)
+    full_layers = cfg.num_layers
+    cfg = cfg.replace(num_layers=TRAIN15_GRANITE_LAYERS)
+    m = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, dev)
+    n_params = sum(t.numel() for t in stack.leaves(params))
+    batch = _lm_batch(cfg, seed, dev)
+    opt, seen = _recording_opt(adamw(cosine_with_warmup(TRAIN15_CHECK_LR,
+                                                        1, 8)))
+    step = make_train_step(cfg, opt)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    routes, router = [], moe._router
+
+    def recording(*args):
+        out = router(*args)
+        routes.append(out[1])
+        return out
+    t0 = _sync_s()
+    with mock.patch.object(moe, "_router", recording):
+        new, state, metrics = step(params, opt.init(params), batch)
+    first = _sync_s() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = seen.pop()
+    label = f"(c i) {TRAIN15_GRANITE} ({TRAIN15_GRANITE_LAYERS} of " \
+            f"{full_layers} layers) step"
+    n_grad = _step_checks(label, params, new, state, metrics, grads,
+                          moe=True)
+    del new, state
+    # the router's gradient nonzero in every layer; an expert's gradients
+    # nonzero exactly where the expert kept a token (an expert chosen at
+    # all keeps its first (token, slot) pair), zero elsewhere
+    g = grads["groups"][0]["moe"]
+    if len(routes) != TRAIN15_GRANITE_LAYERS:
+        raise AssertionError(f"15c: {len(routes)} router calls")
+    kept = []
+    for layer, gate_idx in enumerate(routes):
+        if not bool(g["router"][layer].any()):
+            raise AssertionError(f"15c: layer {layer}'s router has no "
+                                 f"gradient")
+        chosen = torch.bincount(gate_idx.reshape(-1),
+                                minlength=m.num_experts) > 0
+        for w in ("w_gate", "w_up", "w_down"):
+            has = g[w][layer].flatten(1).any(dim=1)
+            if not torch.equal(has, chosen):
+                raise AssertionError(f"15c: layer {layer} {w}: gradient "
+                                     f"experts {has.tolist()}, experts "
+                                     f"that kept a token {chosen.tolist()}")
+        kept.append(int(chosen.sum()))
+    log(f"[train15] (c) experts that kept a token, a layer: {kept} of "
+        f"{m.num_experts}; each has a nonzero gradient, the others none; "
+        f"every layer's router has a gradient")
+    del grads, routes
+    hold = {"p": params, "s": opt.init(params)}
+    del params
+    step = make_train_step(cfg, adamw(cosine_with_warmup(TRAIN15_LR, 1, 8)))
+
+    def one():
+        hold["p"], hold["s"], _ = step(hold["p"], hold["s"], batch)
+    one()
+    wall, walls = _median_wall_ms(one)
+    cut = f"depth cut {full_layers} -> {TRAIN15_GRANITE_LAYERS} layers"
+    log(f"[train] {TRAIN15_GRANITE} (full width, {cut}; {n_params / 1e9:.3f}"
+        f" B parameters, {m.num_experts} experts top-{m.top_k}, "
+        f"{m.dispatch} dispatch, bf16) B={TRAIN15_BATCH} x S={TRAIN15_SEQ}:"
+        f" first step {first:.2f} s, warm step wall {wall:.1f} ms (median "
+        f"of {[round(w, 1) for w in walls]}), peak memory {peak:.2f} GiB; "
+        f"{card}")
+    return {"params": n_params, "cut": cut, "first_step_s": first,
+            "step_wall_ms": wall, "peak_gib": peak, "kept": kept,
+            "aux_loss": float(metrics["aux_loss"]),
+            "loss": float(metrics["loss"]), "n_grad_leaves": n_grad}
+
+
+def train15_launcher():
+    """(d) ``python -m repro_torch.launch.train`` as a subprocess on the
+    card: exit 0, its ``[train]`` lines, and a checkpoint that
+    ``bridge.load_checkpoint`` reads with ``init_params``' leaves, shapes,
+    dtypes and structure."""
+    import tempfile
+
+    from repro_torch.bridge import load_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    arch = TRAIN15_LAUNCHER[1]
+    cfg = get_reduced(arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        wall, lines, _ = _run_module("repro_torch.launch.train",
+                                     [*TRAIN15_LAUNCHER, "--out", tmp],
+                                     tag="train15", phase="15d")
+        back = load_checkpoint(os.path.join(tmp, cfg.name), "cpu")
+    if not any(ln.startswith(f"[train] {cfg.name}") for ln in lines) or \
+            sum("loss=" in ln for ln in lines) != 4:
+        raise AssertionError(f"15d: the launcher printed {lines}")
+
+    def flat(tree):
+        return {p: (tuple(t.shape), t.dtype) for p, t in _paths(tree)}
+    want = init_params(cfg, torch.Generator(), "meta")
+    if flat(back) != flat(want) or len(flat(back)) != len(flat(want)):
+        raise AssertionError("15d: the checkpoint's structure, shapes or "
+                             "dtypes differ from init_params'")
+    log(f"[train15] (d) python -m repro_torch.launch.train "
+        f"{' '.join(TRAIN15_LAUNCHER)} in {wall:.1f} s: exit 0; the "
+        f"checkpoint reads back with init_params' {len(flat(want))} leaves,"
+        f" shapes, dtypes and structure")
+    return {"wall_s": wall, "lines": lines, "leaves": len(flat(want))}
+
+
+def train15_phase(seed, dev):
+    """Phase 15: (a), then each full-width model freed before the next,
+    then the launcher."""
+    card = card_line()
+    report = {}
+    for part, fn in (("cpu_parity", lambda: train15_cpu_parity(seed, dev)),
+                     ("qwen", lambda: train15_qwen(seed, dev, card)),
+                     ("granite", lambda: train15_granite(seed, dev, card)),
+                     ("launcher", train15_launcher)):
+        t0 = time.perf_counter()
+        report[part] = fn()
+        report[part + "_s"] = time.perf_counter() - t0
+        log(f"[train15] {part} in {report[part + '_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -5532,6 +6222,10 @@ def main() -> int:
     report["zoo14"] = zoo14_phase(args.seed, dev)
     report["zoo14_s"] = time.perf_counter() - t0
     log(f"[zoo14] phase 14 in {report['zoo14_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["train15"] = train15_phase(args.seed, dev)
+    report["train15_s"] = time.perf_counter() - t0
+    log(f"[train15] phase 15 in {report['train15_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

@@ -9,8 +9,8 @@ system that serving smoke runs, the mission runtime and the chip check
 use: random weights and one bottleneck per tier over the published LUT.
 
 The offline phase itself (``build_lut``, which measures each tier's IoU on
-trained models, and ``train_full_system``) comes with training (ROADMAP.md,
-Queue 1 item 6) and raises until then.
+trained models, and ``train_full_system``) comes with the LISA system's
+training (ROADMAP.md, Queue 1 item 6b) and raises until then.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from repro_torch.core import packets as pk
 from repro_torch.core.lut import SystemLUT
 
 TIER_NAMES = {0.25: "High Accuracy", 0.10: "Balanced", 0.05: "High Throughput"}
-_TRAINING = "comes with training (ROADMAP.md, Queue 1 item 6)"
+_TRAINING = ("comes with the LISA system's training (ROADMAP.md, Queue 1 "
+             "item 6b)")
 
 
 def deployment_payload_mb(deploy: LISAPipelineConfig, ratio: float) -> float:

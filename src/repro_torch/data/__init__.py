@@ -1,7 +1,6 @@
-"""Procedural data (port of ``repro/data``): the flood-scene proxy and the
-operator request stream. Host-only: numpy and the standard library. The
-language-model corpus (``data/lm.py``) comes with training (ROADMAP.md,
-Queue 1 item 6)."""
-from repro_torch.data import floodseg, requests
+"""Procedural data (port of ``repro/data``): the flood-scene proxy, the
+operator request stream and the language-model token streams of the
+generic training path. Host-only: numpy and the standard library."""
+from repro_torch.data import floodseg, lm, requests
 
-__all__ = ["floodseg", "requests"]
+__all__ = ["floodseg", "lm", "requests"]

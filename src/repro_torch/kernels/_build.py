@@ -148,7 +148,15 @@ def launcher(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 
 def device_of(name: str, *tensors: torch.Tensor) -> torch.device:
     """The one device of a wrapper's inputs: cuda or cpu; raises
-    otherwise."""
+    otherwise. Also raises when autograd would record the call (grad mode
+    on and an input requires grad), on either device: the TPU kernel each
+    wrapper stands for has no gradient, so the port neither differentiates
+    the kernel nor lets its output drop the gradient silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the TPU kernel this "
+            f"kernel ports has no gradient; call it under torch.no_grad() "
+            f"or torch.inference_mode(), or train through the plain path")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on different devices: {devices}")

@@ -9,8 +9,9 @@ paged in-flight batch or closed microbatches — on the card:
   python -m repro_torch.launch.serve --smoke --batching inflight --device cpu
 
 Without ``--smoke`` the reference first trains the system offline; that
-comes with training (ROADMAP.md, Queue 1 item 6) and raises until then, as
-does the pod-disaggregated ``--dryrun`` (item 5, sharding).
+comes with the LISA system's training (ROADMAP.md, Queue 1 item 6b) and
+raises until then, as does the pod-disaggregated ``--dryrun`` (item 5,
+sharding).
 """
 import argparse
 
@@ -45,7 +46,7 @@ def serve_local(duration_s: float, seed: int, max_batch: int = 8,
     if not smoke:
         raise NotImplementedError(
             f"serving a trained system (the offline phase) "
-            f"{_NOT_PORTED.format(6)}; pass --smoke")
+            f"{_NOT_PORTED.format('6b')}; pass --smoke")
     print("[serve] smoke mode: random-init weights, paper LUT")
     params, bns_by_name, lut = prof.random_init_system(pcfg, seed=seed,
                                                        device=device)

@@ -115,18 +115,16 @@ def sdpa_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (TF32 stays off); products of bf16 values are exact in float32, so
     this computes the same thing. The CPU has no kernel for
     ``aten::bmm.dtype``. Probabilities are cast to v's dtype before P.V,
-    as in the reference.
+    as in the reference. Under autograd the tensor-core route's two
+    products take ``_MatmulF32``'s backward (``aten::bmm.dtype`` has no
+    derivative), which computes what autograd of the upcast route does.
     """
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16):
+        return sdpa_tc(q, k, v, mask, scale)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     mask = mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
-    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16):
-        scores = scores_f32(q, k).reshape(B, K, G, S, T) * scale + mask
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = pv_f32(probs.reshape(B * K, G * S, T), v)
-        out = out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
-        return out.reshape(B, S, H, hd)
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
     probs = torch.softmax(scores + mask, dim=-1)
@@ -146,24 +144,79 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale) for i in range(0, S, chunk)], dim=1)
 
 
+def sdpa_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """``sdpa_f32``'s tensor-core route: the two batched products on the
+    native operands with float32 results (``scores_f32``, ``pv_f32``).
+    CUDA's route for bf16 / fp16 operands; elsewhere (only a test's call)
+    the products' forward is the float32 upcast's."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    mask = mask.reshape(mask.shape[0], 1, 1, *mask.shape[1:])
+    scores = scores_f32(q, k).reshape(B, K, G, S, T) * scale + mask
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = pv_f32(probs.reshape(B * K, G * S, T), v)
+    out = out.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, S, H, hd)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """a @ b (batched) with a float32 result and a backward: JAX's
+    transpose of a ``preferred_element_type=float32`` product. Each
+    operand's cotangent is the float32 cotangent times the other operand
+    upcast to float32 (full float32 products, no TF32), cast to the
+    operand's dtype: what autograd of ``a.float() @ b.float()`` computes.
+    The forward picks its route by device (``aten::bmm.dtype`` on CUDA,
+    the upcast elsewhere); the backward is one device-independent
+    function."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        with full_fp32(a):
+            return torch.bmm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with full_fp32(g):
+            if ctx.needs_input_grad[0]:
+                da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return da, db
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``aten::bmm.dtype`` with a float32 result (CUDA only); through
+    ``_MatmulF32`` when autograd records (grad mode on and an operand
+    requires grad), which also runs on the CPU."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 def scores_f32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q.k of each kv head's query group on the native operands with a
-    float32 result (``aten::bmm.dtype``; CUDA only): q (B,S,H,hd), k
-    (B,T,K,hd) -> (B*K, G*S, T), rows ordered (group head, query)."""
+    float32 result (``_bmm_f32``): q (B,S,H,hd), k (B,T,K,hd) ->
+    (B*K, G*S, T), rows ordered (group head, query)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, H // K, hd).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1).reshape(B * K, hd, T)
-    return torch.bmm(qg.reshape(B * K, -1, hd), kt, out_dtype=torch.float32)
+    return _bmm_f32(qg.reshape(B * K, -1, hd), kt)
 
 
 def pv_f32(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """P.V on the native operands with a float32 result
-    (``aten::bmm.dtype``; CUDA only): probs (B*K, G*S, T) in v's dtype, v
-    (B,T,K,hd) -> (B*K, G*S, hd)."""
+    """P.V on the native operands with a float32 result (``_bmm_f32``):
+    probs (B*K, G*S, T) in v's dtype, v (B,T,K,hd) -> (B*K, G*S, hd)."""
     B, T, K, hd = v.shape
     vg = v.permute(0, 2, 1, 3).reshape(B * K, T, hd)
-    return torch.bmm(probs, vg, out_dtype=torch.float32)
+    return _bmm_f32(probs, vg)
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):

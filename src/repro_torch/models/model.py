@@ -10,9 +10,15 @@ Batch formats:
          float, "positions": (3,B,S) int}             (M-RoPE streams)
 
 The audio feature extractor and the VLM's ViT are stubs, as in the
-reference: inputs arrive as frame / patch embeddings. The multi-token
-prediction block's parameters are initialised; its loss, ``loss_fn`` and
-``make_train_step`` are training (ROADMAP.md, Queue 1 item 6).
+reference: inputs arrive as frame / patch embeddings; the audio batch also
+carries the masked-prediction targets, {"targets": (B,S) int,
+"mask_positions": (B,S) bool}.
+
+``loss_fn`` is the reference's training loss: next-token cross-entropy
+(the VLM's vision positions masked out; audio's masked prediction), the
+MoE router loss, and with ``cfg.mtp`` the multi-token prediction loss.
+``make_train_step`` takes its gradients with ``torch.autograd.grad`` and
+applies an ``optim.Optimizer``; nothing in a step is read to the host.
 
 Entry points run on the card unless the caller asks for another device.
 Decode caches are updated IN PLACE (the reference returns a rebuilt
@@ -20,7 +26,7 @@ copy); ``decode_step`` returns the same dict it was given.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -147,6 +153,114 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         caches.append(c)
     logits = _head(p, cfg, x)
     return logits, aux, (caches if want_cache else None), x
+
+
+# ---------------------------------------------------------------------------
+# losses / train step
+# ---------------------------------------------------------------------------
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32; with ``mask``, the mean
+    over the masked positions (``+ 1e-6`` under the count)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics): ``loss`` (cross-entropy), ``aux_loss`` (the
+    MoE router loss, 0 elsewhere), ``mtp_loss`` (with ``cfg.mtp`` on a
+    text model: the MTP block predicts token t+2 from the final hidden
+    state at t and the embedding of token t+1, weighted by
+    ``cfg.mtp_weight``) and ``total_loss``; each a float32 0-d tensor."""
+    logits, aux, _, hidden = forward(p, cfg, batch)
+    if cfg.modality == "audio":
+        loss = _xent(logits, batch["targets"], batch["mask_positions"])
+    else:
+        tokens = batch["tokens"]
+        lmask = None
+        if cfg.modality == "vlm":
+            # vision positions carry patch embeddings, not predictable tokens
+            lmask = (torch.arange(tokens.shape[1] - 1, device=tokens.device)
+                     >= cfg.num_vision_tokens).expand(tokens[:, 1:].shape)
+        loss = _xent(logits[:, :-1], tokens[:, 1:], lmask)
+    total = loss + aux
+    metrics = {"loss": loss, "aux_loss": aux}
+    if cfg.mtp and cfg.modality == "text":
+        tokens = batch["tokens"]
+        emb_next = _embed_tokens(p, cfg, tokens[:, 1:])
+        h_in = torch.cat(
+            [stack.apply_norm(hidden[:, :-1], p["mtp"]["norm"], cfg),
+             emb_next], dim=-1)
+        h_in = linear(h_in, p["mtp"]["proj"])
+        B, S1 = h_in.shape[:2]
+        positions = torch.arange(S1, dtype=torch.int32,
+                                 device=h_in.device)[None].expand(B, S1)
+        mtp_h, _ = stack._dense_block_full(
+            p["mtp"]["block"], cfg, h_in, positions,
+            causal_mask(S1, cfg.sliding_window, device=h_in.device)[None])
+        mtp_logits = _head(p, cfg, mtp_h)[:, :-1]
+        mtp_loss = _xent(mtp_logits, tokens[:, 2:])
+        total = total + cfg.mtp_weight * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["total_loss"] = total
+    return total, metrics
+
+
+def _trainable(t: torch.Tensor) -> torch.Tensor:
+    """A leaf autograd can differentiate with respect to, sharing ``t``'s
+    storage (a clone if ``t`` was made under ``torch.inference_mode``,
+    which autograd cannot save)."""
+    t = t.detach()
+    if t.is_inference():
+        t = t.clone()
+    return t.requires_grad_()
+
+
+def loss_and_grads(p: Params, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor]):
+    """The reference's ``value_and_grad(loss_fn, has_aux=True)``: (total,
+    metrics, grads), the gradients of the total with respect to every
+    floating leaf of ``p`` in a tree like ``p`` (``None`` for a leaf the
+    loss never reads, and for non-floating leaves). Must run outside
+    ``torch.inference_mode``; ``p`` may come from inside it."""
+    if torch.is_inference_mode_enabled():
+        raise RuntimeError("training cannot run under torch.inference_mode")
+    with torch.enable_grad():
+        live = stack.tree_map(
+            lambda t: _trainable(t) if t.is_floating_point() else t, p)
+        wrt = [t for t in stack.leaves(live) if t.requires_grad]
+        total, metrics = loss_fn(live, cfg, batch)
+        grads = iter(torch.autograd.grad(total, wrt, allow_unused=True))
+    grads = stack.tree_map(
+        lambda t: next(grads) if t.requires_grad else None, live)
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def make_train_step(cfg: ModelConfig, optimizer):
+    """optimizer: ``repro_torch.optim.Optimizer``. Returns
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``loss_and_grads``, one optimizer update (a ``None``
+    gradient counts as zeros), and ``loss_fn``'s metrics plus
+    ``grad_norm`` (the unclipped global norm). Every metric is a 0-d
+    device tensor; nothing is read to the host."""
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = loss_and_grads(params, cfg, batch)
+        params, opt_state = optimizer.apply(params, opt_state, grads)
+        metrics["grad_norm"] = torch.sqrt(sum(
+            torch.sum(torch.square(g.float()))
+            for g in stack.leaves(grads) if g is not None))
+        return params, opt_state, metrics
+    return train_step
 
 
 # ---------------------------------------------------------------------------

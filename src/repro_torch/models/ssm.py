@@ -93,11 +93,13 @@ def _selective_scan(decay: torch.Tensor, drive: torch.Tensor
     ``associative_scan``, ceil(log2 S) passes of the same combine
     (a2 * a1, a2 * b1 + b2). ``decay`` may be any shape that broadcasts
     to ``drive``'s (the Mamba-2 decay is per head), and is combined at
-    its own size."""
-    a, b = decay, drive.clone()
+    its own size. Each pass builds a new ``b`` from its untouched head and
+    the combined tail, so autograd keeps the tensors it saved."""
+    a, b = decay, drive
     S, off = b.shape[1], 1
     while off < S:
-        b[:, off:] = a[:, off:] * b[:, :-off] + b[:, off:]
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
         if 2 * off < S:
             a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2

@@ -134,6 +134,17 @@ def layer_slice(tree: Any, idx) -> Any:
     return tree[idx]
 
 
+def layer_views(tree: Any, count: int) -> List[Any]:
+    """``[layer_slice(tree, i) for i in range(count)]`` as one ``unbind``
+    a leaf: the same views, but under autograd one backward node stacks
+    the layers' gradients of a leaf, where a per-layer index writes a
+    full-size gradient for every layer (quadratic in the depth)."""
+    if isinstance(tree, dict):
+        per = {k: layer_views(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(count)]
+    return list(tree.unbind(0))
+
+
 # ---------------------------------------------------------------------------
 # dense and moe block bodies
 # ---------------------------------------------------------------------------
@@ -218,14 +229,13 @@ def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
     tensor), other groups' 0.0. Mamba groups return no cache, as the
     reference's do: their decode starts from ``group_empty_cache``."""
     if spec.kind in ("mamba1", "mamba2"):
-        for i in range(spec.count):
-            x = _mamba_block_full(layer_slice(params, i), cfg, x)
+        for lp in layer_views(params, spec.count):
+            x = _mamba_block_full(lp, cfg, x)
         return x, 0.0, None
     if spec.kind not in ("dense", "moe", "hybrid"):
         raise ValueError(spec.kind)
     aux, kvs = 0.0, []
-    for i in range(spec.count):
-        lp = layer_slice(params, i)
+    for lp in layer_views(params, spec.count):
         if spec.kind == "dense":
             x, kv = _dense_block_full(lp, cfg, x, positions, mask)
         elif spec.kind == "moe":
@@ -233,8 +243,8 @@ def group_forward(params: Any, cfg: ModelConfig, spec: GroupSpec,
             aux = aux + a
         else:
             x, kv = _dense_block_full(shared_attn, cfg, x, positions, mask)
-            for j in range(cfg.hybrid.attn_every):
-                x = _mamba_block_full(layer_slice(lp, j), cfg, x)
+            for mp in layer_views(lp, cfg.hybrid.attn_every):
+                x = _mamba_block_full(mp, cfg, x)
         if want_cache:
             kvs.append(kv)
     cache = ({n: torch.stack([kv[n] for kv in kvs]) for n in kvs[0]}
@@ -384,6 +394,18 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         n_moe_layers = cfg.num_layers - m.first_k_dense
         total -= n_moe_layers * (m.num_experts - m.top_k) * per_expert
     return total
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of dict / list / tuple trees of one
+    structure (the first tree's); dict keys in the first tree's order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def leaves(tree: Any):

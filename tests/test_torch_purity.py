@@ -15,14 +15,15 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 OWN = {"bridge.py", "kernels/_build.py"}
 # host-only modules: plain Python and numpy, the engine's scheduling,
 # policy, fault, telemetry and network-simulation path between device steps,
-# the procedural data and the fleet loop
+# the procedural data (the language-model token streams too) and the fleet
+# loop
 HOST_ONLY = ["engine/scheduler.py", "engine/policy.py", "engine/faults.py",
              "engine/observability.py", "engine/api.py",
              "engine/transport.py", "core/controller.py",
              "network/__init__.py", "network/channel.py",
              "network/energy.py", "network/traces.py",
              "data/__init__.py", "data/floodseg.py", "data/requests.py",
-             "runtime/fleet.py"]
+             "data/lm.py", "runtime/fleet.py"]
 
 
 def _names(node):
@@ -76,3 +77,16 @@ def test_no_refusal_names_the_ported_zoo():
             src = path.read_text()
             for word in ("3a", "not ported yet"):
                 assert word not in src, f"{path} still names {word!r}"
+
+
+def test_no_refusal_names_the_ported_training_path():
+    """The generic training path (ROADMAP.md, Queue 1 item 6a) is ported:
+    no port module still names item 6a or refuses with item 6 alone; what
+    still raises names item 6b, the LISA system's training."""
+    for path in PORT.rglob("*.py"):
+        src = path.read_text()
+        assert "6a" not in src, f"{path} still names item 6a"
+        for line in src.splitlines():
+            assert "item 6)" not in line and "item 6 " not in line \
+                and not line.rstrip().endswith("item 6"), \
+                f"{path}: {line.strip()!r} names item 6, not 6b"
