@@ -226,13 +226,38 @@ Phases, each fatal on failure:
      ``python -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced
      --steps 4`` as a subprocess, its checkpoint read back with
      ``init_params``' leaves, shapes, dtypes and structure.
+ 16. (lisa16, after 15) the LISA system's offline phase on lisa-mini
+     (float32), no kernel on its training path: (a) three steps each of
+     ``train_lisa``, ``finetune_lisa`` and ``train_bottleneck`` (r = 0.25)
+     at B = 16 on the card and on the CPU from the same port-drawn
+     weights: losses within TRAIN15_RTOL, parameters within TRAIN15_NORM
+     (AdamW's eps TRAIN15_EPS), one step of each under
+     ``transfer_guard_ctx``; (b) ``python -m repro_torch.launch.train
+     --lisa`` as a subprocess into a temporary directory, its LUT held to
+     the reference tests' thresholds (LISA16_ACC, LISA16_PAYLOAD_MB,
+     LISA16_CONTEXT_MB) and the trained Average IoU above the untrained
+     one by LISA16_IOU_GAIN; each stage's wall, one traced ``lisa_step``;
+     (c) ``python -m repro_torch.launch.serve --batching inflight`` (the
+     offline phase on its small budget, then serving) as a subprocess,
+     paged launches its decode steps x layers and no other kernel; the
+     trained system of (b) served in flight in process with the paged
+     kernel on and off: tokens equal, logits and masks within LISA16_TOL;
+     (d) ``run_mission`` on the trained LUT and executor, AVERY against
+     static High Accuracy; (e) ``roundtrip_st`` and ``recon_loss`` at
+     LISA-7B's split point (one frame's ``sam_head`` output, 4096 x 1280
+     bf16, the three tiers' ranks): the forward's codes against
+     ``encode(use_kernel=True)``, the gradients to ``enc`` and ``dec``
+     against a float64 CPU replay (LISA16_ST_GRAD_RTOL), which a replay
+     with the encoder product in bf16 must fail.
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
 (W = 1, 33 and 2,048; G = 4 and 12), and the paged kernels too: the
 decode kernel at the three shapes of the reference's kernel test, at the
 in-flight path's shape (B = 4 and one row of it), at one page a row and at
-128 pages with three rows sharing 100, and at G = 4; every case of the two
+128 pages with three rows sharing 100, at G = 4, and at the trained
+lisa-mini's served step (float32, B = 8, H = K = 4, hd = 32, pages of 16,
+W = 48; timed); every case of the two
 decode kernels launched twice and bit-equal (deterministic). The
 verify kernel at the three shapes of its reference test, one with more
 than 8 queries per kv head, in bf16 with more than 8 and at hd = 64 and
@@ -268,6 +293,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -276,6 +302,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -749,6 +776,32 @@ def paged_cases(pcfg):
                       valid=np.arange(40)[None] < lens[:, None],
                       dtype=llm.adtype))
     return cases
+
+
+# the launcher's in-flight slots (``launch/serve.py --max-batch``'s default)
+LISA16_SLOTS = 8
+
+
+def lisa_mini_paged_case(mini):
+    """The trained lisa-mini's served decode step (phase 16c): float32,
+    LISA16_SLOTS rows, each a prefix of clip tokens + query over whole
+    pages (rows in pairs sharing theirs) and one private page, row r at
+    its step r % MAX_NEW_TOKENS."""
+    llm, page, B = mini.llm, 16, LISA16_SLOTS
+    prefix = mini.clip_tokens + QUERY_LEN
+    n_pre = -(-prefix // page)
+    n = n_pre + -(-MAX_NEW_TOKENS // page)
+    table = np.array([list(range(1 + (r // 2) * n_pre,
+                                 1 + (r // 2 + 1) * n_pre))
+                      + [1 + (B // 2) * n_pre + r] for r in range(B)])
+    valid = np.zeros((B, n * page), bool)
+    valid[:, :prefix] = True
+    for r in range(B):
+        valid[r, n_pre * page:n_pre * page + r % MAX_NEW_TOKENS + 1] = True
+    return dict(name=f"lisa_mini_B{B}", B=B, H=llm.num_heads,
+                K=llm.num_kv_heads, hd=llm.resolved_head_dim, page=page,
+                P=int(table.max()) + 2, table=table, valid=valid,
+                dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -3865,14 +3918,36 @@ SERVE_ARGS = ("--smoke", "--batching", "inflight", "--duration", "20",
               "--seed", "1")
 SUBPROCESS_TIMEOUT_S = 300
 RUN_MODULE = """
-import json, runpy, sys
+import importlib, json, os, runpy, sys, time
+import torch
 from repro_torch.kernels.decode_attention import ops
 module, sys.argv = sys.argv[1], sys.argv[1:]
+walls = []
+
+
+def timed(mod, name):
+    fn = getattr(mod, name)
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        walls.append([name, time.perf_counter() - t0])
+        return out
+    setattr(mod, name, run)
+
+
+for spec in filter(None, os.environ.get("CHIP_SMOKE_TIMED", "").split(",")):
+    mod, name = spec.split(":")
+    timed(importlib.import_module(mod), name)
 code = 0
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 except SystemExit as e:
     code = e.code or 0
+if walls:
+    print("[walls] " + json.dumps(walls))
 print(json.dumps({"decode_attention": ops.launches,
                   "paged_decode_attention": ops.paged_launches,
                   "paged_verify_attention": ops.verify_launches}))
@@ -4363,11 +4438,14 @@ def sync_census(executor, pcfg, order, card):
         for k, n in sorted(sites.items())]}
 
 
-def _run_module(module, args, tag="profile", phase="13d"):
+def _run_module(module, args, tag="profile", phase="13d", timed=()):
     """``python -m module args`` (through RUN_MODULE, which prints the
     kernel launch counters after it), its output logged under ``tag``:
-    (wall seconds, output lines, launches)."""
+    (wall seconds, output lines, launches). Each ``"module:function"`` of
+    ``timed`` is wrapped in the subprocess to time its calls (to a
+    synchronise), printed as a ``[walls]`` line of [name, seconds]."""
     env = dict(os.environ)
+    env["CHIP_SMOKE_TIMED"] = ",".join(timed)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(REPO, "src")] + ([env["PYTHONPATH"]]
                                        if env.get("PYTHONPATH") else []))
@@ -6000,6 +6078,487 @@ def train15_phase(seed, dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 16 (lisa16): the LISA system's offline phase and the trained system
+# ---------------------------------------------------------------------------
+
+# (a) three steps of each trainer on the card and on the CPU, B = 16,
+# against TRAIN15_RTOL (losses) and TRAIN15_NORM (parameters, norm-wise) at
+# AdamW's eps TRAIN15_EPS (1e-4, as phase 15a: at the default 1e-8 an
+# element whose gradient cancels to near eps turns float32 rounding into
+# its whole update)
+LISA16_BATCH = 16
+LISA16_STEPS = 3
+LISA16_RATIO = 0.25
+# (b) the offline phase through its launcher, at the reference test's
+# budget of steps (tests/test_system.py trains 300 and 80 steps); the LUT
+# held to the reference tests' thresholds: High Accuracy's acc_base in
+# (0.15, 1.0], its payload in (2.0, 4.0) MB, the context payload under
+# 3.0 MB (tests/test_system.py:31-40), and the trained Average IoU above
+# the untrained one by more than 0.05 and above 0.15
+# (tests/test_vlm_pipeline.py:64-75; 2 batches of 16, no pair). The
+# launcher trains from seed 0.
+LISA16_LAUNCHER = ("--lisa", "--steps", "300", "--ft-steps", "60",
+                   "--bn-steps", "80")
+LISA16_TIMED = ("repro_torch.core.training:train_lisa",
+                "repro_torch.core.training:finetune_lisa",
+                "repro_torch.core.training:train_bottleneck",
+                "repro_torch.core.profile:build_lut")
+LISA16_ACC = (0.15, 1.0)
+LISA16_PAYLOAD_MB = (2.0, 4.0)
+LISA16_CONTEXT_MB = 3.0
+LISA16_IOU_GAIN = 0.05
+# (c) the serving launcher without --smoke; the in-process runs' logits and
+# masks with the paged kernel on against off: the float32 attention
+# tolerance (the kernel sums in another order than the plain version)
+LISA16_SERVE = ("--batching", "inflight", "--duration", "20")
+LISA16_TOL = {"rtol": 1e-4, "atol": 2e-5}
+# (e) the straight-through pair's gradients to enc and dec at LISA-7B's
+# split point on the card (float32 products, TF32 off) against a float64
+# replay on the CPU, norm-wise. The gradient to enc under a cotangent,
+# x^T (g dec^T), depends on no rounding and read 4.4e-7 at r = 1278; the
+# others go through the forward's codes and its bf16 output, whose
+# roundings flip at ties between float32 and float64: dec 6.4e-5, the
+# reconstruction loss's 1.1e-4 and 1.2e-4. The encoder product in bf16
+# (the control) read 2.1e-3 to 4.4e-3 (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6, the offline phase's probe run 1).
+LISA16_ST_GRAD_RTOL = 5e-4
+
+
+def _eps_optim():
+    """``repro_torch.optim`` for ``core/training.py``, its AdamW at eps
+    TRAIN15_EPS."""
+    from repro_torch import optim
+    return types.SimpleNamespace(
+        adamw=functools.partial(optim.adamw, eps=TRAIN15_EPS),
+        cosine_with_warmup=optim.cosine_with_warmup)
+
+
+def lisa16_trainers(where, params, pair, seed):
+    """Three steps each of ``train_lisa``, ``finetune_lisa`` (from the
+    first's result) and ``train_bottleneck`` on ``where``, from ``params``
+    and with ``pair`` in place of the trainer's own draw, at AdamW's eps
+    TRAIN15_EPS: (each step's loss, (trained, fine-tuned, pair))."""
+    from repro_torch.configs.lisa_mini import CONFIG as mini
+    from repro_torch.core import bottleneck as bn
+    from repro_torch.core import training
+    losses = []
+
+    def recording(step):
+        def run(*args):
+            out = step(*args)
+            losses.append(out[2])
+            return out
+        return run
+    with mock.patch.object(training, "optim", _eps_optim()), \
+            mock.patch.object(training, "lisa_step",
+                              recording(training.lisa_step)), \
+            mock.patch.object(training, "bottleneck_step",
+                              recording(training.bottleneck_step)), \
+            mock.patch.object(bn, "init_bottleneck",
+                              lambda gen, spec, dtype=None, device=None:
+                              _to(pair, device)):
+        p = training.train_lisa(mini, steps=LISA16_STEPS,
+                                batch_size=LISA16_BATCH, seed=seed,
+                                params=_to(params, where), log_every=0,
+                                device=where)
+        ft = training.finetune_lisa(mini, p, steps=LISA16_STEPS,
+                                    batch_size=LISA16_BATCH, seed=seed + 1,
+                                    log=lambda s: None, device=where)
+        bp = training.train_bottleneck(mini, p, LISA16_RATIO,
+                                       steps=LISA16_STEPS,
+                                       batch_size=LISA16_BATCH, seed=seed,
+                                       log_every=0, device=where)
+    return [float(x) for x in losses], (p, ft, bp)
+
+
+def lisa16_cpu_parity(seed, dev):
+    """(a) the three trainers on the card against the CPU from the same
+    weights (drawn on the CPU, then copied), then one ``lisa_step`` and one
+    ``bottleneck_step`` under the transfer guard."""
+    from repro_torch import optim
+    from repro_torch.analysis.sanitizers import transfer_guard_ctx
+    from repro_torch.configs.lisa_mini import CONFIG as mini
+    from repro_torch.core import bottleneck as bn
+    from repro_torch.core import training, vlm
+    from repro_torch.data import floodseg
+    params = vlm.init_lisa(mini, torch.Generator().manual_seed(seed), "cpu")
+    d = mini.sam.d_model
+    spec = bn.BottleneckSpec(d, bn.rank_for_ratio(d, LISA16_RATIO, 4), 4)
+    pair = bn.init_bottleneck(torch.Generator().manual_seed(
+        seed + int(LISA16_RATIO * 1000)), spec)
+    lc, trees_c = lisa16_trainers("cpu", params, pair, seed)
+    ld, trees_d = lisa16_trainers(dev, params, pair, seed)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ld, lc))
+    worst = {name: _worst(a, b) for name, a, b in
+             zip(("train_lisa", "finetune_lisa", "train_bottleneck"),
+                 trees_d, trees_c)}
+    log(f"[lisa16] (a) three steps each of train_lisa, finetune_lisa and "
+        f"train_bottleneck (r={LISA16_RATIO}) at B={LISA16_BATCH}, card "
+        f"against CPU: losses {[round(x, 5) for x in ld]}, worst rel "
+        f"{loss_rel:.2e} (limit {TRAIN15_RTOL:g}); worst parameter leaf "
+        + ", ".join(f"{k} {p} {e:.2e}" for k, (e, p) in worst.items())
+        + f" (limit {TRAIN15_NORM:g}, norm-wise; AdamW eps {TRAIN15_EPS:g})")
+    if len(ld) != 3 * LISA16_STEPS or loss_rel > TRAIN15_RTOL or \
+            max(e for e, _ in worst.values()) > TRAIN15_NORM:
+        raise AssertionError("16a: the card's steps are off the CPU's")
+    rng = np.random.RandomState(seed)
+    ins = training._to_device(floodseg.make_batch(
+        rng, LISA16_BATCH, "segment"), dev)
+    ctx = training._to_device(floodseg.make_batch(
+        rng, LISA16_BATCH, "count"), dev)
+    p, bp = trees_d[0], trees_d[2]
+    opt, bopt = optim.adamw(optim.cosine_with_warmup(3e-4, 1, 8)), \
+        optim.adamw(1e-3)
+    state, bstate = opt.init(p), bopt.init(bp)
+    training.lisa_step(opt, mini, p, state, ins, ctx)
+    torch.cuda.synchronize()
+    with transfer_guard_ctx(True, dev):
+        training.lisa_step(opt, mini, p, state, ins, ctx)
+        training.bottleneck_step(bopt, mini, p, bp, bstate, ins, 0.1)
+    torch.cuda.synchronize()
+    log("[lisa16] (a) one lisa_step and one bottleneck_step under the "
+        "transfer guard: no host sync")
+    return {"losses": ld, "loss_rel": loss_rel,
+            "worst": {k: list(v) for k, v in worst.items()}}
+
+
+def _walls(lines):
+    """The ``[walls]`` line RUN_MODULE prints: [[function, seconds], ...]."""
+    found = [ln for ln in lines if ln.startswith("[walls] ")]
+    return json.loads(found[-1][len("[walls] "):]) if found else []
+
+
+def lisa16_offline(dev, card):
+    """(b) the offline phase as ``python -m repro_torch.launch.train
+    --lisa`` into a temporary directory, the LUT against the reference
+    tests' thresholds, the trained against the untrained Average IoU, one
+    ``lisa_step`` traced. Returns (report, (params, params_ft, pairs by
+    ratio, lut)) read back from the launcher's files."""
+    import tempfile
+
+    from repro_torch import optim
+    from repro_torch.bridge import load_checkpoint
+    from repro_torch.configs.lisa_mini import CONFIG as mini
+    from repro_torch.core import training, vlm
+    from repro_torch.core.lut import SystemLUT
+    from repro_torch.data import floodseg
+    with tempfile.TemporaryDirectory(prefix="lisa16_") as tmp:
+        wall, lines, launched = _run_module(
+            "repro_torch.launch.train", [*LISA16_LAUNCHER, "--out", tmp],
+            tag="lisa16", phase="16b", timed=LISA16_TIMED)
+        lut = SystemLUT.load(os.path.join(tmp, "lut.json"))
+        params = load_checkpoint(os.path.join(tmp, "lisa_mini_original"),
+                                 dev)
+        params_ft = load_checkpoint(os.path.join(tmp,
+                                                 "lisa_mini_finetuned"), dev)
+        bns = {t.ratio: load_checkpoint(os.path.join(
+            tmp, f"bottleneck_r{t.ratio}"), dev) for t in lut.tiers}
+    walls = _walls(lines)
+    rows = [{"name": t.name, "ratio": t.ratio, "acc_base": t.acc_base,
+             "acc_finetuned": t.acc_finetuned, "payload_mb": t.payload_mb}
+            for t in lut.tiers]
+    log(f"[lisa16] (b) python -m repro_torch.launch.train "
+        f"{' '.join(LISA16_LAUNCHER)}: exit 0 in {wall:.1f} s ({card}); "
+        f"stage walls " + ", ".join(f"{n} {w:.2f} s" for n, w in walls)
+        + f"; launches {launched} (expected none); LUT "
+        + "; ".join(f"{r['name']} r={r['ratio']} base {r['acc_base']:.4f} "
+                    f"ft {r['acc_finetuned']:.4f} payload "
+                    f"{r['payload_mb']:.4f} MB" for r in rows)
+        + f"; context {lut.context.payload_mb:.4f} MB")
+    ha = lut.tiers[0]
+    if any(launched.values()) or [t.ratio for t in lut.tiers] != \
+            [0.25, 0.1, 0.05] or ha.name != "High Accuracy":
+        raise AssertionError(f"16b: launches {launched} or tiers {rows}")
+    if not (LISA16_ACC[0] < ha.acc_base <= LISA16_ACC[1]
+            and LISA16_PAYLOAD_MB[0] < ha.payload_mb < LISA16_PAYLOAD_MB[1]
+            and lut.context.payload_mb < LISA16_CONTEXT_MB):
+        raise AssertionError(f"16b: the LUT misses the reference tests' "
+                             f"thresholds: {rows}, context "
+                             f"{lut.context.payload_mb}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    before = training.evaluate_insight(mini, vlm.init_lisa(mini, gen, dev),
+                                       batches=2, batch_size=16, device=dev)
+    after = training.evaluate_insight(mini, params, batches=2,
+                                      batch_size=16, device=dev)
+    gain = after["avg_iou"] - before["avg_iou"]
+    log(f"[lisa16] (b) Average IoU untrained {before['avg_iou']:.4f}, "
+        f"trained {after['avg_iou']:.4f} (gain {gain:.4f}, limit > "
+        f"{LISA16_IOU_GAIN}; trained > {LISA16_ACC[0]})")
+    if not (gain > LISA16_IOU_GAIN and after["avg_iou"] > LISA16_ACC[0]):
+        raise AssertionError("16b: training did not lift Average IoU")
+    rng = np.random.RandomState(0)
+    ins = training._to_device(floodseg.make_batch(
+        rng, LISA16_BATCH, "segment"), dev)
+    ctx = training._to_device(floodseg.make_batch(
+        rng, LISA16_BATCH, "any"), dev)
+    opt = optim.adamw(optim.cosine_with_warmup(3e-4, 30, 300))
+    hold = {"p": params, "s": opt.init(params)}
+
+    def one():
+        hold["p"], hold["s"], _, _ = training.lisa_step(
+            opt, mini, hold["p"], hold["s"], ins, ctx)
+    step_ms, step_walls = _median_wall_ms(one)
+    prof = trace(f"lisa-mini train_lisa step B={LISA16_BATCH}", one,
+                 TRAIN_CLASSES)
+    log(f"[train] lisa-mini (float32) lisa_step B={LISA16_BATCH}: warm "
+        f"wall {step_ms:.2f} ms (median of "
+        f"{[round(w, 2) for w in step_walls]}), device "
+        f"{prof['device_ms']:.2f} ms (idle share {prof['idle_share']:.3f});"
+        f" {card}")
+    report = {"wall_s": wall, "stage_walls": walls, "lut": rows,
+              "context_mb": lut.context.payload_mb, "launches": launched,
+              "iou_untrained": before, "iou_trained": after,
+              "step_wall_ms": step_ms, "profile": prof}
+    return report, (params, params_ft, bns, lut)
+
+
+def lisa16_frames(executor, mini, seed):
+    """INFLIGHT_WAVES' frames as floodseg scenes (Insight: a segment query
+    of the scene's class; Context: an "any" query), edge-encoded by the
+    executor, Insight frames alternating over two tiers."""
+    from repro_torch.data import floodseg
+    rng = np.random.RandomState(seed + 1)
+    frames, n_ins = {}, 0
+    for wave in INFLIGHT_WAVES:
+        for _, kind, f in wave:
+            if f in frames:
+                continue
+            b = floodseg.make_batch(rng, 1, "segment" if kind == "insight"
+                                    else "any", augment=False)
+            if kind == "context":
+                pkt, _ = executor.edge_context(b["images"], f, 0.0)
+            else:
+                pkt = executor.edge_insight(
+                    b["images"], executor.lut.tiers[n_ins % 2], f, 0.0)
+                n_ins += 1
+            frames[f] = (kind, pkt, b["query"])
+    return frames
+
+
+def lisa16_serve(system, seed, dev, card):
+    """(c) the serving launcher without ``--smoke`` as a subprocess; then
+    the trained system of (b) served in flight in process, the paged
+    kernel on (counted) and off; (d) missions on its LUT and executor."""
+    from repro_torch import engine as eng
+    from repro_torch.configs.lisa_mini import CONFIG as mini
+    from repro_torch.core.streams import DualStreamExecutor
+    from repro_torch.network import paper_trace
+    from repro_torch.runtime.mission import MissionSpec, run_mission
+    wall, lines, launched = _run_module("repro_torch.launch.serve",
+                                        LISA16_SERVE, tag="lisa16",
+                                        phase="16c")
+    served = [ln for ln in lines if " in-flight decode steps" in ln]
+    steps = int(served[0].split(" in-flight decode steps")[0]
+                .rsplit(" ", 1)[1]) if served else 0
+    expect = {"decode_attention": 0,
+              "paged_decode_attention": steps * mini.llm.num_layers,
+              "paged_verify_attention": 0}
+    log(f"[lisa16] (c) python -m repro_torch.launch.serve "
+        f"{' '.join(LISA16_SERVE)}: exit 0 in {wall:.1f} s ({card}), "
+        f"launches {launched} (expected {expect})")
+    if not steps or launched != expect:
+        raise AssertionError(f"16c: serve launches {launched}, expected "
+                             f"{expect}")
+    out = {"launcher": {"wall_s": wall, "steps": steps,
+                        "launches": launched}}
+
+    params, _, bns, lut = system
+    by_name = {lut.tiers[i].name: bns[r]
+               for i, r in enumerate(sorted(bns, reverse=True))}
+    ex = DualStreamExecutor(pcfg=mini, params=params, bottlenecks=by_name,
+                            lut=lut, device=dev)
+    frames = lisa16_frames(ex, mini, seed)
+    _reset_launch_counts()
+    on, dec = serve_inflight(ex, frames)
+    launches = _launch_counts()
+    expect = _only(paged_decode_attention=dec.n_steps * mini.llm.num_layers)
+    check_inflight_outputs(mini, on, dec)
+    ex.flash_decode = False
+    try:
+        off, _ = serve_inflight(ex, frames)
+    finally:
+        ex.flash_decode = True
+    plain = {k: v - launches[k] for k, v in _launch_counts().items()}
+    worst, margins = {"answer_logits": 0.0, "mask_logits": 0.0}, []
+    for a, b in zip(on, off):
+        if not np.array_equal(a["tokens"], b["tokens"]):
+            raise AssertionError(f"16c seq {a['seq_id']}: tokens "
+                                 f"{a['tokens']} with the kernel, "
+                                 f"{b['tokens']} without")
+        for k in worst:
+            if a[k] is None:
+                continue
+            np.testing.assert_allclose(a[k], b[k], **LISA16_TOL,
+                                       err_msg=f"16c seq {a['seq_id']} {k}")
+            worst[k] = max(worst[k], float(np.abs(a[k] - b[k]).max()))
+        top2 = np.sort(a["answer_logits"][0])[-2:]
+        margins.append(float(top2[1] - top2[0]))
+    log(f"[lisa16] (c) the trained system in flight: {len(on)} requests in "
+        f"{dec.n_steps} decode steps, launches {launches} (expected "
+        f"{expect}), kernel off {plain} (expected none); tokens equal, max "
+        f"abs difference " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                       worst.items())
+        + f" (rtol {LISA16_TOL['rtol']}, atol {LISA16_TOL['atol']}); the "
+        f"first answer's two leading logits {min(margins):.4f} apart at the "
+        f"least (median {np.median(margins):.4f})")
+    if launches != expect or plain != _only():
+        raise AssertionError(f"16c: launches {launches} / {plain}")
+    out["inflight"] = {"steps": dec.n_steps, "launches": launches,
+                       "max_abs": worst, "tokens": [r["tokens"].tolist()[0]
+                                                    for r in on],
+                       "answer_margins": margins}
+
+    missions = {}
+    for name, policy in (("avery", eng.AdaptivePolicy()),
+                         ("static High Accuracy",
+                          eng.StaticTierPolicy("High Accuracy"))):
+        t0 = time.perf_counter()
+        m = run_mission(lut, paper_trace(seed),
+                        MissionSpec(policy=policy, seed=seed), executor=ex)
+        ious = [f.iou for f in m.frames]
+        if not m.frames or not all(0.0 <= x <= 1.0 for x in ious):
+            raise AssertionError(f"16d: mission {name} served no frame or "
+                                 f"an IoU outside [0, 1]")
+        missions[name] = {"frames": len(m.frames), "pps": m.mean_pps,
+                          "iou": m.mean_iou, "infeasible_s": m.infeasible_s,
+                          "tiers": sorted(set(f.tier for f in m.frames)),
+                          "wall_s": time.perf_counter() - t0}
+    a, h = missions["avery"], missions["static High Accuracy"]
+    gap = 100.0 * (h["iou"] - a["iou"]) / h["iou"] if h["iou"] else math.nan
+    log(f"[lisa16] (d) missions on the trained LUT ({card}): AVERY "
+        f"{a['frames']} frames, {a['pps']:.4f} pps, mean IoU {a['iou']:.4f}, "
+        f"tiers {a['tiers']}; static High Accuracy {h['frames']} frames, "
+        f"{h['pps']:.4f} pps, mean IoU {h['iou']:.4f}; AVERY's IoU "
+        f"{gap:.3f} % under static High Accuracy's (the paper's claim: "
+        f"within 0.75 %; reported, not held)")
+    out["missions"] = missions
+    out["iou_gap_pct"] = gap
+    return out
+
+
+def _st_grads(pair, x, cot, dtype, product_dtype=None):
+    """Gradients to ``enc`` and ``dec`` of the straight-through round trip
+    (under the cotangent ``cot``) and of the reconstruction loss, written
+    out in ``dtype`` on x's device, the encoder product in
+    ``product_dtype`` (default ``dtype``): ``roundtrip_st`` and
+    ``recon_loss``'s formulas, the output cast to x's dtype as theirs."""
+    enc = pair["enc"].detach().to(dtype).requires_grad_()
+    dec = pair["dec"].detach().to(dtype).requires_grad_()
+    pd = product_dtype or dtype
+    xd = x.to(dtype)
+    z = (x.to(pd) @ enc.to(pd)).to(dtype)
+    s = z.detach().abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    zq = z / s
+    zq = zq + (torch.clamp(torch.round(zq), -127, 127) - zq).detach()
+    out = ((zq * s) @ dec).to(x.dtype)
+    g_rt = torch.autograd.grad(out, [enc, dec], cot, retain_graph=True)
+    xh = out.to(dtype)
+    loss = torch.mean(torch.square(xh - xd)) / (torch.mean(torch.square(xd))
+                                                + 1e-8)
+    return list(g_rt) + list(torch.autograd.grad(loss, [enc, dec]))
+
+
+def lisa16_full_width(x, ranks, seed, dev, card):
+    """(e) ``roundtrip_st`` and ``recon_loss`` at LISA-7B's split point:
+    ``x`` one frame's boundary activation (1, 4096, 1280) bf16, a pair of
+    each tier's rank drawn from ``seed``."""
+    from repro_torch.core import bottleneck as bn
+    d = x.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cot = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+    out = {}
+    for rank in ranks:
+        pair = bn.init_bottleneck(gen, bn.BottleneckSpec(d, rank, 4),
+                                  device=dev)
+        with torch.no_grad():
+            z = x.float() @ pair["enc"]
+            s = bn._absmax_scale(z)
+            codes = torch.clamp(torch.round(z / s), -127, 127).to(torch.int8)
+            kc, ks = bn.encode(pair, x, use_kernel=True)
+            torch.cuda.synchronize()
+        diff, off, s_err = codes_held_against(
+            f"16e r{rank}: encode kernel against roundtrip_st's codes", kc,
+            ks, codes, s)
+        live = {k: v.detach().clone().requires_grad_()
+                for k, v in pair.items()}
+        t0 = _sync_s()
+        y = bn.roundtrip_st(live, x)
+        g = list(torch.autograd.grad(y, [live["enc"], live["dec"]], cot))
+        g += list(torch.autograd.grad(bn.recon_loss(live, x),
+                                      [live["enc"], live["dec"]]))
+        card_s = _sync_s() - t0
+        fwd = _rel(y.detach(), bn.decode(pair, codes, s, out_dtype=x.dtype))
+        cpu = {k: v.cpu() for k, v in pair.items()}
+        t0 = time.perf_counter()
+        ref = _st_grads(cpu, x.cpu(), cot.cpu(), torch.float64)
+        replay_s = time.perf_counter() - t0
+        ctl = _st_grads(pair, x, cot, torch.float32, product_dtype=x.dtype)
+        names = ("roundtrip enc", "roundtrip dec", "recon enc", "recon dec")
+        errs = {n: _norm_rel(a, b) for n, a, b in zip(names, g, ref)}
+        ctl_errs = {n: _norm_rel(a, b) for n, a, b in zip(names, ctl, ref)}
+        log(f"[lisa16] (e) r{rank} at {x.shape[1]} x {d} {x.dtype}: codes "
+            f"against the encode kernel off by {diff} on {off:.3g} of entries, scales "
+            f"{s_err:.3g}; forward against decode of its codes {fwd:.3g}; "
+            f"gradients against the float64 CPU replay "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (limit {LISA16_ST_GRAD_RTOL:g}, norm-wise); control (bf16 "
+            f"encoder product) "
+            + ", ".join(f"{n} {e:.3g}" for n, e in ctl_errs.items())
+            + f"; card {card_s * 1e3:.1f} ms, replay {replay_s:.1f} s; "
+            f"{card}")
+        if fwd > 2.0 ** -8 or max(errs.values()) > LISA16_ST_GRAD_RTOL:
+            raise AssertionError(f"16e r{rank}: forward {fwd} or gradients "
+                                 f"{errs} beyond the limits")
+        if not max(ctl_errs.values()) > LISA16_ST_GRAD_RTOL:
+            raise AssertionError(f"16e r{rank}: the control {ctl_errs} "
+                                 f"passes {LISA16_ST_GRAD_RTOL}")
+        out[f"r{rank}"] = {"codes_off": off, "codes_max_diff": diff,
+                           "scales_err": s_err, "forward_rel": fwd,
+                           "grad_rel": errs, "control_rel": ctl_errs,
+                           "card_ms": card_s * 1e3, "replay_s": replay_s}
+    return out
+
+
+def lisa16_boundary(executor, pcfg, seed):
+    """One frame's ``sam_head`` output of the LISA-7B executor (the split
+    point's boundary activation), kept for (e) after LISA-7B is freed."""
+    from repro_torch.core import vlm
+    rng = np.random.RandomState(seed)
+    img = torch.from_numpy(rng.rand(1, pcfg.image_size, pcfg.image_size,
+                                    3).astype(np.float32)).to(
+        executor.device)
+    with torch.inference_mode():
+        x = vlm.sam_head(executor.params, pcfg, img)
+    return x.clone()
+
+
+def lisa16_phase(seed, dev, x, ranks):
+    """Phase 16: (a) the trainers on the card against the CPU, (b) the
+    offline phase's launcher, (c) the serving launcher and the trained
+    system in flight, (d) its missions, (e) the pair at full width."""
+    card = card_line()
+    report = {}
+    t0 = time.perf_counter()
+    report["cpu_parity"] = lisa16_cpu_parity(seed, dev)
+    report["cpu_parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["offline"], system = lisa16_offline(dev, card)
+    report["offline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["serve"] = lisa16_serve(system, seed, dev, card)
+    report["serve_s"] = time.perf_counter() - t0
+    del system
+    t0 = time.perf_counter()
+    report["full_width"] = lisa16_full_width(x, ranks, seed, dev, card)
+    report["full_width_s"] = time.perf_counter() - t0
+    for part in ("cpu_parity", "offline", "serve", "full_width"):
+        log(f"[lisa16] {part} in {report[part + '_s']:.1f} s")
+    return report
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -6065,6 +6624,7 @@ def main() -> int:
             log(f"[build] {name}: {ln}")
 
     pcfg = get_lisa_config("lisa-7b")
+    mini_paged = lisa_mini_paged_case(get_lisa_config("lisa-mini"))
     rng = np.random.RandomState(args.seed)
     # the main path decodes a Context microbatch of 4 and one Insight
     # request per tier (KINDS, max_batch=4)
@@ -6080,10 +6640,14 @@ def main() -> int:
                                    timed=c["name"] in DECODE_TIMED
                                    or c["name"].startswith("zoo_"))
             for c in kernel_cases(pcfg, (1, 4)) + zoo14_kernel_cases()[1]],
+        # lisa-mini's served shape draws from its own RandomState: the
+        # cases after it keep the inputs they have always had
         "paged_decode_attention": lambda: [
             check_paged_decode_attention(
                 rng, c, dev, timed=c["name"] in (paged_main, "main_B1"))
-            for c in paged_cases(pcfg)],
+            for c in paged_cases(pcfg)] + [check_paged_decode_attention(
+                np.random.RandomState(args.seed), mini_paged, dev,
+                timed=True)],
         "paged_verify_attention": lambda: [
             check_paged_verify_attention(
                 rng, c, dev, timed=c["name"].startswith("main")
@@ -6208,6 +6772,7 @@ def main() -> int:
     log(f"[profile] phase 13 in {report['profiler_s']:.1f} s")
     del order
 
+    boundary = lisa16_boundary(executor, pcfg, args.seed)
     # phase 11: free LISA-7B, then the zoo's Mamba path
     del executor, params, bns, reqs, results, sched, frames, inflight_results
     gc.collect()
@@ -6226,6 +6791,10 @@ def main() -> int:
     report["train15"] = train15_phase(args.seed, dev)
     report["train15_s"] = time.perf_counter() - t0
     log(f"[train15] phase 15 in {report['train15_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["lisa16"] = lisa16_phase(args.seed, dev, boundary, ranks)
+    report["lisa16_s"] = time.perf_counter() - t0
+    log(f"[lisa16] phase 16 in {report['lisa16_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

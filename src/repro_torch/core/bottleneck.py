@@ -6,7 +6,9 @@ int8-quantises it with a per-token absmax scale; the cloud dequantises and
 projects back. With ``use_kernel`` each side runs its fused CUDA kernel
 (``repro_torch.kernels.bottleneck``), as the reference's ``use_kernel``
 runs its Pallas kernels; the default is the plain path, as in the
-reference, whose serving stages never set it.
+reference, whose serving stages never set it. ``roundtrip_st`` is the
+training path: the same round trip with a straight-through estimator on
+the rounding, differentiable with respect to the pair and the input.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ def init_bottleneck(generator: torch.Generator, spec: BottleneckSpec,
     }
 
 
+def _absmax_scale(z: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
+
+
 def encode(params: dict, x: torch.Tensor, use_kernel: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., d) -> (codes int8 (..., rank), scales f32 (..., 1)).
@@ -57,7 +63,7 @@ def encode(params: dict, x: torch.Tensor, use_kernel: bool = False
         from repro_torch.kernels.bottleneck import ops as bops
         return bops.bottleneck_encode(x, params["enc"])
     z = (x @ params["enc"].to(x.dtype)).float()
-    s = torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
+    s = _absmax_scale(z)
     # torch.round, like jnp.round, rounds half to even
     codes = torch.clamp(torch.round(z / s), -127, 127).to(torch.int8)
     return codes, s
@@ -74,6 +80,26 @@ def decode(params: dict, codes: torch.Tensor, scales: torch.Tensor,
     return (z @ params["dec"].float()).to(out_dtype)
 
 
+def roundtrip_st(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable encode -> quantise -> decode with a straight-through
+    estimator on the rounding: the forward is the plain round trip in
+    float32; the gradient skips the rounding and treats the scale as a
+    constant, as the reference's two ``stop_gradient``s do."""
+    z = x.float() @ params["enc"].float()
+    s = _absmax_scale(z.detach())
+    zq = z / s
+    zq = zq + (torch.clamp(torch.round(zq), -127, 127) - zq).detach()
+    return ((zq * s) @ params["dec"].float()).to(x.dtype)
+
+
 def payload_bytes(spec: BottleneckSpec, num_tokens: int) -> int:
     from repro_torch.core.packets import HEADER_BYTES
     return HEADER_BYTES + num_tokens * spec.rank + num_tokens * 2
+
+
+def recon_loss(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Normalised reconstruction MSE (the distillation regulariser)."""
+    xh = roundtrip_st(params, x).float()
+    xf = x.float()
+    return torch.mean(torch.square(xh - xf)) / (torch.mean(torch.square(xf))
+                                                + 1e-8)

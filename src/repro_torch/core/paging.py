@@ -33,7 +33,7 @@ import torch
 
 TRASH_PAGE = 0
 _SHARDING = ("sharded serving (placement/shards) is not ported yet; see "
-             "ROADMAP.md, Queue 1, sharding")
+             "ROADMAP.md, Queue 1 item 5, sharding")
 
 
 def pages_for(tokens: int, page_size: int) -> int:

@@ -1,20 +1,18 @@
 """Offline profiling -> System Configuration LUT (port of
-``repro/core/profile.py``, its serving half).
+``repro/core/profile.py``).
 
-Payload sizes are computed for the TARGET DEPLOYMENT geometry (LISA-7B:
-4096 SAM tokens x d=1280 bf16 = 10.49 MB boundary activation, the paper's
-figure), so tier feasibility against the 8–20 Mbps trace matches the
-paper's operating regime. ``random_init_system`` builds the no-offline-phase
-system that serving smoke runs, the mission runtime and the chip check
-use: random weights and one bottleneck per tier over the published LUT.
-
-The offline phase itself (``build_lut``, which measures each tier's IoU on
-trained models, and ``train_full_system``) comes with the LISA system's
-training (ROADMAP.md, Queue 1 item 6b) and raises until then.
+Accuracies are measured on the *trained* proxy models (original and
+fine-tuned, ``core/training.py``); payload sizes are computed for the
+TARGET DEPLOYMENT geometry (LISA-7B: 4096 SAM tokens x d=1280 bf16 =
+10.49 MB boundary activation, the paper's figure), so tier feasibility
+against the 8–20 Mbps trace matches the paper's operating regime.
+``random_init_system`` builds the no-offline-phase system that serving
+smoke runs, the mission runtime and the chip check use: random weights and
+one bottleneck per tier over the published LUT.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,11 +20,10 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.lisa7b import LISAPipelineConfig
 from repro_torch.core import bottleneck as bn
 from repro_torch.core import packets as pk
-from repro_torch.core.lut import SystemLUT
+from repro_torch.core import training
+from repro_torch.core.lut import ContextConfig, SystemLUT, Tier
 
 TIER_NAMES = {0.25: "High Accuracy", 0.10: "Balanced", 0.05: "High Throughput"}
-_TRAINING = ("comes with the LISA system's training (ROADMAP.md, Queue 1 "
-             "item 6b)")
 
 
 def deployment_payload_mb(deploy: LISAPipelineConfig, ratio: float) -> float:
@@ -49,18 +46,57 @@ def deployment_context_mb(deploy: LISAPipelineConfig) -> float:
 def build_lut(pcfg: LISAPipelineConfig, params_original: dict,
               params_finetuned: dict, bottlenecks: Dict[float, dict],
               deploy: Optional[LISAPipelineConfig] = None,
-              eval_batches: int = 6) -> SystemLUT:
-    """Profile each tier on trained models. Not ported yet."""
-    raise NotImplementedError(f"build_lut {_TRAINING}")
+              eval_batches: int = 6, device: DeviceLike = None
+              ) -> SystemLUT:
+    """Profile each tier: Average IoU for both model variants + deployment
+    payload size. ``bottlenecks`` maps ratio -> trained pair; tiers come
+    out by ratio, largest first."""
+    if deploy is None:
+        from repro_torch.configs.lisa7b import CONFIG as deploy
+    tiers = []
+    for ratio, bp in sorted(bottlenecks.items(), reverse=True):
+        acc_base = training.evaluate_insight(
+            pcfg, params_original, bn_params=bp, batches=eval_batches,
+            device=device)
+        acc_ft = training.evaluate_insight(
+            pcfg, params_finetuned, bn_params=bp, batches=eval_batches,
+            device=device)
+        tiers.append(Tier(
+            name=TIER_NAMES.get(ratio, f"r={ratio}"),
+            ratio=ratio,
+            acc_base=acc_base["avg_iou"],
+            acc_finetuned=acc_ft["avg_iou"],
+            payload_mb=deployment_payload_mb(deploy, ratio),
+        ))
+    ctx = ContextConfig(payload_mb=deployment_context_mb(deploy))
+    return SystemLUT(tiers=tiers, context=ctx)
 
 
 def train_full_system(pcfg: LISAPipelineConfig,
                       ratios: Sequence[float] = (0.25, 0.10, 0.05),
                       steps: int = 300, bn_steps: int = 200,
                       ft_steps: int = 150, batch_size: int = 16,
-                      seed: int = 0, log=print):
-    """The end-to-end offline phase. Not ported yet."""
-    raise NotImplementedError(f"train_full_system {_TRAINING}")
+                      seed: int = 0, log=print, device: DeviceLike = None
+                      ) -> Tuple[dict, dict, Dict[float, dict]]:
+    """End-to-end offline phase: train the original model, fine-tune the
+    flood variant, distillation-train one bottleneck per ratio (against
+    the original model, as the paper trains compression models once).
+    Every parameter comes back detached: the serving side hands them to
+    kernel wrappers that refuse inputs which require grad."""
+    log("[profile] training original lisa-mini ...")
+    params = training.train_lisa(pcfg, steps=steps, batch_size=batch_size,
+                                 seed=seed, log=log, device=device)
+    log("[profile] fine-tuning flood variant ...")
+    params_ft = training.finetune_lisa(pcfg, params, steps=ft_steps,
+                                       batch_size=batch_size, seed=seed + 1,
+                                       log=log, device=device)
+    bns = {}
+    for r in ratios:
+        log(f"[profile] training bottleneck r={r} ...")
+        bns[r] = training.train_bottleneck(pcfg, params, r, steps=bn_steps,
+                                           batch_size=batch_size, seed=seed,
+                                           log=log, device=device)
+    return params, params_ft, bns
 
 
 def random_init_system(pcfg: LISAPipelineConfig, seed: int = 0,

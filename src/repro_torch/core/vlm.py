@@ -19,11 +19,13 @@ import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.lisa7b import LISAPipelineConfig
+from repro_torch.core import bottleneck as bn
 from repro_torch.core.paging import TRASH_PAGE
 from repro_torch.models import stack
 from repro_torch.models.common import (cache_mask, causal_mask, fan_in_init,
                                        gelu, linear, normal_init)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import _xent
 
 # ---------------------------------------------------------------------------
 # patch embedding / encoders
@@ -420,8 +422,79 @@ def mask_decode(params: dict, pcfg: LISAPipelineConfig,
 
 
 # ---------------------------------------------------------------------------
-# evaluation (the forward half; the losses come with training)
+# end-to-end pipelines
 # ---------------------------------------------------------------------------
+
+
+def insight_forward(params: dict, pcfg: LISAPipelineConfig,
+                    images: torch.Tensor, query_tokens: torch.Tensor,
+                    bn_params: Optional[dict] = None,
+                    split_k: Optional[int] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full Insight pipeline; with ``bn_params`` the boundary activation is
+    compressed with the straight-through bottleneck (the training and
+    evaluation path). Returns (mask_logits (B,H,W), answer_logits (B,V))."""
+    a = sam_head(params, pcfg, images, split_k)
+    if bn_params is not None:
+        a = bn.roundtrip_st(bn_params, a)
+    feats = sam_tail(params, pcfg, a, split_k)
+    ctx = clip_encode(params, pcfg, images)
+    answer_logits, seg = llm_reason(params, pcfg, ctx, query_tokens)
+    return mask_decode(params, pcfg, feats, seg), answer_logits
+
+
+def context_forward(params: dict, pcfg: LISAPipelineConfig,
+                    images: torch.Tensor, query_tokens: torch.Tensor
+                    ) -> torch.Tensor:
+    """Context pipeline: CLIP-only features -> LLM -> answer logits."""
+    ctx = clip_encode(params, pcfg, images)
+    answer_logits, _ = llm_reason(params, pcfg, ctx, query_tokens)
+    return answer_logits
+
+
+# ---------------------------------------------------------------------------
+# losses / metrics
+# ---------------------------------------------------------------------------
+
+
+def insight_loss(params: dict, pcfg: LISAPipelineConfig,
+                 batch: Dict[str, torch.Tensor],
+                 bn_params: Optional[dict] = None,
+                 pos_weight: float = 25.0
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Positive-weighted BCE + dice on the mask + half the answer CE.
+
+    The weight ``1 + (pos_weight - 1) * m`` scales the whole per-pixel
+    term, as the reference's does (targets cover about 2 % of pixels);
+    ``F.binary_cross_entropy_with_logits(pos_weight=)`` would weight only
+    the positive part, a different loss."""
+    mask_logits, answer_logits = insight_forward(
+        params, pcfg, batch["images"], batch["query"], bn_params)
+    m = batch["mask"].float()
+    ml = mask_logits.float()
+    w = 1.0 + (pos_weight - 1.0) * m
+    bce = torch.mean(w * (torch.maximum(ml, torch.zeros_like(ml)) - ml * m
+                          + torch.log1p(torch.exp(-torch.abs(ml)))))
+    p = torch.sigmoid(ml)
+    inter = torch.sum(p * m, dim=(1, 2))
+    dice = 1 - torch.mean((2 * inter + 1) / (torch.sum(p, dim=(1, 2))
+                                             + torch.sum(m, dim=(1, 2)) + 1))
+    ans = _answer_ce(answer_logits, batch["answer"])
+    loss = bce + dice + 0.5 * ans
+    return loss, {"bce": bce, "dice": dice, "answer_ce": ans}
+
+
+def context_loss(params: dict, pcfg: LISAPipelineConfig,
+                 batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    logits = context_forward(params, pcfg, batch["images"], batch["query"])
+    ce = _answer_ce(logits, batch["answer"])
+    return ce, {"answer_ce": ce}
+
+
+def _answer_ce(logits: torch.Tensor, answer: torch.Tensor) -> torch.Tensor:
+    """Mean float32 cross-entropy of the gold answer token."""
+    return _xent(logits, answer)
 
 
 def iou_metrics(mask_logits: torch.Tensor, gt: torch.Tensor

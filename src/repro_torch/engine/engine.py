@@ -63,7 +63,6 @@ from repro_torch.network.energy import (EdgeDevice, edge_insight_flops,
 from repro_torch.runtime.scheduler import MicrobatchScheduler, ServeRequest
 
 BATCHING_MODES = ("microbatch", "generate", "inflight")
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item {})"
 
 # registry keys of the engine's terminal/telemetry counters; the
 # ``stats()`` names and the legacy ``n_*`` attribute surface both read
@@ -207,7 +206,8 @@ class AveryEngine:
             raise ValueError(f"batching must be one of {BATCHING_MODES}")
         if mesh is not None:
             raise NotImplementedError(
-                f"AveryEngine(mesh=...) {_NOT_PORTED.format(5)}")
+                "AveryEngine(mesh=...) is not ported yet (ROADMAP.md, Queue 1 "
+                "item 5)")
         self.lut = lut
         # device-level profiling: resolve the knob, then wrap the executor
         # so every stage call is timed (the wrap sits outermost, fault

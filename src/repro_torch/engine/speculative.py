@@ -30,7 +30,7 @@ from repro_torch import DeviceLike, bridge, resolve_device
 from repro_torch.core import vlm
 from repro_torch.core.streams import host, to_device
 
-_ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1"
+_ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1 item 5"
 
 
 @dataclass(frozen=True)

@@ -1,23 +1,23 @@
 """Serving launcher (port of ``repro/launch/serve.py``).
 
-Smoke mode: closed-loop dual-stream serving of a random-init lisa-mini
-system over a simulated channel, through the ``AveryEngine`` front door —
-batched operator requests, intent gating, Algorithm-1 tier control, the
-paged in-flight batch or closed microbatches — on the card:
+Local mode: closed-loop dual-stream serving of the lisa-mini system over a
+simulated channel, through the ``AveryEngine`` front door — batched
+operator requests, intent gating, Algorithm-1 tier control, the paged
+in-flight batch or closed microbatches — on the card. By default it first
+runs the offline phase on a small budget (trains lisa-mini, its flood
+fine-tune and one bottleneck pair per tier, then profiles the LUT);
+``--smoke`` serves random-init weights over the paper's LUT instead:
 
+  python -m repro_torch.launch.serve --batching inflight --duration 20
   python -m repro_torch.launch.serve --smoke --duration 20 --seed 1
   python -m repro_torch.launch.serve --smoke --batching inflight --device cpu
 
-Without ``--smoke`` the reference first trains the system offline; that
-comes with the LISA system's training (ROADMAP.md, Queue 1 item 6b) and
-raises until then, as does the pod-disaggregated ``--dryrun`` (item 5,
-sharding).
+The pod-disaggregated ``--dryrun`` comes with sharding (ROADMAP.md, Queue 1
+item 5) and raises until then.
 """
 import argparse
 
 import numpy as np
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item {})"
 
 
 def serve_local(duration_s: float, seed: int, max_batch: int = 8,
@@ -25,9 +25,11 @@ def serve_local(duration_s: float, seed: int, max_batch: int = 8,
                 device: str = "cuda") -> None:
     """Closed-loop local serving through the ``AveryEngine`` front door.
 
-    ``smoke=True`` serves random-init weights over the paper LUT, so the
-    whole engine path (intent gate, policy, transport, batched cloud
-    serving) runs in seconds. ``batching`` picks the cloud discipline:
+    Without ``smoke`` the offline phase runs first on a small budget
+    (``train_full_system`` and ``build_lut``); ``smoke=True`` serves
+    random-init weights over the paper LUT, so the whole engine path
+    (intent gate, policy, transport, batched cloud serving) runs in
+    seconds. ``batching`` picks the cloud discipline:
     closed tier-bucketed microbatches or the token-level in-flight batch
     (``"inflight"``). ``device`` is where the executor serves: ``cuda``
     (the default; raises without a card) or ``cpu``."""
@@ -43,13 +45,20 @@ def serve_local(duration_s: float, seed: int, max_batch: int = 8,
                                     ChannelTransport)
     from repro_torch.network import paper_trace
 
-    if not smoke:
-        raise NotImplementedError(
-            f"serving a trained system (the offline phase) "
-            f"{_NOT_PORTED.format('6b')}; pass --smoke")
-    print("[serve] smoke mode: random-init weights, paper LUT")
-    params, bns_by_name, lut = prof.random_init_system(pcfg, seed=seed,
-                                                       device=device)
+    if smoke:
+        print("[serve] smoke mode: random-init weights, paper LUT")
+        params, bns_by_name, lut = prof.random_init_system(pcfg, seed=seed,
+                                                           device=device)
+    else:
+        print("[serve] training lisa-mini system (offline phase, small "
+              "budget)")
+        params, params_ft, bns = prof.train_full_system(
+            pcfg, steps=120, bn_steps=80, ft_steps=60, log=lambda s: None,
+            device=device)
+        lut = prof.build_lut(pcfg, params, params_ft, bns, eval_batches=2,
+                             device=device)
+        bns_by_name = {lut.tiers[i].name: bns[r]
+                       for i, r in enumerate(sorted(bns, reverse=True))}
     execu = DualStreamExecutor(pcfg=pcfg, params=params,
                                bottlenecks=bns_by_name, lut=lut,
                                device=device)
@@ -116,8 +125,8 @@ def main(argv=None) -> None:
     ap.add_argument("--max-batch", type=int, default=8,
                     help="cloud scheduler microbatch / in-flight slot cap")
     ap.add_argument("--smoke", action="store_true",
-                    help="random-init weights + paper LUT (the only mode "
-                         "ported so far)")
+                    help="random-init weights + paper LUT (no offline "
+                         "phase)")
     ap.add_argument("--batching", choices=("microbatch", "inflight"),
                     default="microbatch",
                     help="cloud serving discipline: closed microbatches or "
@@ -127,7 +136,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.dryrun:
         raise NotImplementedError(
-            f"the pod-disaggregated dry-run {_NOT_PORTED.format(5)}")
+            "the pod-disaggregated dry-run is not ported yet (ROADMAP.md, "
+            "Queue 1 item 5)")
     serve_local(args.duration, args.seed, args.max_batch,
                 smoke=args.smoke, batching=args.batching, device=args.device)
 

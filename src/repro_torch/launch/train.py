@@ -9,10 +9,16 @@ stream), on the card unless ``--device`` says otherwise:
         --steps 2 --device cpu --out /tmp/ckpt
 
 The parameters are written with ``checkpoint.save_pytree`` to
-``<out>/<config name>``, in the reference's format. The AVERY offline
-phase (``--lisa``: lisa-mini, its fine-tune, the bottleneck tiers and the
-LUT) comes with the LISA system's training (ROADMAP.md, Queue 1 item 6b)
-and raises until then.
+``<out>/<config name>``, in the reference's format.
+
+The AVERY offline phase (lisa-mini, its flood fine-tune, one bottleneck
+pair per tier and the LUT), whose checkpoints and ``lut.json`` land under
+``--out`` (``lisa_mini_original/``, ``lisa_mini_finetuned/``,
+``bottleneck_r{ratio}/``):
+
+    python -m repro_torch.launch.train --lisa --steps 300
+    python -m repro_torch.launch.train --lisa --steps 4 --ft-steps 2 \
+        --bn-steps 2 --device cpu --out /tmp/lisa
 """
 from __future__ import annotations
 
@@ -56,12 +62,25 @@ def train_arch(arch: str, reduced: bool, steps: int, batch: int, seq: int,
         print(f"[train] saved params to {out}/{cfg.name}")
 
 
-def train_lisa_system(steps: int, bn_steps: int, ft_steps: int, out: str
-                      ) -> None:
-    """The AVERY offline phase. Not ported yet."""
-    raise NotImplementedError(
-        "training the LISA system (--lisa) comes with ROADMAP.md, Queue 1 "
-        "item 6b")
+def train_lisa_system(steps: int, bn_steps: int, ft_steps: int, out: str,
+                      device: DeviceLike = None) -> None:
+    from repro_torch.configs.lisa_mini import CONFIG as pcfg
+    from repro_torch.core import profile as prof
+    params, params_ft, bns = prof.train_full_system(
+        pcfg, steps=steps, bn_steps=bn_steps, ft_steps=ft_steps,
+        device=device)
+    lut = prof.build_lut(pcfg, params, params_ft, bns, device=device)
+    os.makedirs(out, exist_ok=True)
+    save_pytree(os.path.join(out, "lisa_mini_original"), params)
+    save_pytree(os.path.join(out, "lisa_mini_finetuned"), params_ft)
+    for r, bp in bns.items():
+        save_pytree(os.path.join(out, f"bottleneck_r{r}"), bp)
+    lut.save(os.path.join(out, "lut.json"))
+    print("[train] LUT:")
+    for t in lut.tiers:
+        print(f"  {t.name:16s} r={t.ratio:<5} base={t.acc_base:.4f} "
+              f"ft={t.acc_finetuned:.4f} payload={t.payload_mb:.2f}MB")
+    print(f"[train] artifacts saved under {out}/")
 
 
 def main(argv=None) -> None:
@@ -69,7 +88,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", choices=ARCH_IDS, default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--lisa", action="store_true",
-                    help="the AVERY offline phase (not ported yet)")
+                    help="the AVERY offline phase: lisa-mini, its "
+                         "fine-tune, the bottleneck tiers and the LUT")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--bn-steps", type=int, default=200)
     ap.add_argument("--ft-steps", type=int, default=150)
@@ -81,7 +101,8 @@ def main(argv=None) -> None:
                     help="where to train: cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.lisa:
-        train_lisa_system(args.steps, args.bn_steps, args.ft_steps, args.out)
+        train_lisa_system(args.steps, args.bn_steps, args.ft_steps, args.out,
+                          args.device)
     elif args.arch:
         train_arch(args.arch, args.reduced, args.steps, args.batch, args.seq,
                    args.lr, args.out, args.device)

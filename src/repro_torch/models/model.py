@@ -225,12 +225,12 @@ def _trainable(t: torch.Tensor) -> torch.Tensor:
     return t.requires_grad_()
 
 
-def loss_and_grads(p: Params, cfg: ModelConfig,
-                   batch: Dict[str, torch.Tensor]):
-    """The reference's ``value_and_grad(loss_fn, has_aux=True)``: (total,
-    metrics, grads), the gradients of the total with respect to every
-    floating leaf of ``p`` in a tree like ``p`` (``None`` for a leaf the
-    loss never reads, and for non-floating leaves). Must run outside
+def value_and_grad(fn, p: Params):
+    """The reference's ``jax.value_and_grad(fn, has_aux=True)(p)`` for
+    ``fn(p) -> (value, metrics dict)``: (value, metrics, grads), the
+    gradients of the value with respect to every floating leaf of ``p`` in
+    a tree like ``p`` (``None`` for a leaf the value never reads, and for
+    non-floating leaves), everything returned detached. Must run outside
     ``torch.inference_mode``; ``p`` may come from inside it."""
     if torch.is_inference_mode_enabled():
         raise RuntimeError("training cannot run under torch.inference_mode")
@@ -238,12 +238,18 @@ def loss_and_grads(p: Params, cfg: ModelConfig,
         live = stack.tree_map(
             lambda t: _trainable(t) if t.is_floating_point() else t, p)
         wrt = [t for t in stack.leaves(live) if t.requires_grad]
-        total, metrics = loss_fn(live, cfg, batch)
+        total, metrics = fn(live)
         grads = iter(torch.autograd.grad(total, wrt, allow_unused=True))
     grads = stack.tree_map(
         lambda t: next(grads) if t.requires_grad else None, live)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def loss_and_grads(p: Params, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor]):
+    """``value_and_grad`` of ``loss_fn``: (total, metrics, grads)."""
+    return value_and_grad(lambda q: loss_fn(q, cfg, batch), p)
 
 
 def make_train_step(cfg: ModelConfig, optimizer):

@@ -41,6 +41,7 @@ from repro_torch.data import floodseg as tflood
 from repro_torch.data import requests as treq
 from repro_torch.engine import policy as tpolicy
 from repro_torch.launch import serve as tserve
+from repro_torch.models import stack as tstack
 from repro_torch.network import traces as ttraces
 from repro_torch.runtime import fleet as tfleet
 from repro_torch.runtime import mission as tmission
@@ -186,15 +187,30 @@ def test_serve_smoke_prints_the_reference_lines(batching, capsys,
     assert _lines(got) == _lines(want) and len(_lines(got)) >= 4
 
 
-def test_unported_modes_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tserve.serve_local(5.0, 0, smoke=False, device="cpu")
+def test_unported_modes_name_their_roadmap_item(monkeypatch, capsys):
+    """The pod-disaggregated dry-run still raises naming item 5 (sharding);
+    the offline phase's entry points, which raised naming item 6b, run:
+    ``build_lut`` on no pairs gives the context row alone,
+    ``train_full_system`` trains detached weights, and ``serve_local``
+    without ``smoke`` serves what it trained (here a one-step stand-in)."""
+    from repro.configs.lisa7b import CONFIG as JDEPLOY
     with pytest.raises(NotImplementedError, match="item 5"):
         tserve.main(["--dryrun"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tprof.build_lut(TP, {}, {}, {})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tprof.train_full_system(TP)
+    lut = tprof.build_lut(TP, {}, {}, {}, device="cpu")
+    assert lut.tiers == [] and lut.context.payload_mb == \
+        jprof.deployment_context_mb(JDEPLOY)
+    params, params_ft, bns = tprof.train_full_system(
+        TP, ratios=(0.05,), steps=1, bn_steps=1, ft_steps=1, batch_size=2,
+        log=lambda s: None, device="cpu")
+    assert sorted(bns) == [0.05] and sorted(bns[0.05]) == ["dec", "enc"]
+    for tree in (params, params_ft, bns):
+        assert not any(t.requires_grad for t in tstack.leaves(tree))
+    system = tprof.train_full_system
+    monkeypatch.setattr(tprof, "train_full_system", lambda pcfg, **kw: system(
+        pcfg, **{**kw, "steps": 1, "bn_steps": 1, "ft_steps": 1,
+                 "batch_size": 2}))
+    tserve.serve_local(5.0, 0, smoke=False, device="cpu")
+    assert "[serve] served " in capsys.readouterr().out
     if not torch.cuda.is_available():
         # the launcher's default device is the card; without one it raises
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -80,13 +80,16 @@ def test_no_refusal_names_the_ported_zoo():
 
 
 def test_no_refusal_names_the_ported_training_path():
-    """The generic training path (ROADMAP.md, Queue 1 item 6a) is ported:
-    no port module still names item 6a or refuses with item 6 alone; what
-    still raises names item 6b, the LISA system's training."""
+    """Training (ROADMAP.md, Queue 1 items 6a and 6b) is ported: no port
+    module names item 6, 6a or 6b; what still raises as not ported names
+    item 5, sharding."""
     for path in PORT.rglob("*.py"):
         src = path.read_text()
-        assert "6a" not in src, f"{path} still names item 6a"
+        for word in ("6a", "6b"):
+            assert word not in src, f"{path} still names item {word}"
         for line in src.splitlines():
             assert "item 6)" not in line and "item 6 " not in line \
                 and not line.rstrip().endswith("item 6"), \
-                f"{path}: {line.strip()!r} names item 6, not 6b"
+                f"{path}: {line.strip()!r} names item 6"
+        if "not ported yet" in src:
+            assert "item 5" in src, f"{path} refuses without naming item 5"

@@ -271,11 +271,6 @@ def test_train_arch_writes_the_reference_structure(tmp_path, capsys):
                _pairs(loaded, loaded))
 
 
-def test_lisa_training_refuses_naming_item_6b():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ttrain.main(["--lisa"])
-
-
 # ---------------------------------------------------------------------------
 # the three repairs
 # ---------------------------------------------------------------------------
