@@ -17,7 +17,11 @@ Phases, each fatal on failure:
      then hold the attention the encoders and the plain paths take
      (``attention.sdpa_f32``: bf16 operands multiplied on the tensor cores
      with a float32 result) against its float32 upcast at SAM's, CLIP's
-     and the LLM prefill's shapes, and time both;
+     and the LLM prefill's shapes, and time both. Each bottleneck case
+     draws from a generator of its own, seeded from its name
+     (``case_rng``); each float32-x encode case runs over BN_DRAWS draws,
+     the kernel's scales within SCALES_TOL of the plain version's and both
+     within SCALES_TOL of a float64 product's (``encode_draws``);
   4. check the serving path on a small input: LISA-mini in fp32, the
      scheduler's tokens with the kernel equal those of the plain path;
   5. serve six mixed Context/Insight requests over two bottleneck tiers at
@@ -249,6 +253,25 @@ Phases, each fatal on failure:
      ``encode(use_kernel=True)``, the gradients to ``enc`` and ``dec``
      against a float64 CPU replay (LISA16_ST_GRAD_RTOL), which a replay
      with the encoder product in bf16 must fail.
+ 17. (shard17, after 16) tensor-parallel paged serving: two rank
+     processes on cuda:0 over gloo (``launch.mesh.spawn_ranks``; NCCL will
+     not put two ranks of one communicator on one card), each building
+     LISA-7B at full width and depth from ``--seed`` (a float64 sum of
+     every leaf equal on both ranks) and wrapping it in a
+     ``ShardedServingContext`` over ``make_local_mesh(model=2)``: Insight
+     at two tiers and Context through ``AveryEngine(mesh=, batching=
+     "inflight")``, plain and with ``speculative=3`` (12c's draft), launch
+     counters from 0: paged = decode steps x 32, verify = verify steps x
+     32, contiguous = draft steps x 32, every launch on 16 kv heads;
+     ``stats()`` with ``mesh_devices`` 2, ``model_shards`` 2 and the
+     per-shard pool half the logical one; one decode and one verify step
+     of each rank through ``layer_check``; each layer of one sharded
+     prefill against the whole layer on its input (LAYER_RTOL); rank 0
+     against the unsharded engine on the same card and weights (tokens up
+     to 12c's checked near ties, logits and masks within PATH_RTOL); both
+     ranks' served arrays bit-equal. Per rank: peak memory, decode and verify step walls, the
+     all-reduces a step and their time (gloo staged through the host on
+     one card: nothing of NCCL over NVLink).
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -303,6 +326,7 @@ import subprocess
 import sys
 import time
 import types
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -1165,6 +1189,84 @@ CODES_OFF_FRAC = 1e-3
 # decode: the output rounded once to bf16, or float32 summation order over
 # the rank (the reference's own test)
 DECODE_TOL = {torch.bfloat16: (8e-3, 1e-3), torch.float32: (1e-5, 1e-4)}
+
+
+# each bottleneck case draws from a generator of its own, seeded from the
+# case's name (and the draw), so a new case never moves another's inputs
+def case_rng(seed, name, draw=0):
+    return np.random.RandomState(zlib.crc32(f"{seed}:{name}:{draw}".encode()))
+
+
+# draws of each float32-x encode case, each held three ways: the kernel's
+# scales against the plain version's, and both against a float64 product
+BN_DRAWS = 8
+
+
+def scales_f64(x, w):
+    """The encode's scales from a float64 product of the same inputs."""
+    z = x.reshape(-1, x.shape[-1]).double() @ w.double()
+    return z.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+
+
+def _scales_excess(got, want):
+    """Max abs difference of two scale columns, and how far it lies
+    beyond SCALES_TOL (> 0: outside)."""
+    rtol, atol = SCALES_TOL
+    err = (got.double() - want.double()).abs()
+    return float(err.max()), float((err - rtol * want.double().abs()).max()
+                                   - atol)
+
+
+def encode_draws(seed, cases, dev):
+    """Every float32-x encode case over BN_DRAWS draws: the kernel's codes
+    and scales against the plain version's (``codes_held_against``), and
+    the kernel's and the plain version's scales each within SCALES_TOL of
+    the float64 product's. Each case's line gives the worst of each
+    reading over its draws, and the mean sign of (kernel - float64) of a
+    token's max |z| (-1: every token's max read short)."""
+    from repro_torch.kernels.bottleneck import ops, ref
+    out = []
+    for case in cases:
+        name, d, r = case["name"], case["d"], case["r"]
+        worst = {"kernel_vs_plain": 0.0, "kernel_vs_f64": 0.0,
+                 "plain_vs_f64": 0.0, "codes_off_frac": 0.0,
+                 "max_abs_err": 0}
+        signs = []
+        for draw in range(BN_DRAWS):
+            x, w = encode_inputs(case_rng(seed, name, draw), case, dev)
+            codes, scales = ops.bottleneck_encode(x, w)
+            torch.cuda.synchronize()
+            want_c, want_s = ref.encode_ref(x.reshape(-1, d), w)
+            s64 = scales_f64(x, w)
+            label = f"bottleneck_encode {name} draw {draw}"
+            max_diff, off, s_err = codes_held_against(
+                label, codes.reshape(-1, r), scales.reshape(-1, 1), want_c,
+                want_s)
+            for key, got in (("kernel_vs_f64", scales.reshape(-1, 1)),
+                             ("plain_vs_f64", want_s)):
+                err, excess = _scales_excess(got, s64)
+                if excess > 0:
+                    raise AssertionError(
+                        f"{label}: {key.split('_')[0]} scales {err:.3g} off "
+                        f"the float64 product's (rtol {SCALES_TOL[0]}, atol "
+                        f"{SCALES_TOL[1]})")
+                worst[key] = max(worst[key], err)
+            worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], s_err)
+            worst["codes_off_frac"] = max(worst["codes_off_frac"], off)
+            worst["max_abs_err"] = max(worst["max_abs_err"], max_diff)
+            signs.append(float(torch.sign(
+                scales.reshape(-1, 1).double() - s64).mean()))
+        res = {"case": f"{name}_draws", "draws": BN_DRAWS, **worst,
+               "mean_sign": signs}
+        log(f"[kernel] bottleneck_encode {name}: {BN_DRAWS} draws, scales "
+            f"max abs err kernel-plain {worst['kernel_vs_plain']:.3g}, "
+            f"kernel-float64 {worst['kernel_vs_f64']:.3g}, plain-float64 "
+            f"{worst['plain_vs_f64']:.3g} (each rtol {SCALES_TOL[0]}, atol "
+            f"{SCALES_TOL[1]}); codes off <= {worst['max_abs_err']} on <= "
+            f"{worst['codes_off_frac']:.3g}; mean sign(kernel - float64) a "
+            f"draw {[round(v, 2) for v in signs]}")
+        out.append(res)
+    return out
 
 
 def codes_held_against(name, codes, scales, want_codes, want_scales):
@@ -5219,12 +5321,14 @@ def zoo14_decode(params, cfg, prompt, dev, forced=None):
     return torch.cat(new, dim=1), logits
 
 
-def decode_ties(label, tokens, logits, other_tokens, other_logits, limit):
+def decode_ties(label, tokens, logits, other_tokens, other_logits, limit,
+                tag="zoo14"):
     """Each row's greedy tokens against another path's: equal, or first
     differing at a near tie (12c's rule): at that token the two runs'
     logits (on the same prefix) must each lead with its own token, the two
     tokens' logits must agree between the runs within TIE_ULPS bf16 steps,
-    the rows within ``limit`` norm-wise; at most MAX_TIES rows."""
+    the rows within ``limit`` norm-wise; at most MAX_TIES rows.
+    ``logits[d][b]``: row b's logits that predict its token d."""
     ties = []
     for b in range(tokens.shape[0]):
         x, y = tokens[b].tolist(), other_tokens[b].tolist()
@@ -5241,7 +5345,7 @@ def decode_ties(label, tokens, logits, other_tokens, other_logits, limit):
                "kernel_leads": bool(A[a] >= A.max()),
                "other_leads": bool(P[o] >= P.max()), "rel": _rel(A, P)}
         ties.append(tie)
-        log(f"[zoo14] {label}: row {b} tokens {x} vs {y}, first differing "
+        log(f"[{tag}] {label}: row {b} tokens {x} vs {y}, first differing "
             f"at token {d}: margin {tie['margin']:.4g} of {o} over {a}; "
             f"{tie['ulps_kernel_token']:.3g} and "
             f"{tie['ulps_other_token']:.3g} bf16 steps (limit {TIE_ULPS}), "
@@ -6559,6 +6663,418 @@ def lisa16_phase(seed, dev, x, ranks):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel paged serving, two ranks of LISA-7B on one card
+# ---------------------------------------------------------------------------
+
+SHARD17_RANKS = 2
+# the whole phase, and one collective (rendezvous included: a rank's
+# LISA-7B takes tens of seconds to build before its first one)
+SHARD17_TIMEOUT_S = 480
+SHARD17_COLLECTIVE_S = 300
+# Insight at the first two tiers, then Context
+SHARD17_KINDS = ("insight", "insight", "context")
+SHARD17_SPECULATIVE = 3          # 12c's draft: the serving weights, k = 3
+
+
+def shard17_requests(executor, pcfg, seed):
+    """SHARD17_KINDS from 12b's seeded frames, their packets made by the
+    executor's edge stages: [(packet, query, intent)]."""
+    from repro_torch.core.intent import Intent
+    out = []
+    for i, ((images, query), kind) in enumerate(
+            zip(engine_frames(pcfg, seed), SHARD17_KINDS)):
+        if kind == "context":
+            pkt, _ = executor.edge_context(images, i, 0.0)
+            out.append((pkt, query, Intent.CONTEXT))
+        else:
+            pkt = executor.edge_insight(images, executor.lut.tiers[i], i,
+                                        0.0)
+            out.append((pkt, query, Intent.INSIGHT))
+    return out
+
+
+def _kv_heads_seen(seen):
+    """Stand-ins for the three decode-attention wrappers that record the
+    kv heads of each call (k's third axis: (P, page, K, hd) or (B, W, K,
+    hd)) before calling through."""
+    from repro_torch.kernels.decode_attention import ops
+    patches = []
+    for name in ("decode_attention", "paged_decode_attention",
+                 "paged_verify_attention"):
+        def wrap(fn, name=name):
+            def run(q, k, *a, **kw):
+                seen.setdefault(name, set()).add(int(k.shape[2]))
+                return fn(q, k, *a, **kw)
+            return run
+        patches.append(mock.patch.object(ops, name, wrap(getattr(ops,
+                                                                 name))))
+    return patches
+
+
+def shard17_run(executor, pcfg, order, mesh, speculative):
+    """One engine run of ``order`` through ``submit_packet`` on
+    ``executor`` (a ``ShardedServingContext`` with ``mesh``, or the plain
+    executor), launch counters from 0 just before and read just after.
+    Each decode and verify step is timed to the end of its device work,
+    with the all-reduces it joined and their time (each timed alone
+    between two synchronisations). Returns (responses, report, the logits
+    that predicted each (request, token))."""
+    from repro_torch.engine.engine import AveryEngine
+    engine = AveryEngine(lut=executor.lut, executor=executor, mesh=mesh,
+                         batching="inflight", max_batch=INFLIGHT_SLOTS,
+                         speculative=speculative)
+    calls = {"cloud_verify_rows": 0, "cloud_decode_rows": 0}
+    steps = {name: [] for name in calls}
+    logits, reduce, heads = {}, {"n": 0, "s": 0.0}, {}
+    sharded = mesh is not None
+
+    def timed(name, stage):
+        def run(*args):
+            n0, s0 = reduce["n"], reduce["s"]
+            t0 = _sync_s()
+            out = stage(*args)
+            steps[name].append({"wall_s": _sync_s() - t0,
+                                "all_reduces": reduce["n"] - n0,
+                                "all_reduce_s": reduce["s"] - s0})
+            return out
+        return run
+
+    if sharded:
+        real_reduce = executor.all_reduce
+
+        def timed_reduce(t):
+            t0 = _sync_s()
+            out = real_reduce(t)
+            reduce["s"] += _sync_s() - t0
+            reduce["n"] += 1
+            return out
+        executor.all_reduce = timed_reduce
+    for name in calls:
+        setattr(executor, name, timed(name, _recording(
+            executor, engine, name, calls, logits)))
+    try:
+        with contextlib.ExitStack() as stack:
+            for p in _kv_heads_seen(heads):
+                stack.enter_context(p)
+            _reset_launch_counts()
+            t0 = _sync_s()
+            futs = [engine.submit_packet(p, q, it, time_s=0.4 * i)
+                    for i, (p, q, it) in enumerate(order)]
+            decoders = list(engine._inflight.values())
+            engine.drain()
+            wall = _sync_s() - t0
+            launches = _launch_counts()
+    finally:
+        for name in calls:
+            vars(executor).pop(name, None)
+        vars(executor).pop("all_reduce", None)
+    responses = [f.result() for f in futs]
+    _engine_outputs(pcfg, responses, SPEC_MAX_NEW_TOKENS)
+    L = pcfg.llm.num_layers
+    draft_steps = sum(d.draft.n_steps for d in decoders
+                      if d.draft is not None)
+    expect = _only(paged_verify_attention=calls["cloud_verify_rows"] * L,
+                   paged_decode_attention=calls["cloud_decode_rows"] * L,
+                   decode_attention=draft_steps * L)
+    ran = calls["cloud_verify_rows" if speculative else "cloud_decode_rows"]
+    if launches != expect or not ran:
+        raise AssertionError(f"17: launches {launches}, expected {expect} "
+                             f"({calls}, {draft_steps} draft steps)")
+    stats = engine.stats
+    report = {"wall_s": wall, "steps": calls, "draft_steps": draft_steps,
+              "launches": launches, "kv_heads": {k: sorted(v)
+                                                 for k, v in heads.items()},
+              "step_times": steps,
+              "pool": {k: stats[k] for k in ("kv_pool_bytes",
+                                             "kv_pool_bytes_per_shard",
+                                             "kv_shards")}}
+    if sharded:
+        report.update(mesh_devices=stats["mesh_devices"],
+                      model_shards=stats["model_shards"])
+    return responses, report, logits
+
+
+def _shard17_arrays(responses):
+    """Each response's tokens, answer logits and (Insight) mask logits."""
+    out = {}
+    for r in responses:
+        out[f"tokens_{r.request_id}"] = np.asarray(r.tokens)
+        out[f"answer_{r.request_id}"] = np.asarray(r.answer_logits)
+        if r.mask_logits is not None:
+            out[f"mask_{r.request_id}"] = np.asarray(r.mask_logits)
+    return out
+
+
+def shard17_against_unsharded(label, responses, logits, base, base_logits):
+    """Rank 0's tokens against the unsharded engine's, up to 12c's checked
+    near ties (``decode_ties``: TIE_ULPS, MAX_TIES, each path's logits
+    within PATH_RTOL where a token first differs), and its answer and mask
+    logits within PATH_RTOL norm-wise. Returns the ties and the worst
+    norm-wise difference."""
+    tokens = np.concatenate([r.tokens for r in responses])
+    other = np.concatenate([r.tokens for r in base])
+    rows = {r.request_id: b for b, r in enumerate(responses)}
+
+    def by_token(rec):
+        out = {}
+        for (rid, d), v in rec.items():
+            out.setdefault(d, {})[rows[rid]] = torch.as_tensor(v)
+        return out
+    try:
+        ties = decode_ties(label, tokens, by_token(logits), other,
+                           by_token(base_logits), PATH_RTOL, tag="shard17")
+    except KeyError as e:
+        raise AssertionError(f"{label}: tokens {tokens.tolist()} != "
+                             f"{other.tolist()} with no logits recorded for "
+                             f"the first differing one ({e})") from None
+    worst = 0.0
+    for r, b in zip(responses, base):
+        worst = max(worst, _rel(r.answer_logits, b.answer_logits))
+        if b.mask_logits is not None:
+            worst = max(worst, _rel(r.mask_logits, b.mask_logits))
+    if not worst <= PATH_RTOL:
+        raise AssertionError(f"{label}: logits or masks {worst:.3g} off the "
+                             f"unsharded engine's (limit {PATH_RTOL})")
+    return ties, worst
+
+
+def shard17_layers(ctx, order, kind, rank):
+    """``layer_check`` of one step of ``kind`` on this rank's slice: a
+    fresh decoder on the sharded context admits ``order`` and takes one
+    step ("paged": plain decode; "verify": speculative, whose first step
+    verifies)."""
+    from repro_torch.core.paging import PagePool
+    from repro_torch.engine.inflight import InflightDecoder
+    from repro_torch.engine.speculative import SpeculativeConfig
+
+    def run():
+        spec = (SpeculativeConfig(draft_tokens=SHARD17_SPECULATIVE)
+                if kind == "verify" else None)
+        pool = PagePool(page_size=ctx.page_size, placement=ctx.place_pool,
+                        shards=ctx.model_shards)
+        dec = InflightDecoder(ctx, slots=INFLIGHT_SLOTS, pool=pool,
+                              spec=spec)
+        for i, (p, q, it) in enumerate(order):
+            dec.submit(i, it, p, q, lambda o: None)
+        dec.pump(1)
+    _, summary = layer_check(kind, f"17 rank {rank} one {kind} step", run)
+    if summary["steps"] != 1:
+        raise AssertionError(f"17: {summary['steps']} {kind} steps checked, "
+                             f"expected 1")
+    return summary
+
+
+def shard17_prefill_layers(ctx, executor, order, rank):
+    """Each prefill layer of the Context request's ``cloud_prefix`` on
+    this rank's slice (row-parallel sums over the ranks) against, on rank
+    0, the whole layer on the same input (the unsharded weights, no
+    collective): attention block and layer output norm-wise within
+    LAYER_RTOL, as ``layer_check`` holds a kernel. Returns the readings
+    (rank 0) or None."""
+    from repro_torch.models import stack
+    pkt, query, _ = order[SHARD17_KINDS.index("context")]
+    block, seen = stack._dense_block_full, []
+
+    def recorded(p, cfg, x, positions, mask):
+        y, kv = block(p, cfg, x, positions, mask)
+        seen.append((x, positions, mask, y))
+        return y, kv
+    with mock.patch.object(stack, "_dense_block_full", recorded):
+        ctx.cloud_prefix(pkt.content["ctx"], query)
+    if rank != 0:
+        return None
+    llm = executor.pcfg.llm
+    whole = stack.layer_views(executor.params["llm"]["groups"][0],
+                              llm.num_layers)
+    rel = [_rel(y, block(whole[i], llm, x, positions, mask)[0])
+           for i, (x, positions, mask, y) in enumerate(seen)]
+    worst = int(np.argmax(rel))
+    log(f"[shard17] rank 0: {len(rel)} prefill layers of rank 0's slice "
+        f"against the whole layer on the same input: worst layer {worst} "
+        f"{rel[worst]:.3g} norm-wise (limit {LAYER_RTOL}); per layer "
+        + ", ".join(f"{r:.2g}" for r in rel))
+    if len(rel) != llm.num_layers or not max(rel) <= LAYER_RTOL:
+        raise AssertionError(f"17: sharded prefill layers {rel} against the "
+                             f"whole layers (limit {LAYER_RTOL})")
+    return {"layers": len(rel), "worst_layer": worst, "per_layer": rel,
+            "limit": LAYER_RTOL}
+
+
+def shard17_serve(rank, seed, dev):
+    """One rank of phase 17: LISA-7B at full width from ``seed`` (the
+    weights checked leaf by leaf against rank 0's), wrapped in a
+    ``ShardedServingContext`` over ``make_local_mesh(model=2)``, serves
+    SHARD17_KINDS plain and with ``speculative=3``; one step of each kind
+    through ``layer_check``; one prefill's layers against the whole
+    layers (``shard17_prefill_layers``); on rank 0 the same runs
+    unsharded. Returns (report, the served arrays)."""
+    from repro_torch.configs import get_lisa_config
+    from repro_torch.core.streams import DualStreamExecutor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.stack import leaves
+    from repro_torch.sharding.serving import (ShardedServingContext,
+                                              same_on_all_ranks)
+    pcfg = get_lisa_config("lisa-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _sync_s()
+    params, bns, lut = make_system(pcfg, seed, dev)
+    executor = spec_executor(DualStreamExecutor(
+        pcfg=pcfg, params=params, bottlenecks=bns, lut=lut,
+        max_new_tokens=MAX_NEW_TOKENS, flash_decode=True, device=dev))
+    sums = np.array([float(t.sum(dtype=torch.float64))
+                     for tree in (params, bns) for t in leaves(tree)])
+    if not same_on_all_ranks([sums], dev):
+        raise AssertionError("17: the ranks built different weights")
+    mesh = make_local_mesh(model=SHARD17_RANKS)
+    ctx = ShardedServingContext(executor, mesh)
+    init_s = _sync_s() - t0
+    order = shard17_requests(executor, pcfg, seed)
+    contents = [np.asarray(v) for p, q, _ in order
+                for v in list(p.content.values()) + [q]]
+    if not same_on_all_ranks(contents, dev):
+        raise AssertionError("17: the ranks' edge stages made different "
+                             "packets")
+    log(f"[shard17] rank {rank}: LISA-7B ({sums.size} leaves, equal on "
+        f"every rank) and its slice ({sorted(ctx.tp.kinds)} cut over "
+        f"{ctx.model_shards}) in {init_s:.1f} s; "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB peak")
+    report = {"rank": rank, "init_s": init_s, "kinds": sorted(ctx.tp.kinds),
+              "weight_leaves": int(sums.size)}
+    arrays, runs = {}, {}
+    for name, spec in (("plain", None), ("spec", SHARD17_SPECULATIVE)):
+        responses, rep, logits = shard17_run(ctx, pcfg, order, mesh, spec)
+        runs[name] = (responses, logits)
+        arrays.update({f"{name}_{k}": v for k, v in
+                       _shard17_arrays(responses).items()})
+        L = pcfg.llm.num_layers
+        heads = pcfg.llm.num_kv_heads // SHARD17_RANKS
+        if any(v != [heads] for v in rep["kv_heads"].values()):
+            raise AssertionError(f"17 {name}: kernels launched on kv heads "
+                                 f"{rep['kv_heads']}, not {heads}")
+        pool = rep["pool"]
+        if (rep["mesh_devices"], rep["model_shards"]) != (2, 2) or \
+                pool["kv_pool_bytes_per_shard"] * 2 != pool["kv_pool_bytes"]:
+            raise AssertionError(f"17 {name}: stats {rep}")
+        st = rep["step_times"]
+        for stage, tag in (("cloud_decode_rows", "decode"),
+                           ("cloud_verify_rows", "verify")):
+            if st[stage]:
+                walls = [x["wall_s"] * 1e3 for x in st[stage]]
+                red = [x["all_reduces"] for x in st[stage]]
+                red_ms = [x["all_reduce_s"] * 1e3 for x in st[stage]]
+                rep[f"{tag}_step_ms_median"] = float(np.median(walls))
+                rep[f"{tag}_all_reduces_a_step"] = red
+                rep[f"{tag}_all_reduce_ms_median"] = float(np.median(red_ms))
+                log(f"[shard17] rank {rank} {name}: {len(walls)} {tag} "
+                    f"steps, wall median {np.median(walls):.2f} ms (min "
+                    f"{min(walls):.2f}, max {max(walls):.2f}), all-reduces "
+                    f"a step {sorted(set(red))}, their time a step median "
+                    f"{np.median(red_ms):.2f} ms (gloo staged through the "
+                    f"host on one card; says nothing of NCCL over NVLink)")
+        log(f"[shard17] rank {rank} {name}: {len(responses)} requests, "
+            f"{rep['steps']['cloud_decode_rows']} decode and "
+            f"{rep['steps']['cloud_verify_rows']} verify steps, "
+            f"{rep['draft_steps']} draft steps; launches {rep['launches']} "
+            f"(paged = decode steps x {L}, verify = verify steps x {L}, "
+            f"contiguous = draft steps x {L}), each on {heads} kv heads; "
+            f"pool {pool}; wall {rep['wall_s']:.2f} s")
+        report[name] = rep
+    for kind in ("paged", "verify"):
+        report[f"layers_{kind}"] = shard17_layers(ctx, order, kind, rank)
+    report["prefill_layers"] = shard17_prefill_layers(ctx, executor, order,
+                                                      rank)
+    if not same_on_all_ranks(list(arrays.values()), dev):
+        raise AssertionError("17: the ranks served different bits")
+    if rank == 0:
+        for name, spec in (("plain", None), ("spec", SHARD17_SPECULATIVE)):
+            base, _, base_logits = shard17_run(executor, pcfg, order, None,
+                                               spec)
+            responses, logits = runs[name]
+            ties, worst = shard17_against_unsharded(
+                f"17 {name}", responses, logits, base, base_logits)
+            report[f"{name}_against_unsharded"] = {
+                "ties": ties, "worst_rel": worst,
+                "tokens": [r.tokens.tolist() for r in responses],
+                "unsharded_tokens": [r.tokens.tolist() for r in base]}
+            log(f"[shard17] rank 0 {name}: tokens "
+                f"{[r.tokens.tolist()[0] for r in responses]} against the "
+                f"unsharded engine's "
+                f"{[r.tokens.tolist()[0] for r in base]}: {len(ties)} near "
+                f"ties (at most {MAX_TIES}); answer and mask logits "
+                f"{worst:.3g} norm-wise (limit {PATH_RTOL})")
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[shard17] rank {rank}: peak memory {report['peak_gib']:.2f} GiB "
+        f"(this process)")
+    return report, arrays
+
+
+def shard17_rank(args):
+    """A rank process of phase 17 (``--rank``, from ``shard17_phase``):
+    joins the gloo group on cuda:0, serves, writes its report and arrays
+    into ``--shard17-out``."""
+    from repro_torch.launch import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.init_rank(args.rank, args.world, args.init, "cuda",
+                             timeout_s=SHARD17_COLLECTIVE_S)
+    import torch.distributed as dist
+    try:
+        with torch.inference_mode():
+            report, arrays = shard17_serve(args.rank, args.seed, dev)
+        with open(os.path.join(args.shard17_out,
+                               f"rank{args.rank}.json"), "w") as f:
+            json.dump(report, f, default=str)
+        np.savez(os.path.join(args.shard17_out, f"rank{args.rank}.npz"),
+                 **arrays)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def shard17_phase(seed):
+    """Phase 17: two rank processes on cuda:0 over gloo
+    (``launch.mesh.spawn_ranks``), each as ``shard17_serve``; the ranks'
+    served arrays must be bit-equal. Returns both reports."""
+    from repro_torch.launch import mesh as mesh_lib
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = mesh_lib.spawn_ranks(
+            [os.path.abspath(__file__), "--seed", str(seed),
+             "--shard17-out", tmp], SHARD17_RANKS, SHARD17_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                log(f"[rank {r}] {line}")
+        reports, arrays = [], []
+        for r in range(SHARD17_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                arrays.append({k: z[k] for k in z.files})
+    if set(arrays[0]) != set(arrays[1]) or not all(
+            np.array_equal(arrays[0][k], arrays[1][k]) for k in arrays[0]):
+        raise AssertionError("17: the ranks' served arrays differ")
+    for rep in reports:
+        log(f"[shard17] rank {rep['rank']}: peak {rep['peak_gib']:.2f} GiB; "
+            f"decode step {rep['plain']['decode_step_ms_median']:.2f} ms "
+            f"with {rep['plain']['decode_all_reduces_a_step'][0]} "
+            f"all-reduces in {rep['plain']['decode_all_reduce_ms_median']:.2f}"
+            f" ms; verify step {rep['spec']['verify_step_ms_median']:.2f} ms "
+            f"with {rep['spec']['verify_all_reduces_a_step'][0]} all-reduces "
+            f"in {rep['spec']['verify_all_reduce_ms_median']:.2f} ms (gloo "
+            f"staged through the host on one card: says nothing of NCCL "
+            f"over NVLink); {card}")
+    log(f"[shard17] {len(arrays[0])} served arrays bit-equal on both ranks; "
+        f"phase wall {wall:.1f} s")
+    return {"ranks": reports, "wall_s": wall, "card": card}
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -6590,12 +7106,20 @@ def main() -> int:
                     choices=KERNELS, metavar="NAME",
                     help="build and check only this kernel (phases 1-3; "
                     "repeatable), then stop without a result line")
+    # a rank process of phase 17 (launch.mesh.spawn_ranks adds the last
+    # three)
+    ap.add_argument("--shard17-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
+    if args.rank is not None:
+        return shard17_rank(args)
     from repro_torch.configs import get_config, get_lisa_config
     from repro_torch.core.bottleneck import rank_for_ratio
     from repro_torch.core.lut import paper_lut
@@ -6659,11 +7183,13 @@ def main() -> int:
                                   or c["name"].startswith("zoo_"))
             for c in flash_cases(pcfg) + zoo14_kernel_cases()[0]],
         "bottleneck_encode": lambda: [
-            check_bottleneck_encode(rng, c, dev,
+            check_bottleneck_encode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))
-            for c in enc_cases],
+            for c in enc_cases] + encode_draws(
+                args.seed, [c for c in enc_cases
+                            if c["x_dtype"] == torch.float32], dev),
         "bottleneck_decode": lambda: [
-            check_bottleneck_decode(rng, c, dev,
+            check_bottleneck_decode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))
             for c in dec_cases],
         "ssm_scan": lambda: [
@@ -6795,6 +7321,10 @@ def main() -> int:
     report["lisa16"] = lisa16_phase(args.seed, dev, boundary, ranks)
     report["lisa16_s"] = time.perf_counter() - t0
     log(f"[lisa16] phase 16 in {report['lisa16_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["shard17"] = shard17_phase(args.seed)
+    report["shard17_s"] = time.perf_counter() - t0
+    log(f"[shard17] phase 17 in {report['shard17_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

@@ -32,8 +32,6 @@ import numpy as np
 import torch
 
 TRASH_PAGE = 0
-_SHARDING = ("sharded serving (placement/shards) is not ported yet; see "
-             "ROADMAP.md, Queue 1 item 5, sharding")
 
 
 def pages_for(tokens: int, page_size: int) -> int:
@@ -94,12 +92,20 @@ class PagePool:
                  initial_pages: Optional[int] = None,
                  max_prefixes: Optional[int] = None,
                  placement: Optional[Any] = None, shards: int = 1):
-        if placement is not None or shards != 1:
-            raise NotImplementedError(_SHARDING)
+        """``placement`` (sharded serving): a callable mapping the pool tree
+        to this rank's block of it (``ShardedServingContext.place_pool``:
+        the kv-heads axis cut over the mesh's "model" axis, the page axis
+        whole), applied on every ``ensure`` create/growth. Its ``split``
+        (default 1) is how many blocks the kv-heads axis is cut into: the
+        pool's byte counts are logical, a rank's bytes times ``split``.
+        ``shards`` is the model-axis size, used only for the per-shard
+        residency telemetry."""
         self.page_size = int(page_size)
         self.share_prefixes = bool(share_prefixes)
         self.initial_pages = initial_pages
-        self.kv_shards = 1
+        self.placement = placement
+        self.kv_split = int(getattr(placement, "split", 1))
+        self.kv_shards = max(1, int(shards))
         if max_prefixes is not None and max_prefixes < 1:
             raise ValueError(f"max_prefixes must be >= 1, got {max_prefixes}")
         self.max_prefixes = max_prefixes
@@ -130,16 +136,18 @@ class PagePool:
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes of one page across all layers (k + v leaves)."""
+        """Device bytes of one page across all layers (k + v leaves), over
+        all ranks: a rank holds 1 / ``kv_split`` of them."""
         if self.kv is None:
             return 0
         total = sum(a.numel() * a.element_size() for a in self._leaves())
-        return total // max(1, self.num_pages)
+        return total * self.kv_split // max(1, self.num_pages)
 
     @property
     def pool_bytes(self) -> int:
-        """Total device bytes resident in the pool (all pages, all
-        layers)."""
+        """Total device bytes resident in the pool (all pages, all layers;
+        the logical/global size: divide by ``kv_shards`` for the
+        per-device footprint under sharded serving)."""
         return self.page_bytes * self.num_pages
 
     def ensure(self, n_free: int, like: Optional[Dict] = None,
@@ -158,7 +166,10 @@ class PagePool:
                                   for g in like["groups"]]}
             self._refcount = [1] + [0] * (cap - 1)   # page 0: trash, pinned
             self._free = list(range(1, cap))
+            if self.placement is not None:
+                self.kv = self.placement(self.kv)
             return
+        grown = False
         while len(self._free) < n_free:
             old = self.num_pages
             grow = max(old, n_free)
@@ -167,6 +178,9 @@ class PagePool:
                  for name, a in g.items()} for g in self.kv["groups"]]}
             self._refcount.extend([0] * grow)
             self._free.extend(range(old, old + grow))
+            grown = True
+        if grown and self.placement is not None:
+            self.kv = self.placement(self.kv)
 
     # ---- refcounted page allocation ----
 

@@ -22,8 +22,9 @@ from repro_torch.configs.lisa7b import LISAPipelineConfig
 from repro_torch.core import bottleneck as bn
 from repro_torch.core.paging import TRASH_PAGE
 from repro_torch.models import stack
-from repro_torch.models.common import (cache_mask, causal_mask, fan_in_init,
-                                       gelu, linear, normal_init)
+from repro_torch.models.common import (cache_mask, causal_mask, embed_rows,
+                                       fan_in_init, gelu, linear, normal_init,
+                                       vocab_linear)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import _xent
 
@@ -171,7 +172,7 @@ def _llm_trunk(params: dict, pcfg: LISAPipelineConfig,
     stack, final norm. Returns (x (B,S,d), stacked kv cache or None)."""
     llm = pcfg.llm
     p = params["llm"]
-    x_q = p["embed"][query_tokens.long()].to(llm.adtype)
+    x_q = embed_rows(p["embed"], query_tokens).to(llm.adtype)
     x = torch.cat([ctx_tokens.to(llm.adtype), x_q], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -187,7 +188,7 @@ def _llm_outputs(params: dict, x_last: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Answer logits + <SEG> embedding from the hidden state at one
     position (B, d_llm), or at every chunk position (B, C, d_llm)."""
-    answer_logits = linear(x_last, params["llm"]["answer_head"])
+    answer_logits = vocab_linear(x_last, params["llm"]["answer_head"])
     seg = linear(x_last, params["seg_proj"])
     return answer_logits, seg
 
@@ -240,7 +241,7 @@ def llm_decode_step(params: dict, pcfg: LISAPipelineConfig, cache: Dict,
     llm = pcfg.llm
     p = params["llm"]
     B = tokens.shape[0]
-    x = p["embed"][tokens.long()].to(llm.adtype)
+    x = embed_rows(p["embed"], tokens).to(llm.adtype)
     pos_arr = cache["positions"]
     W = pos_arr.shape[1]
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
@@ -308,7 +309,7 @@ def llm_decode_step_paged(params: dict, pcfg: LISAPipelineConfig,
     p = params["llm"]
     B = tokens.shape[0]
     page = pool["groups"][0]["k"].shape[2]
-    x = p["embed"][tokens.long()].to(llm.adtype)
+    x = embed_rows(p["embed"], tokens).to(llm.adtype)
     rows = torch.arange(B, device=x.device)
     pos_arr = positions.clone()
     pos_arr[rows, write_slot.long()] = pos
@@ -348,7 +349,7 @@ def llm_verify_step_paged(params: dict, pcfg: LISAPipelineConfig,
     B, C = tokens.shape
     page = pool["groups"][0]["k"].shape[2]
     n_slots = positions.shape[1]
-    x = p["embed"][tokens.long()].to(llm.adtype)
+    x = embed_rows(p["embed"], tokens).to(llm.adtype)
     dev = x.device
     offs = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
     valid = offs < chunk_len.to(dev, torch.int32)[:, None]

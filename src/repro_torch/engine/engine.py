@@ -26,8 +26,8 @@ override, and the fidelity oracle for profiled missions.
 The engine is host code: it touches the device only through the executor.
 ``profile=`` adds the stage profiler and cost ledger (``engine.profiler``);
 ``debug_recompiles=`` / ``debug_transfers=`` the runtime sanitizers
-(``analysis.sanitizers``). One knob of the reference is not ported yet and
-raises ``NotImplementedError``: ``mesh=`` (ROADMAP.md Queue 1 item 5).
+(``analysis.sanitizers``); ``mesh=`` tensor-parallel paged serving
+(``sharding.serving``).
 """
 from __future__ import annotations
 
@@ -200,18 +200,35 @@ class AveryEngine:
         default the H100's), and ``dump_trace`` gains a device track
         (pid 3). Off by default; ``profile=True`` requires ``wallclock``.
 
-        Not ported yet, raising ``NotImplementedError``: ``mesh``
-        (tensor-parallel serving, ROADMAP.md Queue 1 item 5)."""
+        ``mesh`` (a ``launch.mesh.make_local_mesh``, in-flight batching
+        only) wraps the executor in a
+        :class:`~repro_torch.sharding.serving.ShardedServingContext`: the
+        paged prefill, decode and verify stages and the draft model run
+        tensor-parallel over the mesh's "model" axis, and the KV pool holds
+        this rank's kv heads. Every rank of the mesh drives its own engine
+        on the same submissions; ``stats()`` gains ``mesh_devices`` and
+        ``model_shards``."""
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching must be one of {BATCHING_MODES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "AveryEngine(mesh=...) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5)")
         self.lut = lut
+        if mesh is not None:
+            if executor is None:
+                raise ValueError(
+                    "mesh= sharded serving needs an executor to wrap")
+            if batching != "inflight":
+                # only the paged in-flight stages run sharded; a
+                # microbatch/generate engine would silently serve
+                # unsharded while reporting mesh telemetry
+                raise ValueError(
+                    "mesh= shards the paged in-flight serving stack; "
+                    "construct the engine with batching='inflight'")
+            from repro_torch.sharding.serving import ShardedServingContext
+            if not isinstance(executor, ShardedServingContext):
+                executor = ShardedServingContext(executor, mesh)
+        self.mesh = mesh
         # device-level profiling: resolve the knob, then wrap the executor
-        # so every stage call is timed (the wrap sits outermost, fault
-        # injectors included)
+        # so every stage call is timed (the wrap sits outermost, the mesh
+        # context and fault injectors included)
         self.profiler = self._resolve_profiler(profile, wallclock)
         self.cost_model = None
         if self.profiler is not None:
@@ -238,7 +255,9 @@ class AveryEngine:
         self.kv_pool = PagePool(
             page_size=getattr(executor, "page_size", 16),
             share_prefixes=share_prefixes, initial_pages=kv_pages,
-            max_prefixes=max_prefixes)
+            max_prefixes=max_prefixes,
+            placement=getattr(executor, "place_pool", None),
+            shards=getattr(executor, "model_shards", 1))
         self.spec_config = self._resolve_speculative(speculative)
         if self.spec_config is not None and batching != "inflight":
             raise ValueError(
@@ -1230,6 +1249,9 @@ class AveryEngine:
             if self._recompile_sanitizer.armed_at is not None:
                 out["new_compiles_since_arm"] = \
                     self._recompile_sanitizer.new_compiles()
+        if self.mesh is not None:
+            out["mesh_devices"] = self.mesh.size
+            out["model_shards"] = getattr(self.executor, "model_shards", 1)
         # observability summary: fixed keys read off the registry's
         # latency histograms — present whether or not the tracer is on, so
         # traced and untraced runs report the same surface. The full

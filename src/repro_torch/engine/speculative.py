@@ -30,7 +30,21 @@ from repro_torch import DeviceLike, bridge, resolve_device
 from repro_torch.core import vlm
 from repro_torch.core.streams import host, to_device
 
-_ROADMAP = "is not ported yet; see ROADMAP.md, Queue 1 item 5"
+
+def _draft_fns(pcfg: Any, width: int, params: dict):
+    """The draft model's stages (prefill, step, insert), as the reference's
+    module-level jit cache gives them: ``vlm.llm_prefill`` into a ring of
+    ``width`` slots, one ``vlm.llm_decode_step`` and ``_insert_row``.
+    PyTorch runs them eagerly, so nothing is cached; ``params`` is the
+    tree every call passes again (a sharded factory cuts it once,
+    ``ShardedServingContext.draft_fns``)."""
+    def prefill(p, ctx, query):
+        return vlm.llm_prefill(p, pcfg, ctx, query, width=width)
+
+    def step(p, cache, tokens, pos):
+        return vlm.llm_decode_step(p, pcfg, cache, tokens, pos)
+
+    return prefill, step, DraftModel._insert_row
 
 
 @dataclass(frozen=True)
@@ -131,9 +145,6 @@ class DraftModel:
                  prefix_cap: Optional[int] = None,
                  fns_factory: Optional[Any] = None,
                  device: DeviceLike = None):
-        if fns_factory is not None:
-            raise NotImplementedError(
-                f"sharded draft stages (fns_factory) {_ROADMAP}")
         self.device = resolve_device(device)
         self.pcfg = dataclasses.replace(
             pcfg, llm=pcfg.llm.replace(use_flash_decode=flash_decode))
@@ -159,6 +170,12 @@ class DraftModel:
             prefix_rows if prefix_rows is not None else {})
         self._prefix_cap = (prefix_cap if prefix_cap is not None
                             else 2 * self.slots)
+        # ``fns_factory`` (sharded serving): the engine's serving context
+        # supplies prefill/step/insert over its rank's slice of the draft
+        # (``ShardedServingContext.draft_fns``); the default runs the
+        # whole draft on this device
+        self._prefill, self._step, self._insert = (
+            fns_factory or _draft_fns)(self.pcfg, self.width, self.params)
 
     @staticmethod
     def _insert_row(dst: Dict, src: Dict, row: int) -> Dict:
@@ -185,8 +202,7 @@ class DraftModel:
                     f"draft model width {self.pcfg.llm.d_model} does not "
                     f"match context features {ctx.shape[-1]}")
             query = to_device(query, self.device)
-            _, _, row_cache = vlm.llm_prefill(self.params, self.pcfg, ctx,
-                                              query, width=self.width)
+            _, _, row_cache = self._prefill(self.params, ctx, query)
             self.n_prefills += 1
             if skey is not None:
                 self._prefix_rows[skey] = row_cache
@@ -204,7 +220,7 @@ class DraftModel:
                                         dtype=torch.int32,
                                         device=self.device),
             }
-        self._insert_row(self.cache, row_cache, row)
+        self._insert(self.cache, row_cache, row)
         self.fed[row] = 0
 
     def release(self, row: int) -> None:
@@ -248,9 +264,9 @@ class DraftModel:
                 pos[r] = pos_next[r]
                 pos_next[r] += 1
                 feeding.append(r)
-            logits, _, self.cache = vlm.llm_decode_step(
-                self.params, self.pcfg, self.cache,
-                to_device(toks, self.device), to_device(pos, self.device))
+            logits, _, self.cache = self._step(
+                self.params, self.cache, to_device(toks, self.device),
+                to_device(pos, self.device))
             logits = host(logits.float())
             self.n_steps += 1
             for r in feeding:

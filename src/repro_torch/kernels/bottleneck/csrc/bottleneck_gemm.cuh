@@ -21,7 +21,9 @@
 //     (part indices i + j <= 2): 3 products for a float32 W and bf16 x or
 //     codes, 1 for bf16 W and x, 6 for float32 W and x. A product of two
 //     bf16 values is exact in float32, so the sum differs from a float32
-//     dot only in the order and precision of the tensor cores' adds.
+//     dot only in the order and precision of the tensor cores' adds. With
+//     a float32 x the five correction products keep an accumulator of
+//     their own (corrections()), added to hi . hi's in the epilogue.
 //
 // A CTA of two warpgroups owns a tile of kTileM = 256 weight columns (M:
 // encode's rank, decode's output width; 128 a warpgroup as two m64 tiles)
@@ -500,10 +502,27 @@ __device__ __forceinline__ void a_fragments(const unsigned char* stage,
   }
 }
 
+// Where B is a float32 x (three parts), the products of parts other than
+// hi . hi go into an accumulator of their own, added to hi . hi's once, in
+// the epilogue, as CUTLASS's 3xTF32 keeps its corrections. The tensor cores
+// add into an accumulator short of a float32 add, with a bias toward zero
+// that grows with the adds onto one running sum: six products a k-step
+// into one accumulator (480 adds at d = 1280) read a float32 x's max |z|
+// up to 1e-5 relative short of a float64 product, and its scales beyond
+// SCALES_TOL of the plain version's (chip_smoke.py phase 3, PERF.md). The
+// corrections' own sum is 2^-8 of z, so its bias is too; hi . hi keeps 80
+// adds. Nothing reads an accumulator between groups, so ptxas keeps the
+// wgmmas in flight. A bf16 x (the serving path) keeps its three products
+// a k-step in one accumulator.
+template <int PB>
+__host__ __device__ constexpr bool corrections() { return PB == 3; }
+
 // The wgmmas of m tile mt at k-step s: each product of A part i and B part
-// j with i + j <= 2, the smallest first, as one group.
-template <int BN, int PA, int PB>
+// j with i + j <= 2, the smallest first, as one group: into acc, or, for a
+// correction (corrections(), i + j > 0), into corr.
+template <int BN, int PA, int PB, int NC>
 __device__ __forceinline__ void products(float (&acc)[BN / 2],
+                                         float (&corr)[NC],
                                          const uint32_t (&af)[PA][4],
                                          const unsigned char* b_stage,
                                          int part, int s) {
@@ -514,6 +533,12 @@ __device__ __forceinline__ void products(float (&acc)[BN / 2],
     for (int i = 0; i < PA; ++i) {
       const int j = sum - i;
       if (j < 0 || j >= PB) continue;
+      if constexpr (corrections<PB>()) {
+        if (sum > 0) {
+          wgmma<BN>(corr, af[i], b_desc(b_stage + j * part, s));
+          continue;
+        }
+      }
       wgmma<BN>(acc, af[i], b_desc(b_stage + j * part, s));
     }
   }
@@ -532,14 +557,22 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][BN / 2],
                                              const Rows<T_>& src, int n0,
                                              unsigned char* sm) {
   constexpr int PA = parts<TW>(), PB = parts<T_>();
+  // the corrections' accumulator (corrections()); one unused float else
+  constexpr int NC = corrections<PB>() ? BN / 2 : 1;
   using S = Smem<TW, BN, PB>;
   const Lane ln;
   const int depth = src.depth;
+  float corr[2][NC];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
     fence_regs(acc[mt]);        // zeroed before the first group is issued
+    if constexpr (corrections<PB>()) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) corr[mt][i] = 0.f;
+      fence_regs(corr[mt]);
+    }
   }
   const int n_stages = (depth + kTileK - 1) / kTileK;
   Raw<T_> braw[pairs_of<BN>()];
@@ -577,7 +610,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][BN / 2],
 #pragma unroll
         for (int i = 0; i < PA; ++i) fence_regs(af[mt][i]);
         a_fragments<PA>(a_st, w, m0, kt * kTileK, ln, s, mt, af[mt]);
-        products<BN, PA, PB>(acc[mt], af[mt], b_st, S::kPart, s);
+        products<BN, PA, PB>(acc[mt], corr[mt], af[mt], b_st, S::kPart, s);
       }
     }
     if (more) {
@@ -592,6 +625,16 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][BN / 2],
   wgmma_wait<0>();
   fence_regs(acc[0]);
   fence_regs(acc[1]);
+  if constexpr (corrections<PB>()) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      fence_regs(corr[mt]);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        acc[mt][i] = __fadd_rn(acc[mt][i], corr[mt][i]);
+      }
+    }
+  }
   __syncthreads();              // the stages are free
 }
 

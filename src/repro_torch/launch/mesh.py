@@ -1,0 +1,177 @@
+"""Meshes of ranks (port of ``repro/launch/mesh.py``).
+
+The reference's meshes are JAX device grids. The port's tensor-parallel
+serving runs one process per rank over ``torch.distributed``, so a mesh
+here is a named grid of ranks: ``shape`` (axis name -> size, in order),
+``axis_names`` and ``size``, what the spec rules (``sharding.specs``)
+read. A local mesh also holds this rank's place in the grid (``rank``,
+``coords``) and the process group of its "model" axis.
+
+Single pod : (16, 16)      axes ("data", "model")          = 256 chips
+Multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")   = 512 chips
+
+``make_production_mesh`` returns those shapes with no ranks behind them,
+for the spec rules (the 512-device dry-run is ROADMAP.md, Queue 1 item
+5b). ``make_local_mesh`` builds over the ranks that exist: an initialised
+process group, or this process alone.
+
+Backends (``init_rank``): NCCL where every rank has a card of its own;
+gloo on the CPU and where ranks share a card, since NCCL will not put two
+ranks of one communicator on one device. Gloo runs ``all_reduce`` and
+``broadcast`` on CUDA tensors by staging them through the host, which
+synchronises with the card; the serving path uses only those two
+collectives. Rendezvous is a ``FileStore`` (no port to pick or collide
+on), and every collective has a timeout, so ranks that drift apart fail
+instead of hanging. ``spawn_ranks`` starts one process a rank and fails
+them all when one fails or the time runs out.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# seconds a rank waits in a collective (and at rendezvous) before failing
+COLLECTIVE_TIMEOUT_S = 120
+
+
+class Mesh:
+    """A named grid of ranks. ``rank``/``coords``/``model_group`` are set
+    for a local mesh (this process's place, the "model" axis' process
+    group: None where that axis is the whole world or one rank)."""
+
+    def __init__(self, shape: Dict[str, int], rank: Optional[int] = None,
+                 model_group: Any = None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.rank = rank
+        self.model_group = model_group
+        self.coords: Optional[Dict[str, int]] = None
+        if rank is not None:
+            coords, rest = {}, rank
+            for name in reversed(self.axis_names):
+                coords[name] = rest % self.shape[name]
+                rest //= self.shape[name]
+            self.coords = {name: coords[name] for name in self.axis_names}
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(dict(zip(axes, shape)))
+
+
+def make_local_mesh(model: int = 1) -> Mesh:
+    """The mesh of the ranks that exist: the initialised process group's,
+    or this process alone. ``model`` (the tensor-parallel axis size) is
+    clamped to the world size (asking for more shards than ranks degrades
+    to what there is instead of building an empty ``(0, k)`` mesh) and
+    must divide it; the rest is the "data" axis. Every rank must call
+    this, in the same order: a "model" axis shorter than the world makes
+    one process group a data row, each built by all ranks."""
+    if model < 1:
+        raise ValueError(f"model axis must be >= 1, got {model}")
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    rank = dist.get_rank() if live else 0
+    model = min(model, n)
+    if n % model:
+        raise ValueError(
+            f"model={model} does not divide the {n} ranks; pick a divisor "
+            f"of {n}")
+    group = None
+    if live and 1 < model < n:
+        for row in range(n // model):
+            g = dist.new_group(list(range(row * model, (row + 1) * model)),
+                               timeout=datetime.timedelta(
+                                   seconds=COLLECTIVE_TIMEOUT_S))
+            if row == rank // model:
+                group = g
+    return Mesh({"data": n // model, "model": model}, rank=rank,
+                model_group=group)
+
+
+def init_rank(rank: int, world: int, init_file: str, device: str = "cuda",
+              timeout_s: float = COLLECTIVE_TIMEOUT_S) -> torch.device:
+    """Join the process group of ``world`` ranks as ``rank`` (rendezvous
+    through the ``FileStore`` at ``init_file``) and return this rank's
+    device: ``cuda:rank`` over NCCL where there is a card a rank, else
+    ``cuda:0`` (the ranks share it) or the CPU, over gloo."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_rank: no CUDA device; pass device='cpu'")
+        own = torch.cuda.device_count() >= world
+        dev = torch.device("cuda", rank if own else 0)
+        torch.cuda.set_device(dev)
+        backend = "nccl" if own else "gloo"
+    elif device == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    dist.init_process_group(
+        backend, store=dist.FileStore(init_file, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
+def spawn_ranks(argv: Sequence[str], world: int,
+                timeout_s: float) -> List[str]:
+    """Run ``python argv... --rank r --world world --init FILE`` for every
+    rank, all started together, and wait for all of them. Returns each
+    rank's output (stdout and stderr). If a rank fails or the time runs
+    out, every rank still running is killed and ``RuntimeError`` names
+    the first failure with the ranks' outputs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "rendezvous")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, *argv, "--rank", str(r), "--world", str(world),
+             "--init", init], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+        deadline = time.monotonic() + timeout_s
+        failed = None
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.poll() not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited {procs[bad[0]].poll()}"
+                    break
+                if time.monotonic() > deadline:
+                    failed = f"ranks still running after {timeout_s} s"
+                    break
+                time.sleep(0.05)
+            else:
+                bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+                if bad:
+                    failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+        if failed:
+            raise RuntimeError(f"spawn_ranks: {failed}\n" + "\n".join(
+                f"--- rank {r} ---\n{o}" for r, o in enumerate(outs)))
+        return outs

@@ -12,8 +12,9 @@ fine-tune and one bottleneck pair per tier, then profiles the LUT);
   python -m repro_torch.launch.serve --smoke --duration 20 --seed 1
   python -m repro_torch.launch.serve --smoke --batching inflight --device cpu
 
-The pod-disaggregated ``--dryrun`` comes with sharding (ROADMAP.md, Queue 1
-item 5) and raises until then.
+The pod-disaggregated ``--dryrun`` comes with the dry-run (ROADMAP.md,
+Queue 1 item 5b) and raises until then; tensor-parallel serving itself is
+``AveryEngine(mesh=)`` (``sharding.serving``).
 """
 import argparse
 
@@ -137,7 +138,7 @@ def main(argv=None) -> None:
     if args.dryrun:
         raise NotImplementedError(
             "the pod-disaggregated dry-run is not ported yet (ROADMAP.md, "
-            "Queue 1 item 5)")
+            "Queue 1 item 5b)")
     serve_local(args.duration, args.seed, args.max_batch,
                 smoke=args.smoke, batching=args.batching, device=args.device)
 

@@ -16,7 +16,10 @@ flash-attention CUDA kernel (``kernels/flash_attention``), and with
 kernel, as the reference routes them to its Pallas kernels.
 ``shard_cache_hd`` is a placement hint for a head-dim-sharded cache; on
 one device it only keeps contiguous decode off the kernel, as in the
-reference. Its mesh form waits for ROADMAP.md, Queue 1 item 5.
+reference. Its mesh form waits for ROADMAP.md, Queue 1 item 5b. Under
+tensor-parallel serving (``sharding.serving``) a GQA block runs this
+rank's heads, and its output projection sums over the ranks
+(``common.row_linear``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.common import (apply_mrope, apply_rope, fan_in_init,
-                                       full_fp32, linear, rms_norm)
+                                       full_fp32, linear, rms_norm,
+                                       row_linear)
 from repro_torch.models.config import ModelConfig
 
 
@@ -264,7 +268,7 @@ def gqa_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
         out = _sdpa_chunked(q, k, v, mask, scale, cfg.attn_chunk)
     else:
         out = _sdpa(q, k, v, mask, scale)
-    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    out = row_linear(out.reshape(B, S, H * hd), p["wo"], "attn")
     return out, {"k": k, "v": v}
 
 
@@ -299,7 +303,7 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _sdpa(q, k_cache, v_cache, mask[:, None, :],
                     1.0 / math.sqrt(hd))
-    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    out = row_linear(out.reshape(B, S, H * hd), p["wo"], "attn")
     return out, {"k": k_cache, "v": v_cache}
 
 
@@ -376,7 +380,7 @@ def gqa_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
         kg = k_pool[idx].reshape(B, n * page, *k_pool.shape[2:])
         vg = v_pool[idx].reshape(B, n * page, *v_pool.shape[2:])
         out = _sdpa(q, kg, vg, mask[:, None, :], 1.0 / math.sqrt(hd))
-    out = linear(out.reshape(B, S, H * hd), p["wo"])
+    out = row_linear(out.reshape(B, S, H * hd), p["wo"], "attn")
     return out, {"k": k_pool, "v": v_pool}
 
 
@@ -416,7 +420,7 @@ def gqa_verify_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
         kg = k_pool[idx].reshape(B, n * page, *k_pool.shape[2:])
         vg = v_pool[idx].reshape(B, n * page, *v_pool.shape[2:])
         out = _sdpa(q, kg, vg, mask, 1.0 / math.sqrt(hd))
-    out = linear(out.reshape(B, C, H * hd), p["wo"])
+    out = row_linear(out.reshape(B, C, H * hd), p["wo"], "attn")
     return out, {"k": k_pool, "v": v_pool}
 
 

@@ -3,14 +3,24 @@ inits (port of ``repro/models/common.py``).
 
 Plain functions on tensors; every function takes its parameters
 explicitly. Norms and RoPE compute in float32 and cast back, as the
-reference does. The reference's ``wsc`` (a sharding hint that is a no-op
-without a mesh) has no counterpart: the port runs on one device.
+reference does.
+
+Tensor-parallel serving (``sharding.serving``) runs the model code on one
+rank's slice of the weights inside ``tensor_parallel(tp)``, as the
+reference's sharding hints (``wsc``) read the mesh that ``with mesh:``
+installs. The three layers whose weights are cut along a contracted or
+gathered axis go through ``row_linear`` (output projections), and
+``embed_rows`` / ``vocab_linear`` (a vocab-sharded embedding and head);
+outside a scope each is the plain product or lookup. The hints
+themselves, which steer XLA's partitioner, have no counterpart (ROADMAP.md,
+Queue 1 item 5b).
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +124,93 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+# the tensor-parallel slice the model code runs in (``tensor_parallel``);
+# None outside one. An object with ``sharded(kind)`` (is that layer's
+# weight cut over the ranks: "attn", "mlp", "embed" or "head"), ``index``
+# and ``size`` (this rank's place on the model axis, its length) and
+# ``reduce(t)`` (t summed over the ranks, in place)
+_TENSOR_PARALLEL: contextvars.ContextVar = contextvars.ContextVar(
+    "tensor_parallel", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp: Any):
+    """Run the model code inside this block as rank ``tp.index`` of a
+    tensor-parallel group (restored on exit)."""
+    token = _TENSOR_PARALLEL.set(tp)
+    try:
+        yield tp
+    finally:
+        _TENSOR_PARALLEL.reset(token)
+
+
+def _sharded(kind: str):
+    tp = _TENSOR_PARALLEL.get()
+    return tp if tp is not None and tp.sharded(kind) else None
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with a float32 result: for bf16 or fp16 operands on
+    CUDA the tensor cores' product with a float32 output
+    (``aten::bmm.dtype``), else the float32 product of the upcast operands
+    (products of bf16 values are exact in float32, so both compute the
+    same sums; the CPU has no ``aten::bmm.dtype``)."""
+    w = w.to(x.dtype)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        out = torch.bmm(x.reshape(1, -1, x.shape[-1]), w[None],
+                        out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x @ w`` for an output projection (``kind`` "attn": an attention
+    block's ``wo``; "mlp": an MLP's ``w_down``). Where that layer is
+    sharded, w holds this rank's rows and x its matching columns: the
+    rank's partial product, in float32, is summed over the ranks and
+    rounded once to x's dtype."""
+    tp = _sharded(kind)
+    if tp is None:
+        return linear(x, w)
+    return tp.reduce(matmul_f32(x, w)).to(x.dtype)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of an embedding table (V, d) for integer ``tokens``. Where
+    the table is vocab-sharded, this rank holds rows [index * n, (index +
+    1) * n): it looks up the tokens that fall there, zeros for the rest,
+    and the ranks' rows are summed (in float32; adding zeros is exact)."""
+    tp = _sharded("embed")
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].float()
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return tp.reduce(rows).to(table.dtype)
+
+
+def vocab_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for an output head (d, V). Where the head is
+    vocab-sharded, this rank's columns are computed, placed into a
+    zero-filled full row and summed over the ranks (in float32; adding
+    zeros is exact), so every rank holds the whole logits."""
+    part = linear(x, w)
+    tp = _sharded("head")
+    if tp is None:
+        return part
+    n = part.shape[-1]
+    full = part.new_zeros((*part.shape[:-1], n * tp.size),
+                          dtype=torch.float32)
+    full[..., tp.index * n:(tp.index + 1) * n] = part
+    return tp.reduce(full).to(part.dtype)
 
 
 # ---------------------------------------------------------------------------

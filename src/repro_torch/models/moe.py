@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.common import (ACTIVATIONS, fan_in_init, full_fp32,
-                                       linear, silu)
+                                       linear, row_linear, silu)
 from repro_torch.models.config import ModelConfig
 
 
@@ -42,9 +42,9 @@ def init_dense_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
 def dense_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.mlp_act]
     if cfg.gated_mlp:
-        return linear(act(linear(x, p["w_gate"])) * linear(x, p["w_up"]),
-                      p["w_down"])
-    return linear(act(linear(x, p["w_up"])), p["w_down"])
+        return row_linear(act(linear(x, p["w_gate"]))
+                          * linear(x, p["w_up"]), p["w_down"], "mlp")
+    return row_linear(act(linear(x, p["w_up"])), p["w_down"], "mlp")
 
 
 # ---------------------------------------------------------------------------

@@ -518,13 +518,25 @@ def test_chip_smoke_fault_schedules_match_reference(system):
 
 
 def test_refused_knobs_name_their_roadmap_item(system):
-    """``mesh=`` (sharding) is the one knob still refused; the stage
-    profiler and the sanitizers are ported (tests/test_torch_profiler.py,
-    tests/test_torch_sanitizers.py) and construct."""
+    """No knob is refused any more: ``mesh=`` (tensor-parallel serving,
+    ROADMAP.md Queue 1 item 5a, tests/test_torch_sharding.py) wraps the
+    executor on a local mesh and refuses only what the reference's does
+    (no executor, batching other than "inflight", each a ``ValueError``);
+    the stage profiler and the sanitizers are ported
+    (tests/test_torch_profiler.py, tests/test_torch_sanitizers.py) and
+    construct."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.serving import ShardedServingContext
     lut = system["tex"].lut
-    with pytest.raises(NotImplementedError, match="item 5"):
-        te.AveryEngine(lut=lut, executor=system["tex"], mesh=object(),
-                       batching="inflight")
+    mesh = make_local_mesh(model=1)
+    eng = te.AveryEngine(lut=lut, executor=system["tex"], mesh=mesh,
+                         batching="inflight")
+    assert isinstance(eng.executor, ShardedServingContext)
+    assert eng.stats["mesh_devices"] == 1 and eng.stats["model_shards"] == 1
+    for kw in (dict(executor=None, batching="inflight"),
+               dict(executor=system["tex"], batching="generate")):
+        with pytest.raises(ValueError):
+            te.AveryEngine(lut=lut, mesh=mesh, **kw)
     for kw in (dict(profile=True, wallclock=_counter()),
                dict(debug_recompiles=True), dict(debug_transfers=True)):
         te.AveryEngine(lut=lut, executor=system["tex"], **kw)

@@ -199,29 +199,38 @@ def test_repeat_prefix_hits_and_qos_preemption_round_trip(executors,
 
 
 def test_unported_options_raise(executors, requests):
-    """Speculation, the metrics hooks, the stage profiler and the cost
-    ledger are ported (tests/test_torch_speculative.py,
+    """Nothing raises any more. Speculation, the metrics hooks, the stage
+    profiler and the cost ledger are ported (tests/test_torch_speculative.py,
     tests/test_torch_engine.py, tests/test_torch_profiler.py) and
     construct; a sharded executor's draft stages (``draft_fns``, ROADMAP
-    Queue 1 item 5) are not: the first speculating admission raises."""
+    Queue 1 item 5a, tests/test_torch_sharding.py) are what the draft model
+    runs: the first speculating admission asks the executor's factory for
+    them, once, with the draft's config, ring width and weights."""
+    from repro_torch.engine import speculative as tspec
     _, tex = executors
     for kw in ({"profiler": object()}, {"cost": object()}):
         TDecoder(tex, slots=2, **kw)
+    asked = []
 
     class Sharded:
-        """The executor, with the sharded serving context's draft stages."""
+        """The executor, with a factory of draft stages."""
 
         def __init__(self, inner):
             self._inner = inner
-            self.draft_fns = object()
+
+        def draft_fns(self, pcfg, width, params):
+            asked.append((pcfg, width))
+            return tspec._draft_fns(pcfg, width, params)
 
         def __getattr__(self, name):
             return getattr(self._inner, name)
 
     dec = TDecoder(Sharded(tex), slots=2, spec=TSpecConfig(draft_tokens=2))
     _, tpkt, query, kind = requests[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.submit(0, TIntent(kind), tpkt, query, lambda r: None)
+    dec.submit(0, TIntent(kind), tpkt, query, lambda r: None)
+    dec.drain()
+    assert len(asked) == 1 and asked[0][1] == dec.draft.width
+    assert asked[0][0].llm.d_model == tex.pcfg.llm.d_model
 
 
 class _FailingDecode:

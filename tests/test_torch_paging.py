@@ -137,10 +137,49 @@ def test_pool_is_zero_on_creation_and_growth():
     assert tp.page_bytes == 2 * L * PAGE * K * HD * 4
 
 
+class _HalfHeads:
+    """A placement that keeps the first half of the K kv heads, as rank 0
+    of two holds its block (``ShardedServingContext.place_pool``; a pool
+    already cut passes as it is)."""
+    split = 2
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, kv):
+        self.calls += 1
+        return {"groups": [{n: a[..., :K // 2, :].contiguous()
+                            for n, a in g.items()} for g in kv["groups"]]}
+
+
 def test_sharded_placement_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpg.PagePool(placement=lambda kv: kv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpg.PagePool(shards=2)
+    """``PagePool(placement=, shards=)`` is ported (ROADMAP.md Queue 1 item
+    5a): the placement is applied when the pool is made and after each
+    growth, as the reference's is, and ``stats()`` reports the reference's
+    logical numbers: ``kv_pool_bytes`` the whole pool, ``_per_shard`` that
+    over ``shards``. A placement that holds half the kv heads (``split``
+    2) reports the whole pool's bytes, not its own half."""
+    seen = []
+
+    def jplace(kv):
+        seen.append("j")
+        return kv
+    for placement in (lambda kv: seen.append("t") or kv, _HalfHeads()):
+        jp = jpg.PagePool(page_size=PAGE, placement=jplace, shards=2)
+        tp = tpg.PagePool(page_size=PAGE, placement=placement, shards=2)
+        jl, tl = _like(2, 0.0)
+        jp.ensure(3, like=jl)
+        tp.ensure(3, like=tl)
+        jp.alloc(3), tp.alloc(3)
+        jp.alloc(4), tp.alloc(4)                  # grows the pool
+        assert tp.stats() == jp.stats()
+        assert tp.stats()["kv_pool_bytes_per_shard"] \
+            == tp.stats()["kv_pool_bytes"] // 2
+        held = tp.kv["groups"][0]["k"].shape[-2]
+        if isinstance(placement, _HalfHeads):
+            assert placement.calls == 2 and held == K // 2
+        else:
+            assert held == K
+    assert seen == ["j", "t", "j", "t", "j", "j"]
     with pytest.raises(RuntimeError, match="no prefill"):
         tpg.PagePool().ensure(1)

@@ -326,8 +326,40 @@ def test_speculative_config_validation_matches_reference():
 
 
 def test_sharded_draft_stages_raise(executors):
+    """``DraftModel(fns_factory=)`` is ported (ROADMAP.md Queue 1 item 5a):
+    the factory is asked once, with the draft's config (its
+    ``use_flash_decode`` set), ring width and weights, and the draft's
+    prefill, steps and row inserts run through the stages it returns, as
+    the reference's do (``ShardedServingContext.draft_fns``); a factory
+    that is not callable raises."""
     _, tex = executors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    asked, ran = [], {"prefill": 0, "step": 0, "insert": 0}
+
+    def factory(pcfg, width, params):
+        asked.append((pcfg.llm.use_flash_decode, width))
+        prefill, step, insert = tspec._draft_fns(pcfg, width, params)
+
+        def counted(name, fn):
+            def run(*a):
+                ran[name] += 1
+                return fn(*a)
+            return run
+        return (counted("prefill", prefill), counted("step", step),
+                counted("insert", insert))
+
+    draft = tspec.DraftModel(tex.params, TP, slots=2, prefix_len=24,
+                             max_new_tokens=T, draft_tokens=3,
+                             flash_decode=True, fns_factory=factory,
+                             device="cpu")
+    assert asked == [(True, draft.width)]
+    rng = np.random.RandomState(0)
+    ctx = rng.randn(1, 16, TP.llm.d_model).astype(np.float32)
+    query = rng.randint(0, TP.llm.vocab_size, (1, 8)).astype(np.int32)
+    draft.admit(0, ctx, query)
+    proposals = draft.draft({0: [int(query[0, -1])]}, 3)
+    assert ran == {"prefill": 1, "step": draft.n_steps, "insert": 1}
+    assert len(proposals[0]) == 3 and draft.n_steps == 3
+    with pytest.raises(TypeError):
         tspec.DraftModel(tex.params, TP, slots=2, prefix_len=24,
                          max_new_tokens=T, draft_tokens=3,
                          fns_factory=object(), device="cpu")
