@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--out PATH]
     python3 chip_smoke.py --kernel NAME [--kernel NAME ...]
+    python3 chip_smoke.py --split18-seed S [--split18-seed S ...]
 
 Phases, each fatal on failure:
   1. report the card (name and power limit from nvidia-smi);
@@ -272,6 +273,33 @@ Phases, each fatal on failure:
      ranks' served arrays bit-equal. Per rank: peak memory, decode and verify step walls, the
      all-reduces a step and their time (gloo staged through the host on
      one card: nothing of NCCL over NVLink).
+ 18. (split18, after 17) the dry-run and the pod-disaggregated split
+     step: (a) ``python -m repro_torch.launch.dryrun --arch A --mesh both``
+     for every architecture and ``python -m repro_torch.launch.serve
+     --dryrun``, child processes all started together under
+     DRYRUN18_TIMEOUT_S, one line a combo: no record with an error, the
+     skipped combos exactly DRYRUN18_SKIPPED (``adapt_config`` returning
+     None, as the reference's); while they run, (c) the encode and decode
+     kernels at the split step's shape (bf16 x, T = 8,192, d = 1,280,
+     r = 638) against their plain versions, timed beside their bound and
+     the 10-call / 4-call library chains, and (b) two rank processes on
+     cuda:0 over gloo (``{"pod": 2}``), each building LISA-7B at full width
+     from ``--seed`` and the split bottleneck, holding one device's 2
+     images at 1,024 px and queries of 8: the held argument bytes equal to
+     ``split_reckoning``'s per device, ``split_serve`` plain (no kernel
+     launch) and with ``use_kernel=True`` (one encode and one decode
+     launch a rank, each held against its plain version on its own
+     inputs, masks within PATH_RTOL of the plain step's), the bytes that
+     crossed the pod link equal to the reckoned collective-permute bytes,
+     pod 1's masks and both pods' answers bit-equal to rank 0 composing
+     the stage functions in one process, pod 0's masks to that
+     composition on zero codes, each rank's step wall, and (read, not
+     held) how far pod 1's plain and kernel masks each sit from the masks
+     of a float64 encode's codes (``encode_f64``; ``--split18-seed S``
+     runs 18b alone for each seed given); (d) the reckoning
+     of LISA-7B's decode step on a (1, 2) mesh
+     (``dryrun.reckon_lisa_decode``) equal to phase 17's all-reduces,
+     count and bytes, at each step's rows.
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -6726,17 +6754,19 @@ def shard17_run(executor, pcfg, order, mesh, speculative):
                          speculative=speculative)
     calls = {"cloud_verify_rows": 0, "cloud_decode_rows": 0}
     steps = {name: [] for name in calls}
-    logits, reduce, heads = {}, {"n": 0, "s": 0.0}, {}
+    logits, reduce, heads = {}, {"n": 0, "s": 0.0, "b": 0}, {}
     sharded = mesh is not None
 
     def timed(name, stage):
         def run(*args):
-            n0, s0 = reduce["n"], reduce["s"]
+            n0, s0, b0 = reduce["n"], reduce["s"], reduce["b"]
             t0 = _sync_s()
             out = stage(*args)
             steps[name].append({"wall_s": _sync_s() - t0,
                                 "all_reduces": reduce["n"] - n0,
-                                "all_reduce_s": reduce["s"] - s0})
+                                "all_reduce_s": reduce["s"] - s0,
+                                "all_reduce_bytes": reduce["b"] - b0,
+                                "rows": len(args[3])})
             return out
         return run
 
@@ -6748,6 +6778,7 @@ def shard17_run(executor, pcfg, order, mesh, speculative):
             out = real_reduce(t)
             reduce["s"] += _sync_s() - t0
             reduce["n"] += 1
+            reduce["b"] += t.nbytes
             return out
         executor.all_reduce = timed_reduce
     for name in calls:
@@ -7075,6 +7106,477 @@ def shard17_phase(seed):
     return {"ranks": reports, "wall_s": wall, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry-run, and the pod-disaggregated split step over two ranks
+# ---------------------------------------------------------------------------
+
+SPLIT18_RANKS = 2
+# the rank processes (a rank's LISA-7B takes tens of seconds to build) and
+# one collective; the dry-run's children, all started together
+SPLIT18_TIMEOUT_S = 420
+SPLIT18_COLLECTIVE_S = 300
+DRYRUN18_TIMEOUT_S = 300
+# one device's share of the 2x16x16 mesh's 32 images (split_reckoning)
+SPLIT18_BATCH = 2
+SPLIT18_RATIO = 0.25
+# the combos adapt_config skips (the reference's; tests/test_torch_dryrun.py)
+DRYRUN18_SKIPPED = {("hubert-xlarge", "decode_32k"),
+                    ("hubert-xlarge", "long_500k")}
+
+
+def _port_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src")] + [p for p in env.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def dryrun18_start(out_dir):
+    """18a: ``python -m repro_torch.launch.dryrun --arch A --mesh both``
+    for every architecture and ``python -m repro_torch.launch.serve
+    --dryrun``, one child process each, all started together. Returns
+    {name: process}."""
+    from repro_torch.configs import ARCH_IDS
+    procs = {}
+    for arch in ARCH_IDS:
+        procs[arch] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "both", "--out", out_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_port_env(), cwd=REPO)
+    procs["serve"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--dryrun"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_port_env(), cwd=REPO)
+    return procs
+
+
+def dryrun18_finish(procs, out_dir, t0):
+    """Wait for 18a's children (DRYRUN18_TIMEOUT_S from ``t0``, then every
+    child still running is killed and the phase fails): each exits 0,
+    logs one line a combo, and writes one record a combo, none with an
+    error; the skipped combos are exactly DRYRUN18_SKIPPED, which is
+    where ``adapt_config`` returns None."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import dryrun
+    outs, failed = {}, []
+    try:
+        for name, p in procs.items():
+            left = max(1.0, DRYRUN18_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                outs[name] = p.communicate(timeout=left)[0]
+            except subprocess.TimeoutExpired:
+                failed.append(f"{name}: still running after "
+                              f"{DRYRUN18_TIMEOUT_S} s")
+                break
+            if p.returncode != 0:
+                failed.append(f"{name}: exit {p.returncode}\n"
+                              f"{outs[name][-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed:
+        raise AssertionError("18a: " + "; ".join(failed))
+    wall = time.perf_counter() - t0
+    lines = [ln for name in ARCH_IDS for ln in outs[name].splitlines()
+             if ln.startswith("[dryrun]")]
+    for ln in lines:
+        log(f"[split18] {ln}")
+    want = {(a, s): dryrun.adapt_config(get_config(a), dryrun.SHAPES[s])
+            is None for a in ARCH_IDS for s in dryrun.SHAPES}
+    if {k for k, v in want.items() if v} != DRYRUN18_SKIPPED:
+        raise AssertionError(f"18a: adapt_config skips "
+                             f"{sorted(k for k, v in want.items() if v)}")
+    recs = []
+    for (arch, shape) in want:
+        for mesh in ("16x16", "2x16x16"):
+            with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}"
+                                   ".json")) as f:
+                recs.append(json.load(f))
+    errors = [r for r in recs if r.get("error")]
+    skipped = {(r["arch"], r["shape"]) for r in recs if r.get("skipped")}
+    if errors or skipped != DRYRUN18_SKIPPED or len(lines) != len(recs):
+        first = [(r["arch"], r["shape"], r["error"]) for r in errors[:3]]
+        raise AssertionError(f"18a: {len(errors)} errors {first}, skipped "
+                             f"{sorted(skipped)}, {len(lines)} lines for "
+                             f"{len(recs)} records")
+    serve = [ln for ln in outs["serve"].splitlines()
+             if ln.startswith("[serve-dryrun]")]
+    for ln in serve:
+        log(f"[split18] {ln}")
+    costed = [r for r in recs if "flops" in r]
+    log(f"[split18] 18a: {len(recs)} dry-run records ({len(costed)} with "
+        f"costs, {2 * len(DRYRUN18_SKIPPED)} skipped, no error) in "
+        f"{wall:.1f} s wall, {len(procs)} child processes")
+    return {"records": len(recs), "costed": len(costed),
+            "skipped": sorted(skipped), "wall_s": wall,
+            "serve_dryrun": serve,
+            "bottlenecks": {f"{r['arch']}__{r['shape']}": r["bottleneck"]
+                            for r in costed}}
+
+
+def split18_kernel_cases(pcfg):
+    """18c: the split step's encode and decode at their shape there: one
+    device's 2 images (T = 8,192) at d = 1,280 and the rank of
+    SPLIT18_RATIO, bf16 x and the float32 bottleneck weights."""
+    from repro_torch.core.bottleneck import rank_for_ratio
+    d, T = pcfg.sam.d_model, pcfg.sam_tokens
+    r = rank_for_ratio(d, SPLIT18_RATIO, 2)
+    name = f"split_T{SPLIT18_BATCH * T}_r{r}"
+    enc = dict(name=name, lead=(SPLIT18_BATCH, T), d=d, r=r,
+               x_dtype=pcfg.sam.adtype, w_dtype=torch.float32,
+               w_scale=d ** -0.5)
+    dec = dict(name=name, lead=(SPLIT18_BATCH, T), d=d, r=r,
+               w_dtype=torch.float32, out_dtype=pcfg.sam.adtype,
+               w_scale=r ** -0.5)
+    return enc, dec
+
+
+def _captured(module, name, seen):
+    """A stand-in for a kernel wrapper that records each call's inputs
+    and output before returning it."""
+    real = getattr(module, name)
+
+    def run(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+    return mock.patch.object(module, name, run)
+
+
+def encode_f64(params, x):
+    """The plain encode's function with nothing rounded before the codes:
+    x @ W_enc in float64, the absmax scale, codes int8 and scales float32
+    (18b's witness of which encode sits nearer the true codes)."""
+    z = x.double() @ params["enc"].double()
+    s = torch.amax(torch.abs(z), dim=-1, keepdim=True) / 127.0 + 1e-8
+    codes = torch.clamp(torch.round(z / s), -127, 127).to(torch.int8)
+    return codes, s.float()
+
+
+def decode_resummed(params, codes, scales, out_dtype):
+    """The plain decode with its float32 sum over the rank taken in two
+    halves: as exact as the plain one, in another order (18b's control of
+    how far the path moves for no loss of precision)."""
+    z = codes.float() * scales
+    w = params["dec"].float()
+    h = z.shape[-1] // 2
+    return (z[..., :h] @ w[:h] + z[..., h:] @ w[h:]).to(out_dtype)
+
+
+def split18_serve(rank, seed, dev, hold=True):
+    """One rank of 18b: LISA-7B at full width from ``seed`` and the split
+    bottleneck (r of SPLIT18_RATIO, float32), one device's 2 images at
+    1,024 px and queries of 8 (``serve.split_inputs``), over
+    ``make_named_mesh({"pod": 2})``. Its held argument bytes must equal
+    ``split_reckoning``'s per device; ``split_serve`` runs plain (twice:
+    cold, then warm and timed) and with ``use_kernel=True``, counters from
+    0: the plain runs launch nothing, the kernel run one encode and one
+    decode, each held against its plain version on its own inputs; the
+    bytes that crossed equal the reckoned collective-permute bytes. Rank 0
+    also composes the stage functions in one process, on its codes, on
+    zero codes, on a float64 encode's codes (``encode_f64``, the witness),
+    on the kernel's codes through the plain decode, and on its codes
+    through ``decode_resummed`` (the control), and reads how many of the
+    plain and the kernel codes differ from the witness's. With ``hold``
+    false (``--split18-seed``) a kernel step's masks past PATH_RTOL are
+    recorded, not raised, so that the witness is read. Returns (report,
+    arrays)."""
+    from repro_torch.configs import get_lisa_config
+    from repro_torch.core import bottleneck as bn
+    from repro_torch.core import vlm
+    from repro_torch.kernels.bottleneck import ops as bops
+    from repro_torch.kernels.bottleneck import ref as bref
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_named_mesh
+    from repro_torch.models.stack import leaves
+    pcfg = get_lisa_config("lisa-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _sync_s()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = vlm.init_lisa(pcfg, gen, dev)
+    d = pcfg.sam.d_model
+    r = bn.rank_for_ratio(d, SPLIT18_RATIO, 2)
+    bnp = bn.init_bottleneck(gen, bn.BottleneckSpec(d, r, 2), device=dev)
+    images, query = serve.split_inputs(pcfg, SPLIT18_BATCH, seed, dev)
+    mesh = make_named_mesh({"pod": SPLIT18_RANKS})
+    init_s = _sync_s() - t0
+    reck = serve.split_reckoning(pcfg)
+    held = {"params": sum(t.nbytes for t in leaves(params)),
+            "bottleneck": sum(t.nbytes for t in leaves(bnp)),
+            "images": images.nbytes, "query": query.nbytes}
+    held["total"] = sum(held.values())
+    if held != reck["device_bytes"]:
+        raise AssertionError(f"18b rank {rank}: holds {held}, the "
+                             f"reckoning {reck['device_bytes']}")
+    cp = reck["collectives"]["collective-permute"]
+    pod = mesh.coords["pod"]
+    report = {"rank": rank, "pod": pod, "init_s": init_s, "held": held,
+              "reckoned_permute_bytes": cp}
+
+    def run(use_kernel):
+        mesh.sent_bytes = mesh.received_bytes = 0
+        _reset_launch_counts()
+        t1 = _sync_s()
+        masks, ans = serve.split_serve(params, bnp, pcfg, images, query,
+                                       mesh, use_kernel=use_kernel)
+        wall = _sync_s() - t1
+        crossed = mesh.sent_bytes if pod == 0 else mesh.received_bytes
+        other = mesh.received_bytes if pod == 0 else mesh.sent_bytes
+        if (crossed, other) != (cp, 0):
+            raise AssertionError(f"18b rank {rank}: {crossed} bytes crossed "
+                                 f"(and {other} back), reckoned {cp}")
+        return masks, ans, wall, _launch_counts()
+
+    walls = []
+    for _ in range(2):
+        masks, ans, wall, counts = run(False)
+        walls.append(wall)
+        if counts != _only():
+            raise AssertionError(f"18b rank {rank}: the plain step launched "
+                                 f"{counts}")
+    enc_seen, dec_seen = [], []
+    with _captured(bops, "bottleneck_encode", enc_seen), \
+            _captured(bops, "bottleneck_decode", dec_seen):
+        masks_k, ans_k, wall_k, counts = run(True)
+    want = _only(bottleneck_encode=1, bottleneck_decode=1)
+    if counts != want or len(enc_seen) != 1 or len(dec_seen) != 1:
+        raise AssertionError(f"18b rank {rank}: the kernel step launched "
+                             f"{counts}, expected {want}")
+    (x, w), (codes, scales) = enc_seen[0]
+    want_c, want_s = bref.encode_ref(x.reshape(-1, d), w)
+    max_diff, off, s_err = codes_held_against(
+        f"18b rank {rank} encode", codes.reshape(-1, r),
+        scales.reshape(-1, 1), want_c, want_s)
+    (c_in, s_in, w_dec, out_dtype), out = dec_seen[0]
+    want_out = bref.decode_ref(c_in.reshape(-1, r), s_in.reshape(-1, 1),
+                               w_dec, out_dtype)
+    dec_err = held_against(f"18b rank {rank} decode", out.reshape(-1, d),
+                           want_out, DECODE_TOL[out_dtype])
+    # pod 0 decodes the zeros it received: equal bits, a zero norm
+    mask_rel = 0.0 if torch.equal(masks_k, masks) else _rel(masks_k, masks)
+    report["mask_over_limit"] = not mask_rel <= PATH_RTOL
+    if (hold and report["mask_over_limit"]) or not torch.equal(ans_k, ans):
+        raise AssertionError(f"18b rank {rank}: the kernel step's masks "
+                             f"{mask_rel:.3g} off the plain step's (limit "
+                             f"{PATH_RTOL}), answers equal "
+                             f"{torch.equal(ans_k, ans)}")
+    report.update(
+        wall_cold_s=walls[0], wall_s=walls[1], wall_kernel_s=wall_k,
+        launches=counts, encode={"codes_max_diff": max_diff,
+                                 "codes_off_frac": off,
+                                 "scales_max_abs_err": s_err},
+        decode_max_abs_err=dec_err, mask_rel_kernel=mask_rel,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    arrays = {"masks": masks.float().cpu().numpy(),
+              "masks_kernel": masks_k.float().cpu().numpy(),
+              "answers": ans.float().cpu().numpy()}
+    if rank == 0:
+        a = vlm.sam_head(params, pcfg, images)
+        codes, scales = bn.encode(bnp, a)
+        codes64, scales64 = encode_f64(bnp, a)
+        # the kernel run's codes are pod 0's, the ones that crossed
+        codes_k = enc_seen[0][1][0].reshape(codes.shape)
+        report["codes_off_f64"] = {
+            "plain": float((codes != codes64).double().mean()),
+            "kernel": float((codes_k != codes64).double().mean())}
+        ctx = vlm.clip_encode(params, pcfg, images)
+        comp_ans, seg = vlm.llm_reason(params, pcfg, ctx, query)
+        arrays["comp_answers"] = comp_ans.float().cpu().numpy()
+        scales_k = enc_seen[0][1][1].reshape(scales.shape)
+        for tag, (c, sc) in (("pod1", (codes, scales)),
+                             ("pod0", (torch.zeros_like(codes),
+                                       torch.zeros_like(scales))),
+                             ("f64", (codes64, scales64)),
+                             ("kcodes", (codes_k, scales_k)),
+                             ("ctrl", (codes, scales))):
+            if tag == "ctrl":
+                a_hat = decode_resummed(bnp, c, sc, pcfg.sam.adtype)
+            else:
+                a_hat = bn.decode(bnp, c, sc, out_dtype=pcfg.sam.adtype)
+            feats = vlm.sam_tail(params, pcfg, a_hat)
+            arrays[f"comp_masks_{tag}"] = vlm.mask_decode(
+                params, pcfg, feats, seg).float().cpu().numpy()
+    log(f"[split18] rank {rank} (pod {pod}): LISA-7B and the r = {r} "
+        f"bottleneck in {init_s:.1f} s, held {held['total']} B = the "
+        f"reckoning; split step wall {walls[1] * 1e3:.1f} ms warm "
+        f"({walls[0] * 1e3:.1f} cold), {wall_k * 1e3:.1f} ms with the "
+        f"kernels; {cp} B crossed the pod link (the reckoning's); kernel "
+        f"launches {counts}: codes off <= {max_diff} on {off:.3g}, scales "
+        f"{s_err:.3g}, decode {dec_err:.3g}, masks {mask_rel:.3g} off the "
+        f"plain step's (limit {PATH_RTOL}); peak "
+        f"{report['peak_gib']:.2f} GiB (gloo staged through the host)")
+    return report, arrays
+
+
+def split18_rank(args):
+    """A rank process of 18b (``--rank`` with ``--split18-out``): joins
+    the gloo group on cuda:0, runs ``split18_serve``, writes its report
+    and arrays into ``--split18-out``."""
+    from repro_torch.launch import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.init_rank(args.rank, args.world, args.init, "cuda",
+                             timeout_s=SPLIT18_COLLECTIVE_S)
+    import torch.distributed as dist
+    try:
+        with torch.inference_mode():
+            report, arrays = split18_serve(args.rank, args.seed, dev,
+                                           hold=not args.split18_probe)
+        with open(os.path.join(args.split18_out,
+                               f"rank{args.rank}.json"), "w") as f:
+            json.dump(report, f, default=str)
+        np.savez(os.path.join(args.split18_out, f"rank{args.rank}.npz"),
+                 **arrays)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def split18_ranks(seed, probe=False):
+    """18b: two rank processes of ``split18_serve`` on cuda:0 over gloo;
+    pod 1's masks and both pods' answers bit-equal to rank 0's one-process
+    composition, pod 0's masks bit-equal to that composition on zero
+    codes."""
+    from repro_torch.launch import mesh as mesh_lib
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = mesh_lib.spawn_ranks(
+            [os.path.abspath(__file__), "--seed", str(seed),
+             "--split18-out", tmp] + (["--split18-probe"] if probe else []),
+            SPLIT18_RANKS, SPLIT18_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                log(f"[rank {r}] {line}")
+        reports, arrays = [], []
+        for r in range(SPLIT18_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                arrays.append({k: z[k] for k in z.files})
+    comp = arrays[0]
+    checks = {"pod 1 masks": (arrays[1]["masks"], comp["comp_masks_pod1"]),
+              "pod 0 masks": (arrays[0]["masks"], comp["comp_masks_pod0"]),
+              "pod 1 answers": (arrays[1]["answers"], comp["comp_answers"]),
+              "pod 0 answers": (arrays[0]["answers"], comp["comp_answers"])}
+    for label, (got, want) in checks.items():
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"18b: {label} differ from the one-process "
+                                 f"composition (max "
+                                 f"{np.abs(got - want).max():.3g})")
+    if np.array_equal(arrays[0]["masks"], arrays[1]["masks"]):
+        raise AssertionError("18b: both pods' masks equal; the codes did "
+                             "not cross")
+    # the witness: how far pod 1's plain and kernel masks each sit from
+    # the masks of a float64 encode's codes (read, not held to a limit)
+    witness = {"seed": seed,
+               "mask_rel_kernel_plain": reports[1]["mask_rel_kernel"],
+               "mask_rel_plain_f64": _rel(arrays[1]["masks"],
+                                          comp["comp_masks_f64"]),
+               "mask_rel_kernel_f64": _rel(arrays[1]["masks_kernel"],
+                                           comp["comp_masks_f64"]),
+               # the kernel run split at its two kernels: its codes (plain
+               # decode) against the witness's, then its decode
+               "mask_rel_kcodes_f64": _rel(comp["comp_masks_kcodes"],
+                                           comp["comp_masks_f64"]),
+               "mask_rel_kernel_kcodes": _rel(arrays[1]["masks_kernel"],
+                                              comp["comp_masks_kcodes"]),
+               "mask_rel_control_plain": _rel(comp["comp_masks_ctrl"],
+                                              comp["comp_masks_pod1"]),
+               "over_limit": reports[1]["mask_over_limit"],
+               "codes_off_f64": reports[0]["codes_off_f64"]}
+    log(f"[split18] 18b: pod 1's masks and both pods' answers bit-equal to "
+        f"one process composing the stages, pod 0's masks to it on zero "
+        f"codes; ranks' wall {wall:.1f} s")
+    log(f"[split18] 18b witness, seed {seed}: pod 1's kernel masks "
+        f"{witness['mask_rel_kernel_plain']:.4g} off the plain step's "
+        f"(limit {PATH_RTOL}); against a float64 encode's masks: plain "
+        f"{witness['mask_rel_plain_f64']:.4g}, kernel "
+        f"{witness['mask_rel_kernel_f64']:.4g} (its codes through the "
+        f"plain decode {witness['mask_rel_kcodes_f64']:.4g}, its decode "
+        f"after them {witness['mask_rel_kernel_kcodes']:.4g}); the plain "
+        f"step re-summed in another order (control) "
+        f"{witness['mask_rel_control_plain']:.4g} off it; codes off the "
+        f"float64 codes: plain {witness['codes_off_f64']['plain']:.4g}, "
+        f"kernel {witness['codes_off_f64']['kernel']:.4g}")
+    return {"ranks": reports, "wall_s": wall, "witness": witness}
+
+
+def split18_phase(seed, dev, shard17):
+    """Phase 18: (a) the dry-run CLI over every arch x shape on both
+    meshes, and ``serve --dryrun``, in child processes on the host's
+    cores; while they run, (c) the encode and decode kernels timed at the
+    split step's shape and (b) the split step over two ranks; then (d)
+    the reckoning of LISA-7B's LLM decode step on a (1, 2) mesh against
+    phase 17's counted all-reduces. Returns the report."""
+    import tempfile
+    from repro_torch.configs import get_lisa_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    pcfg = get_lisa_config("lisa-7b")
+    card = card_line()
+    report = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = dryrun18_start(tmp)
+        try:
+            enc, dec = split18_kernel_cases(pcfg)
+            report["encode"] = check_bottleneck_encode(
+                case_rng(seed, enc["name"]), enc, dev, timed=True)
+            report["decode"] = check_bottleneck_decode(
+                case_rng(seed, dec["name"]), dec, dev, timed=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[split18] 18c: encode {report['encode']['ms']:.4f} ms, "
+                f"decode {report['decode']['ms']:.4f} ms at T = "
+                f"{report['encode']['T']}, r = {report['encode']['r']}; "
+                f"{card}")
+            report["split"] = split18_ranks(seed)
+        except BaseException:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+            raise
+        report["dryrun"] = dryrun18_finish(procs, tmp, t0)
+    # 18d: phase 17's decode steps against the reckoning
+    mesh = Mesh({"data": 1, "model": SHARD17_RANKS})
+    seen = {}
+    for rep in shard17["ranks"]:
+        for step in rep["plain"]["step_times"]["cloud_decode_rows"]:
+            key = (step["rows"], step["all_reduces"],
+                   step["all_reduce_bytes"])
+            seen[key] = seen.get(key, 0) + 1
+    if not seen:
+        raise AssertionError("18d: phase 17 recorded no decode step")
+    matched = []
+    for rows, n, nbytes in seen:
+        want = dryrun.reckon_lisa_decode(pcfg, mesh, rows, 64)
+        coll = want["collectives"]
+        if (coll["count"], coll["all-reduce"], coll["total"]) != \
+                (n, nbytes, nbytes):
+            raise AssertionError(f"18d: phase 17 counted {n} all-reduces of "
+                                 f"{nbytes} B a step of {rows} rows; the "
+                                 f"reckoning {coll}")
+        matched.append({"rows": rows, "all_reduces": n, "bytes": nbytes,
+                        "steps": seen[(rows, n, nbytes)],
+                        "kinds": want["kinds"]})
+    log(f"[split18] 18d: the reckoning of LISA-7B's decode step on (1, 2) "
+        f"({matched[0]['kinds']} cut) equals phase 17's counted "
+        f"all-reduces: {matched}")
+    report["reckoned_decode"] = matched
+    report["launches"] = {
+        k: sum(r["launches"][k] for r in report["split"]["ranks"])
+        for k in ("bottleneck_encode", "bottleneck_decode")}
+    return report
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -7106,9 +7608,18 @@ def main() -> int:
                     choices=KERNELS, metavar="NAME",
                     help="build and check only this kernel (phases 1-3; "
                     "repeatable), then stop without a result line")
-    # a rank process of phase 17 (launch.mesh.spawn_ranks adds the last
-    # three)
+    ap.add_argument("--split18-seed", type=int, action="append",
+                    default=None, metavar="SEED",
+                    help="build the bottleneck pair and run only phase "
+                    "18b's split step with this seed (repeatable; its "
+                    "float64 witness read for each), then stop without a "
+                    "result line")
+    # a rank process of phase 17 or 18 (launch.mesh.spawn_ranks adds the
+    # last three)
     ap.add_argument("--shard17-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--split18-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--split18-probe", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
@@ -7119,6 +7630,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
     if args.rank is not None:
+        if args.split18_out:
+            return split18_rank(args)
         return shard17_rank(args)
     from repro_torch.configs import get_config, get_lisa_config
     from repro_torch.core.bottleneck import rank_for_ratio
@@ -7137,6 +7650,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = args.kernel or list(_build.SOURCES)
+    if args.split18_seed:
+        names = ["bottleneck_encode", "bottleneck_decode"]
     _build.build(names)     # one nvcc per source, all started together
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sorted(names)} in {report['build_s']:.1f} s")
@@ -7146,6 +7661,22 @@ def main() -> int:
         report["ptxas"][name] = lines
         for ln in lines:
             log(f"[build] {name}: {ln}")
+    if args.split18_seed:
+        report["split18_seeds"], failed = [], []
+        for s in args.split18_seed:
+            try:
+                report["split18_seeds"].append(
+                    split18_ranks(s, probe=True)["witness"])
+            except Exception as e:                          # noqa: BLE001
+                failed.append(s)
+                log(f"[split18] seed {s} failed: {type(e).__name__}: "
+                    f"{str(e)[-2000:]}")
+        report["total_s"] = time.perf_counter() - t_start
+        if args.out:
+            _write_report(args.out, report)
+        log(f"[done] {report['total_s']:.1f} s, phase 18b for seeds "
+            f"{args.split18_seed} only; failed {failed}")
+        return 1 if failed else 0
 
     pcfg = get_lisa_config("lisa-7b")
     mini_paged = lisa_mini_paged_case(get_lisa_config("lisa-mini"))
@@ -7325,6 +7856,10 @@ def main() -> int:
     report["shard17"] = shard17_phase(args.seed)
     report["shard17_s"] = time.perf_counter() - t0
     log(f"[shard17] phase 17 in {report['shard17_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["split18"] = split18_phase(args.seed, dev, report["shard17"])
+    report["split18_s"] = time.perf_counter() - t0
+    log(f"[split18] phase 18 in {report['split18_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape
@@ -7337,12 +7872,15 @@ def main() -> int:
                  "bottleneck_decode": f"main_r{max(ranks)}",
                  "ssm_scan": "main_falcon-mamba-7b"}
     split = report["split"]
+    # the bottleneck pair's launches: phase 10c's and phase 18b's ranks'
+    pair = {k: split["split_point"]["launches"][k]
+            + report["split18"]["launches"][k]
+            for k in ("bottleneck_encode", "bottleneck_decode")}
     launched = {"decode_attention": report["serve"]["launches"],
                 "paged_decode_attention": report["inflight"]["launches"],
                 "paged_verify_attention": report["spec"]["run_a"]["launches"],
                 "flash_attention": split["microbatch"]["launches"],
-                "bottleneck_encode": split["split_point"]["launches"],
-                "bottleneck_decode": split["split_point"]["launches"],
+                "bottleneck_encode": pair, "bottleneck_decode": pair,
                 "ssm_scan": report["zoo"]["falcon-mamba-7b"]["launches"]}
     path_err = {"decode_attention": report["parity"]["max_abs_err"],
                 "paged_decode_attention":

@@ -11,19 +11,26 @@ Single pod : (16, 16)      axes ("data", "model")          = 256 chips
 Multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")   = 512 chips
 
 ``make_production_mesh`` returns those shapes with no ranks behind them,
-for the spec rules (the 512-device dry-run is ROADMAP.md, Queue 1 item
-5b). ``make_local_mesh`` builds over the ranks that exist: an initialised
-process group, or this process alone.
+for the spec rules and the dry-run's reckoning (``launch.dryrun``).
+``make_local_mesh`` builds a ("data", "model") mesh over the ranks that
+exist: an initialised process group, or this process alone;
+``make_named_mesh`` lays those ranks out as any named shape (the split
+serve step's ``{"pod": 2}``).
 
 Backends (``init_rank``): NCCL where every rank has a card of its own;
 gloo on the CPU and where ranks share a card, since NCCL will not put two
 ranks of one communicator on one device. Gloo runs ``all_reduce`` and
 ``broadcast`` on CUDA tensors by staging them through the host, which
 synchronises with the card; the serving path uses only those two
-collectives. Rendezvous is a ``FileStore`` (no port to pick or collide
-on), and every collective has a timeout, so ranks that drift apart fail
-instead of hanging. ``spawn_ranks`` starts one process a rank and fails
-them all when one fails or the time runs out.
+collectives. ``Mesh.ppermute`` (the reference's ``jax.lax.ppermute``, the
+pod link of the split serve step) sends and receives point to point;
+under gloo it stages a CUDA tensor through the host itself (a copy to the
+host, the send, and a copy back on the receiving rank). FSDP's
+``all_gather`` and ``reduce_scatter`` wait for the sharded train step
+(ROADMAP.md, Queue 1 item 5b-ii). Rendezvous is a ``FileStore`` (no port
+to pick or collide on), and every collective has a timeout, so ranks that
+drift apart fail instead of hanging. ``spawn_ranks`` starts one process a
+rank and fails them all when one fails or the time runs out.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -54,6 +61,8 @@ class Mesh:
         self.rank = rank
         self.model_group = model_group
         self.coords: Optional[Dict[str, int]] = None
+        self.sent_bytes = 0
+        self.received_bytes = 0
         if rank is not None:
             coords, rest = {}, rank
             for name in reversed(self.axis_names):
@@ -67,6 +76,54 @@ class Mesh:
         for v in self.shape.values():
             n *= v
         return n
+
+    def peer(self, axis: str, index: int) -> int:
+        """The rank at this rank's coordinates with ``axis`` at ``index``."""
+        rank = 0
+        for name in self.axis_names:
+            rank = rank * self.shape[name] + (
+                index if name == axis else self.coords[name])
+        return rank
+
+    def ppermute(self, tensor: torch.Tensor, axis: str,
+                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``jax.lax.ppermute`` over this local mesh's ranks: along
+        ``axis``, the rank at index ``src`` sends ``tensor`` to the rank
+        at ``dst`` for every pair (src, dst) of ``perm`` (the other
+        coordinates fixed), and each rank returns what it received; a
+        rank that no pair names as a destination returns zeros of
+        ``tensor``'s shape and dtype. Every rank of the axis must call it
+        with the same ``perm``. Counts ``sent_bytes`` / ``received_bytes``."""
+        if self.coords is None:
+            raise ValueError("ppermute needs a local mesh, not an abstract "
+                             "one")
+        srcs, dsts = [a for a, _ in perm], [b for _, b in perm]
+        n = self.shape[axis]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+                not all(0 <= i < n for i in srcs + dsts):
+            raise ValueError(f"ppermute: {list(perm)} is not a permutation "
+                             f"of indices of an axis of {n}")
+        i = self.coords[axis]
+        out = torch.zeros_like(tensor)
+        staged = tensor.is_cuda and dist.get_backend() == "gloo"
+        send = (tensor.cpu() if staged else tensor).contiguous()
+        recv = torch.empty_like(send)
+        works, received = [], False
+        for src, dst in perm:
+            if src == i and dst == i:
+                out.copy_(tensor)
+            elif src == i:
+                works.append(dist.isend(send, self.peer(axis, dst)))
+                self.sent_bytes += send.nbytes
+            elif dst == i:
+                works.append(dist.irecv(recv, self.peer(axis, src)))
+                self.received_bytes += recv.nbytes
+                received = True
+        for w in works:
+            w.wait(datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        if received:
+            out.copy_(recv)
+        return out
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -103,6 +160,19 @@ def make_local_mesh(model: int = 1) -> Mesh:
                 group = g
     return Mesh({"data": n // model, "model": model}, rank=rank,
                 model_group=group)
+
+
+def make_named_mesh(shape: Dict[str, int]) -> Mesh:
+    """The ranks that exist (the initialised process group's, or this
+    process alone) laid out row-major as ``shape`` (axis name -> size),
+    whose sizes must multiply to the world size."""
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    mesh = Mesh(shape, rank=dist.get_rank() if live else 0)
+    if mesh.size != n:
+        raise ValueError(f"mesh {dict(shape)} holds {mesh.size} ranks, the "
+                         f"world {n}")
+    return mesh
 
 
 def init_rank(rank: int, world: int, init_file: str, device: str = "cuda",

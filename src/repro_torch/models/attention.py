@@ -14,12 +14,13 @@ causal full-sequence GQA pass without a sliding window runs the
 flash-attention CUDA kernel (``kernels/flash_attention``), and with
 ``use_flash_decode`` a single-token GQA decode runs the decode-attention
 kernel, as the reference routes them to its Pallas kernels.
-``shard_cache_hd`` is a placement hint for a head-dim-sharded cache; on
-one device it only keeps contiguous decode off the kernel, as in the
-reference. Its mesh form waits for ROADMAP.md, Queue 1 item 5b. Under
-tensor-parallel serving (``sharding.serving``) a GQA block runs this
-rank's heads, and its output projection sums over the ranks
-(``common.row_linear``).
+``shard_cache_hd`` is a placement hint for a head-dim-sharded cache: it
+keeps contiguous decode off the kernel, as in the reference, and places
+the fresh q/k/v on the cache's head-dim cut (``common.wsc``, the identity
+that a dry-run reckoning reads); the paged paths refuse it, as the
+reference's do. Under tensor-parallel serving (``sharding.serving``) a
+GQA block runs this rank's heads, and the output projection of GQA or MLA
+sums over the ranks (``common.row_linear``).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.models.common import (apply_mrope, apply_rope, fan_in_init,
                                        full_fp32, linear, rms_norm,
-                                       row_linear)
+                                       row_linear, wsc)
 from repro_torch.models.config import ModelConfig
 
 
@@ -288,6 +289,12 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _qkv(p, cfg, x)
     q = _rope_q_or_k(cfg, q, positions)
     k = _rope_q_or_k(cfg, k, positions)
+    if cfg.shard_cache_hd:
+        # the reference aligns the fresh q/k/v with the head-dim-sharded
+        # cache at the source
+        q = wsc(q, "BATCH", None, None, "model")
+        k = wsc(k, "BATCH", None, None, "model")
+        v = wsc(v, "BATCH", None, None, "model")
     k_cache, v_cache = cache["k"], cache["v"]
     if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         rows = torch.arange(B, device=x.device)
@@ -486,7 +493,7 @@ def mla_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         dim=1)
     else:
         out = attend(q_nope, q_rope, mask)
-    out = linear(out.reshape(B, S, H * dv), p["wo"])
+    out = row_linear(out.reshape(B, S, H * dv), p["wo"], "attn")
     return out, {"ckv": ckv, "krope": k_rope}
 
 
@@ -518,7 +525,7 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
         probs = torch.softmax(scores + mask[:, None, None, :], dim=-1)
         o_lat = torch.einsum("bhsw,bwr->bshr", probs, ckv)
         out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv).to(x.dtype)
-    out = linear(out.reshape(B, S, H * dv), p["wo"])
+    out = row_linear(out.reshape(B, S, H * dv), p["wo"], "attn")
     return out, cache
 
 

@@ -11,9 +11,15 @@ reference's sharding hints (``wsc``) read the mesh that ``with mesh:``
 installs. The three layers whose weights are cut along a contracted or
 gathered axis go through ``row_linear`` (output projections), and
 ``embed_rows`` / ``vocab_linear`` (a vocab-sharded embedding and head);
-outside a scope each is the plain product or lookup. The hints
-themselves, which steer XLA's partitioner, have no counterpart (ROADMAP.md,
-Queue 1 item 5b).
+outside a scope each is the plain product or lookup.
+
+The reference's placement hints (``wsc``: ``with_sharding_constraint``
+under a mesh, a no-op off one) are ported as ``wsc`` here: the identity
+on its tensor, always. Inside ``reckoning(scope)`` (the dry-run's
+``launch.dryrun``) a hint also records the activation's spec, "BATCH"
+resolved to the scope mesh's batch axes, as the reference resolves it;
+the reckoning reads those records. A sharded train step over ranks is
+still to come (ROADMAP.md, Queue 1 item 5b-ii).
 """
 from __future__ import annotations
 
@@ -153,6 +159,38 @@ def tensor_parallel(tp: Any):
 def _sharded(kind: str):
     tp = _TENSOR_PARALLEL.get()
     return tp if tp is not None and tp.sharded(kind) else None
+
+
+# the dry-run's reckoning the model code runs in (``reckoning``); None
+# outside one. An object with ``mesh`` (axis names and sizes) and
+# ``hint(t, spec)`` (record that ``t`` was placed at ``spec``)
+_RECKONING: contextvars.ContextVar = contextvars.ContextVar(
+    "reckoning", default=None)
+
+
+@contextlib.contextmanager
+def reckoning(scope: Any):
+    """Run the model code inside this block under a dry-run's scope: every
+    ``wsc`` hint is reported to ``scope.hint`` (restored on exit)."""
+    token = _RECKONING.set(scope)
+    try:
+        yield scope
+    finally:
+        _RECKONING.reset(token)
+
+
+def wsc(x: torch.Tensor, *spec_axes) -> torch.Tensor:
+    """The reference's placement hint: returns ``x`` unchanged. Inside a
+    ``reckoning`` whose mesh has a "model" axis (the reference constrains
+    only then) it reports ``x`` and its spec, "BATCH" resolved to the
+    mesh's ("pod", "data") axes present."""
+    scope = _RECKONING.get()
+    if scope is None or "model" not in scope.mesh.axis_names:
+        return x
+    batch = tuple(a for a in ("pod", "data")
+                  if a in scope.mesh.axis_names)
+    scope.hint(x, tuple(batch if a == "BATCH" else a for a in spec_axes))
+    return x
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -127,5 +127,18 @@ class ModelConfig:
     def supports_decode(self) -> bool:
         return self.causal
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if a 500k-token decode context is feasible: SSM/hybrid state
+        is O(1); windowed attention caches only ``sliding_window`` slots."""
+        if self.arch_type in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def with_sliding_window(self, window: int = 8192) -> "ModelConfig":
+        """The beyond-paper variant the dry-run's long_500k uses for
+        dense archs."""
+        return self.replace(sliding_window=window)

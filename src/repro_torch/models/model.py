@@ -32,9 +32,9 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import stack
-from repro_torch.models.common import (cache_mask, causal_mask, fan_in_init,
-                                       linear, normal_init,
-                                       sinusoid_positions)
+from repro_torch.models.common import (cache_mask, causal_mask, embed_rows,
+                                       fan_in_init, linear, normal_init,
+                                       sinusoid_positions, vocab_linear)
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -88,7 +88,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _embed_tokens(p: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()].to(cfg.adtype)
+    return embed_rows(p["embed"], tokens).to(cfg.adtype)
 
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
@@ -125,7 +125,7 @@ def _embed_inputs(p: Params, cfg: ModelConfig,
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = stack.apply_norm(x, p["final_norm"], cfg)
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return linear(x, w)
+    return vocab_linear(x, w)
 
 
 # ---------------------------------------------------------------------------

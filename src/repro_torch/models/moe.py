@@ -12,8 +12,10 @@ normalised top-k gates and a load-balance auxiliary loss.
 Which tokens a full expert drops is decided by the order of (token, slot)
 pairs, token-major, as in the reference: ties in the router's top-k go to
 the lower expert index (``jax.lax.top_k``), and ranks within an expert
-come from a stable sort. The reference's ``wsc`` / ``_buf_spec`` placement
-hints change nothing on one device and have no counterpart here.
+come from a stable sort. The reference's placement hints are ported:
+the scatter dispatch's expert buffers carry ``_buf_spec`` and the grouped
+dispatch's a batch spec, through ``common.wsc`` (the identity; a dry-run
+reckoning reads them).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models.common import (ACTIVATIONS, fan_in_init, full_fp32,
-                                       linear, row_linear, silu)
+                                       linear, row_linear, silu, wsc)
 from repro_torch.models.config import ModelConfig
 
 
@@ -204,6 +206,15 @@ def _combine(ye: torch.Tensor, dest, keep, gate_vals: torch.Tensor,
     return (g * w).reshape(G, -1, k, d).sum(2)
 
 
+def _buf_spec(cfg: ModelConfig, E: int, C: int, model_size_hint: int = 16):
+    """The scatter dispatch's buffer spec: the expert axis over "model"
+    when it divides (expert parallel, deepseek's 256 experts), else the
+    capacity axis (granite's 40)."""
+    if E % model_size_hint == 0:
+        return ("model", None, None)
+    return (None, "model", None)
+
+
 def _moe_scatter(p: dict, cfg: ModelConfig, xt: torch.Tensor, gate_vals,
                  gate_idx, C: int) -> torch.Tensor:
     """Sort-based dispatch: tokens scattered straight into (E, C, d)
@@ -212,9 +223,10 @@ def _moe_scatter(p: dict, cfg: ModelConfig, xt: torch.Tensor, gate_vals,
     T, d = xt.shape
     E, k = m.num_experts, m.top_k
     dest, keep = _scatter_plan(gate_idx.reshape(1, T * k), E, C)
-    buf = _scatter(xt[None], dest, keep, k, E * C)
-    ye = _expert_ffn(p, cfg, buf.reshape(E, C, d)).reshape(1, E * C, d)
-    return _combine(ye, dest, keep, gate_vals, k)[0]
+    buf = wsc(_scatter(xt[None], dest, keep, k, E * C).reshape(E, C, d),
+              *_buf_spec(cfg, E, C))
+    ye = wsc(_expert_ffn(p, cfg, buf), *_buf_spec(cfg, E, C))
+    return _combine(ye.reshape(1, E * C, d), dest, keep, gate_vals, k)[0]
 
 
 def _moe_grouped(p: dict, cfg: ModelConfig, x: torch.Tensor, gate_vals,
@@ -226,8 +238,10 @@ def _moe_grouped(p: dict, cfg: ModelConfig, x: torch.Tensor, gate_vals,
     E, k = m.num_experts, m.top_k
     C = capacity(cfg, S)
     dest, keep = _scatter_plan(gate_idx.reshape(B, S * k), E, C)
-    buf = _scatter(x, dest, keep, k, E * C).reshape(B, E, C, d)
-    ye = _expert_ffn(p, cfg, buf).reshape(B, E * C, d)
+    buf = wsc(_scatter(x, dest, keep, k, E * C).reshape(B, E, C, d),
+              "BATCH", None, None, None)
+    ye = wsc(_expert_ffn(p, cfg, buf), "BATCH", None, None,
+             None).reshape(B, E * C, d)
     return _combine(ye, dest, keep, gate_vals, k).reshape(B * S, d)
 
 

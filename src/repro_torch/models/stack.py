@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.models import attention, moe as moe_lib, ssm
 from repro_torch.models.common import (Layers, layer_norm, leading_axes,
-                                       rms_norm)
+                                       rms_norm, wsc)
 from repro_torch.models.config import ModelConfig
 
 
@@ -150,11 +150,20 @@ def layer_views(tree: Any, count: int) -> List[Any]:
 # ---------------------------------------------------------------------------
 
 
+def _seq_wsc(cfg, x):
+    """The reference's sequence-sharding hint on a dense block's residual
+    stream (``cfg.seq_shard``): the identity (``common.wsc``)."""
+    if not cfg.seq_shard:
+        return x
+    return wsc(x, "BATCH", "model", None)
+
+
 def _dense_block_full(p, cfg, x, positions, mask):
+    x = _seq_wsc(cfg, x)
     h, kv = attention.attn_full(p["attn"], cfg,
                                 apply_norm(x, p["norm1"], cfg), positions,
                                 mask)
-    x = x + h
+    x = _seq_wsc(cfg, x + h)
     x = x + moe_lib.dense_mlp(p["mlp"], cfg, apply_norm(x, p["norm2"], cfg))
     return x, kv
 

@@ -23,6 +23,11 @@ packages. Axes that do not divide evenly fall back to replication
 (``_maybe``). A mesh is anything with ``shape`` (axis name -> size) and
 ``axis_names``: ``launch.mesh``'s local and production meshes.
 
+``shard_shape`` is ``NamedSharding(mesh, spec).shard_shape(shape)``: the
+block one device holds, each cut dimension divided by the product of its
+axes' sizes, rounded up. ``device_bytes`` sums that block's bytes over a
+tree, what one device holds of it (the dry-run's per-device bytes).
+
 ``shard_tree`` takes the place of the reference's ``to_shardings``: where
 the reference places each leaf on the mesh with a ``NamedSharding``, a
 rank of the port holds only its own block, so ``shard_tree`` cuts each
@@ -293,3 +298,44 @@ def leaves_with_paths(tree: Any) -> List[Tuple[Tuple[str, ...], Any]]:
     out: List[Tuple[Tuple[str, ...], Any]] = []
     tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
     return out
+
+
+def _parts(entry: Any, mesh: Any) -> int:
+    """How many parts a spec entry cuts its dimension into."""
+    if entry is None:
+        return 1
+    n = 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        n *= _axis_size(mesh, a)
+    return n
+
+
+def shard_shape(shape: Sequence[int], spec: Spec,
+                mesh: Any) -> Tuple[int, ...]:
+    """The shape of one device's block of a ``shape`` leaf under ``spec``
+    (ceil division, as ``NamedSharding.shard_shape``)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(-(-int(dim) // _parts(e, mesh))
+                 for dim, e in zip(shape, entries))
+
+
+def device_bytes(tree: Any, specs: Any, mesh: Any) -> int:
+    """Bytes one device holds of ``tree`` (tensors, ``meta`` included)
+    placed by ``specs``: each leaf's ``shard_shape`` times its itemsize."""
+    total = 0
+
+    def walk(t, s):
+        nonlocal total
+        if _is_spec(s):
+            n = 1
+            for dim in shard_shape(t.shape, s, mesh):
+                n *= dim
+            total += n * t.element_size()
+        elif isinstance(t, dict):
+            for k in t:
+                walk(t[k], s[k])
+        else:
+            for a, b in zip(t, s):
+                walk(a, b)
+    walk(tree, specs)
+    return total

@@ -188,14 +188,23 @@ def test_serve_smoke_prints_the_reference_lines(batching, capsys,
 
 
 def test_unported_modes_name_their_roadmap_item(monkeypatch, capsys):
-    """The pod-disaggregated dry-run still raises naming item 5 (sharding);
-    the offline phase's entry points, which raised naming item 6b, run:
-    ``build_lut`` on no pairs gives the context row alone,
-    ``train_full_system`` trains detached weights, and ``serve_local``
-    without ``smoke`` serves what it trained (here a one-step stand-in)."""
+    """The modes that raised naming their ROADMAP.md item now run. The
+    pod-disaggregated dry-run (item 5b-i) prints the reference's boundary
+    payload line, its arithmetic to the digit; the offline phase's entry
+    points (item 6b) run: ``build_lut`` on no pairs gives the context row
+    alone, ``train_full_system`` trains detached weights, and
+    ``serve_local`` without ``smoke`` serves what it trained (here a
+    one-step stand-in)."""
     from repro.configs.lisa7b import CONFIG as JDEPLOY
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tserve.main(["--dryrun"])
+    from repro.core.bottleneck import rank_for_ratio
+    tserve.main(["--dryrun"])
+    d = JDEPLOY.sam.d_model
+    raw_bytes = 32 * JDEPLOY.sam_tokens * d * 2
+    comp_bytes = 32 * JDEPLOY.sam_tokens * (rank_for_ratio(d, 0.25, 2) + 4)
+    assert (f"[serve-dryrun] boundary payload: uncompressed="
+            f"{raw_bytes/1e6:.2f}MB vs bottlenecked={comp_bytes/1e6:.2f}MB "
+            f"({raw_bytes/comp_bytes:.1f}x reduction on the pod link)"
+            ) in capsys.readouterr().out.splitlines()
     lut = tprof.build_lut(TP, {}, {}, {}, device="cpu")
     assert lut.tiers == [] and lut.context.payload_mb == \
         jprof.deployment_context_mb(JDEPLOY)

@@ -96,15 +96,16 @@ def test_no_refusal_names_the_ported_training_path():
 
 
 def test_no_refusal_names_the_ported_serving_sharding():
-    """Tensor-parallel paged serving (ROADMAP.md, Queue 1 item 5a) is
-    ported: ``sharding/{__init__,specs,serving}.py`` and ``launch/mesh.py``
-    exist, and every port module that still names item 5 names item 5b
-    (the dry-run, the GSPMD hints, sharded training)."""
+    """Tensor-parallel paged serving (ROADMAP.md, Queue 1 item 5a) and the
+    dry-run with the GSPMD hints (item 5b-i) are ported:
+    ``sharding/{__init__,specs,serving}.py``, ``launch/mesh.py`` and
+    ``launch/dryrun.py`` exist, and every port module that still names
+    item 5 names item 5b-ii (the sharded train step)."""
     for rel in ("sharding/__init__.py", "sharding/specs.py",
-                "sharding/serving.py", "launch/mesh.py"):
+                "sharding/serving.py", "launch/mesh.py", "launch/dryrun.py"):
         assert (PORT / rel).exists(), f"{rel} is missing"
     for path in PORT.rglob("*.py"):
         src = path.read_text().replace("\n", " ")
         for part in src.split("item 5")[1:]:
-            assert part.startswith("b"), \
-                f"{path} names item 5 without 5b: item 5{part[:40]!r}"
+            assert part.startswith("b-ii"), \
+                f"{path} names item 5 without 5b-ii: item 5{part[:40]!r}"
