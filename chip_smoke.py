@@ -289,17 +289,38 @@ Phases, each fatal on failure:
      ``split_reckoning``'s per device, ``split_serve`` plain (no kernel
      launch) and with ``use_kernel=True`` (one encode and one decode
      launch a rank, each held against its plain version on its own
-     inputs, masks within PATH_RTOL of the plain step's), the bytes that
-     crossed the pod link equal to the reckoned collective-permute bytes,
-     pod 1's masks and both pods' answers bit-equal to rank 0 composing
-     the stage functions in one process, pod 0's masks to that
-     composition on zero codes, each rank's step wall, and (read, not
-     held) how far pod 1's plain and kernel masks each sit from the masks
-     of a float64 encode's codes (``encode_f64``; ``--split18-seed S``
-     runs 18b alone for each seed given); (d) the reckoning
-     of LISA-7B's decode step on a (1, 2) mesh
-     (``dryrun.reckon_lisa_decode``) equal to phase 17's all-reduces,
-     count and bytes, at each step's rows.
+     inputs, answers equal to the plain step's), the bytes that crossed
+     the pod link equal to the reckoned collective-permute bytes, pod 1's
+     masks and both pods' answers bit-equal to rank 0 composing the stage
+     functions in one process, pod 0's masks to that composition on zero
+     codes, each rank's step wall, and the kernel run's oracle, which
+     holds on any seed: the encode kernel's codes at most
+     SPLIT18_CODES_OFF of entries off a float64 encode's
+     (``encode_f64``), and pod 1's kernel masks off the plain step's
+     within SPLIT18_MASK_RATIO times the distance of the plain step
+     re-summed in another order (``decode_resummed``, the control),
+     beside how far pod 1's plain and kernel masks each sit from the
+     float64 codes' masks (``--split18-seed S`` runs 18b alone for each
+     seed given); (d) the reckoning of LISA-7B's decode step on a (1, 2)
+     mesh (``dryrun.reckon_lisa_decode``) equal to phase 17's
+     all-reduces, count and bytes, at each step's rows.
+ 19. (train19, after 18) the sharded train step: qwen2-vl-2b at full
+     width (d = 1,536, 12 / 2 heads, d_ff 8,960, vocab 151,936) cut to
+     TRAIN19_LAYERS = 4 layers, float32 with TF32 off, random weights
+     from ``--seed``, phase 15's global batch (B = 2 x 1,024), AdamW at
+     eps 1e-4, two steps: (a) the unsharded ``make_train_step`` in this
+     process, no kernel launched (the wrappers raise under grad); then
+     ``python -m repro_torch.sharding.training`` over two gloo rank
+     processes on cuda:0, (b) at (data 2, model 1) with FSDP and (c) at
+     (data 1, model 2): the metrics within TRAIN19_METRIC_RTOL of (a) and
+     equal on both ranks, the reassembled parameters and both moments
+     leaf by leaf within TRAIN19_LEAF_TOL of each leaf's largest
+     magnitude in (a), every block both ranks hold bit-equal, each rank's
+     collectives by label, kind, count and bytes held to
+     ``dryrun.reckon``'s charges of the same step but the named
+     departures (``dryrun.held_to_reckoning``), and each rank's step
+     walls, collectives' time and peak memory (gloo staged through the
+     host on one card: the arithmetic, not NCCL's speed).
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -342,6 +363,7 @@ script.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -7119,6 +7141,15 @@ DRYRUN18_TIMEOUT_S = 300
 # one device's share of the 2x16x16 mesh's 32 images (split_reckoning)
 SPLIT18_BATCH = 2
 SPLIT18_RATIO = 0.25
+# 18b's oracle of the kernel run, which holds on any seed: the encode
+# kernel's codes against a float64 encode's (at most this share of entries
+# off; seeds 0-3 read 5.4e-5 to 6.5e-5), and its masks off the plain
+# step's within this many times the distance of the plain step re-summed
+# in another order, a control with no kernel (seeds 0-3 read ratios 0.94
+# to 1.09). A fixed limit measured the random SAM tail's conditioning:
+# the control alone read 0.0281 to 0.105 over those seeds.
+SPLIT18_CODES_OFF = 1e-4
+SPLIT18_MASK_RATIO = 1.5
 # the combos adapt_config skips (the reference's; tests/test_torch_dryrun.py)
 DRYRUN18_SKIPPED = {("hubert-xlarge", "decode_32k"),
                     ("hubert-xlarge", "long_500k")}
@@ -7267,7 +7298,7 @@ def decode_resummed(params, codes, scales, out_dtype):
     return (z[..., :h] @ w[:h] + z[..., h:] @ w[h:]).to(out_dtype)
 
 
-def split18_serve(rank, seed, dev, hold=True):
+def split18_serve(rank, seed, dev):
     """One rank of 18b: LISA-7B at full width from ``seed`` and the split
     bottleneck (r of SPLIT18_RATIO, float32), one device's 2 images at
     1,024 px and queries of 8 (``serve.split_inputs``), over
@@ -7281,9 +7312,8 @@ def split18_serve(rank, seed, dev, hold=True):
     zero codes, on a float64 encode's codes (``encode_f64``, the witness),
     on the kernel's codes through the plain decode, and on its codes
     through ``decode_resummed`` (the control), and reads how many of the
-    plain and the kernel codes differ from the witness's. With ``hold``
-    false (``--split18-seed``) a kernel step's masks past PATH_RTOL are
-    recorded, not raised, so that the witness is read. Returns (report,
+    plain and the kernel codes differ from the witness's (the oracle of
+    the kernel run, held in ``split18_ranks``). Returns (report,
     arrays)."""
     from repro_torch.configs import get_lisa_config
     from repro_torch.core import bottleneck as bn
@@ -7359,12 +7389,9 @@ def split18_serve(rank, seed, dev, hold=True):
                            want_out, DECODE_TOL[out_dtype])
     # pod 0 decodes the zeros it received: equal bits, a zero norm
     mask_rel = 0.0 if torch.equal(masks_k, masks) else _rel(masks_k, masks)
-    report["mask_over_limit"] = not mask_rel <= PATH_RTOL
-    if (hold and report["mask_over_limit"]) or not torch.equal(ans_k, ans):
-        raise AssertionError(f"18b rank {rank}: the kernel step's masks "
-                             f"{mask_rel:.3g} off the plain step's (limit "
-                             f"{PATH_RTOL}), answers equal "
-                             f"{torch.equal(ans_k, ans)}")
+    if not torch.equal(ans_k, ans):
+        raise AssertionError(f"18b rank {rank}: the kernel step's answers "
+                             f"differ from the plain step's")
     report.update(
         wall_cold_s=walls[0], wall_s=walls[1], wall_kernel_s=wall_k,
         launches=counts, encode={"codes_max_diff": max_diff,
@@ -7408,7 +7435,7 @@ def split18_serve(rank, seed, dev, hold=True):
         f"kernels; {cp} B crossed the pod link (the reckoning's); kernel "
         f"launches {counts}: codes off <= {max_diff} on {off:.3g}, scales "
         f"{s_err:.3g}, decode {dec_err:.3g}, masks {mask_rel:.3g} off the "
-        f"plain step's (limit {PATH_RTOL}); peak "
+        f"plain step's; peak "
         f"{report['peak_gib']:.2f} GiB (gloo staged through the host)")
     return report, arrays
 
@@ -7425,8 +7452,7 @@ def split18_rank(args):
     import torch.distributed as dist
     try:
         with torch.inference_mode():
-            report, arrays = split18_serve(args.rank, args.seed, dev,
-                                           hold=not args.split18_probe)
+            report, arrays = split18_serve(args.rank, args.seed, dev)
         with open(os.path.join(args.split18_out,
                                f"rank{args.rank}.json"), "w") as f:
             json.dump(report, f, default=str)
@@ -7438,7 +7464,7 @@ def split18_rank(args):
     return 0
 
 
-def split18_ranks(seed, probe=False):
+def split18_ranks(seed):
     """18b: two rank processes of ``split18_serve`` on cuda:0 over gloo;
     pod 1's masks and both pods' answers bit-equal to rank 0's one-process
     composition, pod 0's masks bit-equal to that composition on zero
@@ -7449,7 +7475,7 @@ def split18_ranks(seed, probe=False):
         t0 = time.perf_counter()
         outs = mesh_lib.spawn_ranks(
             [os.path.abspath(__file__), "--seed", str(seed),
-             "--split18-out", tmp] + (["--split18-probe"] if probe else []),
+             "--split18-out", tmp],
             SPLIT18_RANKS, SPLIT18_TIMEOUT_S)
         wall = time.perf_counter() - t0
         for r, out in enumerate(outs):
@@ -7475,7 +7501,7 @@ def split18_ranks(seed, probe=False):
         raise AssertionError("18b: both pods' masks equal; the codes did "
                              "not cross")
     # the witness: how far pod 1's plain and kernel masks each sit from
-    # the masks of a float64 encode's codes (read, not held to a limit)
+    # the masks of a float64 encode's codes
     witness = {"seed": seed,
                "mask_rel_kernel_plain": reports[1]["mask_rel_kernel"],
                "mask_rel_plain_f64": _rel(arrays[1]["masks"],
@@ -7490,14 +7516,19 @@ def split18_ranks(seed, probe=False):
                                               comp["comp_masks_kcodes"]),
                "mask_rel_control_plain": _rel(comp["comp_masks_ctrl"],
                                               comp["comp_masks_pod1"]),
-               "over_limit": reports[1]["mask_over_limit"],
                "codes_off_f64": reports[0]["codes_off_f64"]}
     log(f"[split18] 18b: pod 1's masks and both pods' answers bit-equal to "
         f"one process composing the stages, pod 0's masks to it on zero "
         f"codes; ranks' wall {wall:.1f} s")
+    # the oracle of the kernel run: its codes against the float64
+    # encode's, and its masks off the plain step's against the control's
+    codes_off = witness["codes_off_f64"]["kernel"]
+    mask_limit = SPLIT18_MASK_RATIO * witness["mask_rel_control_plain"]
     log(f"[split18] 18b witness, seed {seed}: pod 1's kernel masks "
         f"{witness['mask_rel_kernel_plain']:.4g} off the plain step's "
-        f"(limit {PATH_RTOL}); against a float64 encode's masks: plain "
+        f"(limit {mask_limit:.4g}: {SPLIT18_MASK_RATIO} x the control); "
+        f"the kernel's codes off the float64 codes {codes_off:.4g} (limit "
+        f"{SPLIT18_CODES_OFF}); against a float64 encode's masks: plain "
         f"{witness['mask_rel_plain_f64']:.4g}, kernel "
         f"{witness['mask_rel_kernel_f64']:.4g} (its codes through the "
         f"plain decode {witness['mask_rel_kcodes_f64']:.4g}, its decode "
@@ -7506,6 +7537,16 @@ def split18_ranks(seed, probe=False):
         f"{witness['mask_rel_control_plain']:.4g} off it; codes off the "
         f"float64 codes: plain {witness['codes_off_f64']['plain']:.4g}, "
         f"kernel {witness['codes_off_f64']['kernel']:.4g}")
+    if not codes_off <= SPLIT18_CODES_OFF:
+        raise AssertionError(f"18b: the kernel's codes {codes_off:.4g} off "
+                             f"the float64 encode's (limit "
+                             f"{SPLIT18_CODES_OFF})")
+    if not witness["mask_rel_kernel_plain"] <= mask_limit:
+        raise AssertionError(f"18b: the kernel step's masks "
+                             f"{witness['mask_rel_kernel_plain']:.4g} off "
+                             f"the plain step's, past {SPLIT18_MASK_RATIO} x "
+                             f"the re-summed control's "
+                             f"{witness['mask_rel_control_plain']:.4g}")
     return {"ranks": reports, "wall_s": wall, "witness": witness}
 
 
@@ -7577,6 +7618,220 @@ def split18_phase(seed, dev, shard17):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sharded train step over two ranks
+# ---------------------------------------------------------------------------
+
+TRAIN19_ARCH = "qwen2-vl-2b"
+# full width, cut to 4 of its 28 layers so that whole trees are compared;
+# float32 (TF32 off), phase 15's global batch, two AdamW steps at eps 1e-4
+TRAIN19_LAYERS = 4
+TRAIN19_BATCH, TRAIN19_SEQ = TRAIN15_BATCH, TRAIN15_SEQ
+TRAIN19_STEPS = 2
+TRAIN19_LR, TRAIN19_EPS = TRAIN15_LR, TRAIN15_EPS
+# (b) FSDP over data ranks, (c) tensor parallel over model ranks:
+# (label, data, model, fsdp)
+TRAIN19_MESHES = (("b", 2, 1, True), ("c", 1, 2, False))
+# the metrics against (a); each leaf of the parameters and moments within
+# TRAIN19_LEAF_TOL of its largest magnitude in (a)
+TRAIN19_METRIC_RTOL = 1e-5
+TRAIN19_LEAF_TOL = 1e-4
+TRAIN19_TIMEOUT_S = 420
+
+
+def train19_config():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN19_ARCH).replace(
+        num_layers=TRAIN19_LAYERS, param_dtype="float32",
+        act_dtype="float32")
+
+
+def train19_batch(cfg, seed, dev):
+    from repro_torch.data import lm
+    nb = lm.lm_batch(np.random.RandomState(seed), cfg, TRAIN19_BATCH,
+                     TRAIN19_SEQ)
+    return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+
+
+def train19_unsharded(cfg, params, batch):
+    """(a) The unsharded port step, TRAIN19_STEPS times: (params, state,
+    metrics a step, step walls)."""
+    from repro_torch import optim
+    from repro_torch.models import make_train_step
+    opt = optim.adamw(TRAIN19_LR, eps=TRAIN19_EPS)
+    step = make_train_step(cfg, opt)
+    p, s = params, opt.init(params)
+    metrics, walls = [], []
+    for _ in range(TRAIN19_STEPS):
+        t0 = _sync_s()
+        p, s, m = step(p, s, batch)
+        walls.append(_sync_s() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return p, s, metrics, walls
+
+
+def train19_spawn(label, data, model, fsdp, case, tmp):
+    """One spawn of ``python -m repro_torch.sharding.training`` over
+    data x model gloo ranks on cuda:0, its outputs into ``tmp/label``.
+    Returns (the ranks' outputs, the spawn's wall)."""
+    from repro_torch.launch import mesh as mesh_lib
+    out_dir = os.path.join(tmp, label)
+    os.makedirs(out_dir)
+    argv = ["-m", "repro_torch.sharding.training", "--case", case,
+            "--data", str(data), "--model", str(model), "--out", out_dir,
+            "--timeout", str(TRAIN19_TIMEOUT_S)] + (
+                ["--fsdp"] if fsdp else [])
+    t0 = time.perf_counter()
+    outs = mesh_lib.spawn_ranks(argv, data * model, TRAIN19_TIMEOUT_S)
+    return outs, time.perf_counter() - t0
+
+
+def train19_mesh(label, data, model, fsdp, case, cfg, want, want_metrics,
+                 reckoned, spawned, card, dev):
+    """One spawn's ranks (``train19_spawn``): metrics against (a), the
+    reassembled parameters and moments against (a) leaf by leaf, blocks
+    two ranks hold bit-equal (``training.assemble``), each rank's
+    collectives held to the reckoning, and each rank's walls and peak
+    memory."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import specs as sh
+    from repro_torch.sharding import training
+    world = data * model
+    outs, spawn_s = spawned
+    out_dir = os.path.join(os.path.dirname(case), label)
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            log(f"[rank {r}] {line}")
+    ranks = training.load_outputs(out_dir, case, world)
+    shape = {"data": data, "model": model}
+    for r, o in enumerate(ranks):
+        if o["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"19{label}: rank {r}'s metrics differ")
+        if o["step"] != TRAIN19_STEPS:
+            raise AssertionError(f"19{label}: rank {r} at step {o['step']}")
+    metric_rel = 0.0
+    for mine, ref in zip(ranks[0]["metrics"], want_metrics):
+        for k in ref:
+            rel = abs(mine[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+            metric_rel = max(metric_rel, rel)
+            if rel > TRAIN19_METRIC_RTOL:
+                raise AssertionError(f"19{label}: {k} {mine[k]!r} against "
+                                     f"(a)'s {ref[k]!r} (rel {rel:.3g})")
+    specs = sh.param_specs(cfg, want["params"], mesh_lib.Mesh(shape),
+                           fsdp=fsdp)
+    worst = (0.0, "")
+    for tree in ("params", "m", "v"):
+        whole = training.assemble([o[tree] for o in ranks], specs, shape)
+        for (path, a), (_, b) in zip(sh.leaves_with_paths(want[tree]),
+                                     sh.leaves_with_paths(whole)):
+            b = b.to(dev)
+            err = float((b - a).abs().max() / a.abs().max().clamp_min(
+                1e-30))
+            worst = max(worst, (err, f"{tree}/{'/'.join(path)}"))
+        del whole
+    if not worst[0] <= TRAIN19_LEAF_TOL:
+        raise AssertionError(f"19{label}: {worst[1]} {worst[0]:.3g} of its "
+                             f"largest magnitude off (a) (limit "
+                             f"{TRAIN19_LEAF_TOL})")
+    held = None
+    for o in ranks:
+        for seen in o["collectives"]:
+            held = dryrun.held_to_reckoning(reckoned, seen)
+    per_rank = [{"wall_ms": [w * 1e3 for w in o["wall_s"]],
+                 "collective_ms": [c * 1e3 for c in o["collective_s"]],
+                 "peak_gib": (o["peak_bytes"] or 0) / 2 ** 30,
+                 "collectives": o["collectives"][-1]} for o in ranks]
+    log(f"[train19] ({label}) {data} data x {model} model ranks"
+        f"{' with FSDP' if fsdp else ''}: metrics {metric_rel:.3g} off (a) "
+        f"(limit {TRAIN19_METRIC_RTOL}); worst leaf {worst[1]} "
+        f"{worst[0]:.3g} of its largest magnitude (limit "
+        f"{TRAIN19_LEAF_TOL}); every block two ranks hold bit-equal; "
+        f"collectives held to the reckoning, departures "
+        f"{json.dumps(held['departures'])}; spawn {spawn_s:.1f} s")
+    for r, rep in enumerate(per_rank):
+        log(f"[train19] ({label}) rank {r}: step walls "
+            f"{[round(w, 1) for w in rep['wall_ms']]} ms, of which "
+            f"collectives {[round(c, 1) for c in rep['collective_ms']]} ms "
+            f"(gloo staged through the host on one card, beside the other "
+            f"mesh's ranks: says nothing of NCCL over NVLink); peak "
+            f"{rep['peak_gib']:.2f} GiB; {card}")
+    return {"data": data, "model": model, "fsdp": fsdp,
+            "metric_rel": metric_rel, "worst_leaf": list(worst),
+            "held": held, "ranks": per_rank, "spawn_s": spawn_s}
+
+
+def train19_phase(seed, dev):
+    """Phase 19: qwen2-vl-2b at full width, 4 layers, float32 with TF32
+    off: (a) the unsharded port step in this process, then (b) two gloo
+    ranks on cuda:0 at (data 2, model 1) with FSDP and (c) at (1, 2),
+    each held to (a) and to the reckoning (``train19_mesh``)."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.sharding import training
+    card = card_line()
+    cfg = train19_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, dev)
+    batch = train19_batch(cfg, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    p, s, metrics, walls = train19_unsharded(cfg, params, batch)
+    if _launch_counts() != _only():
+        raise AssertionError(f"19a launched {_launch_counts()}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"19a: metrics {metrics}")
+    report = {"card": card, "unsharded": {
+        "metrics": metrics, "wall_ms": [w * 1e3 for w in walls],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}
+    log(f"[train19] (a) {TRAIN19_ARCH} at full width, {cfg.num_layers} "
+        f"layers, float32: {sum(t.numel() for t in _leaves(params)):,} "
+        f"parameters, B = {TRAIN19_BATCH} x S = {TRAIN19_SEQ}; losses "
+        f"{[m['loss'] for m in metrics]}, grad_norm "
+        f"{[m['grad_norm'] for m in metrics]}; step walls "
+        f"{[round(w * 1e3, 1) for w in walls]} ms; peak "
+        f"{report['unsharded']['peak_gib']:.2f} GiB; {card}")
+    want = {"params": p, "m": s["m"], "v": s["v"]}
+    shape19 = dryrun.ShapeSpec("train19", TRAIN19_SEQ, TRAIN19_BATCH,
+                               "train")
+    with tempfile.TemporaryDirectory() as tmp:
+        case = os.path.join(tmp, "train19.pt")
+        training.save_case(case, cfg, params, batch, TRAIN19_LR,
+                           TRAIN19_EPS, TRAIN19_STEPS, tf32=False)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # both meshes' ranks at once, on the one card; the reckonings
+        # meanwhile, here
+        env = {"PYTHONPATH": _port_env()["PYTHONPATH"]}
+        with mock.patch.dict(os.environ, env), \
+                concurrent.futures.ThreadPoolExecutor(
+                    len(TRAIN19_MESHES)) as pool:
+            spawns = {label: pool.submit(train19_spawn, label, data, model,
+                                         fsdp, case, tmp)
+                      for label, data, model, fsdp in TRAIN19_MESHES}
+            reckoned = {label: dryrun.reckon(
+                cfg, shape19, Mesh({"data": data, "model": model}),
+                fsdp=fsdp)["by_label"]
+                for label, data, model, fsdp in TRAIN19_MESHES}
+            spawned = {label: f.result() for label, f in spawns.items()}
+        for label, data, model, fsdp in TRAIN19_MESHES:
+            report[label] = train19_mesh(
+                label, data, model, fsdp, case, cfg, want, metrics,
+                reckoned[label], spawned[label], card, dev)
+    return report
+
+
+def _leaves(tree):
+    from repro_torch.models.stack import leaves
+    return leaves(tree)
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the template
     arguments of the (mangled) entry name, its stack, spills and
@@ -7618,8 +7873,6 @@ def main() -> int:
     # last three)
     ap.add_argument("--shard17-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--split18-out", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--split18-probe", action="store_true",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
@@ -7666,7 +7919,7 @@ def main() -> int:
         for s in args.split18_seed:
             try:
                 report["split18_seeds"].append(
-                    split18_ranks(s, probe=True)["witness"])
+                    split18_ranks(s)["witness"])
             except Exception as e:                          # noqa: BLE001
                 failed.append(s)
                 log(f"[split18] seed {s} failed: {type(e).__name__}: "
@@ -7860,6 +8113,10 @@ def main() -> int:
     report["split18"] = split18_phase(args.seed, dev, report["shard17"])
     report["split18_s"] = time.perf_counter() - t0
     log(f"[split18] phase 18 in {report['split18_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["train19"] = train19_phase(args.seed, dev)
+    report["train19_s"] = time.perf_counter() - t0
+    log(f"[train19] phase 19 in {report['train19_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

@@ -94,7 +94,13 @@ that charge them:
     spec): nothing; every rank builds its experts' buffers from tokens it
     holds, and the layer's one sum is its routed output's (above).
 No all-to-all and no collective-permute arise in this model (the split
-serve step's ppermute is ``launch.serve``'s).
+serve step's ppermute is ``launch.serve``'s). Each charge also carries its
+rule's label (``by_label``: "tp" for the sums the model code runs, "block"
+for those of the blocks the share rule runs whole, "seq", "hd",
+"fsdp-gather", "fsdp-scatter", "pod", "dp"), the labels under which the
+executed sharded train step (``sharding.training``) counts its own
+collectives; ``held_to_reckoning`` holds one to the other and names the
+departures.
 
 Not ported: the reference's depth-variant extrapolation
 (``measure_costs``), which exists because XLA's ``cost_analysis`` counts a
@@ -122,7 +128,7 @@ import os
 import time
 from bisect import bisect_right
 from fractions import Fraction
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -270,30 +276,6 @@ def _has(entry: Any, axis: str) -> bool:
     return entry == axis or (isinstance(entry, tuple) and axis in entry)
 
 
-def _pairs(tree: Any, specs: Any, path: Tuple[str, ...] = ()
-           ) -> Iterator[Tuple[Tuple[str, ...], Any, tuple]]:
-    """(key path, leaf, spec) of every leaf of a tree and its specs."""
-    if isinstance(specs, tuple):
-        yield path, tree, specs
-    elif isinstance(tree, dict):
-        for k in tree:
-            yield from _pairs(tree[k], specs[k], path + (str(k),))
-    else:
-        for i, (t, s) in enumerate(zip(tree, specs)):
-            yield from _pairs(t, s, path + (f"[{i}]",))
-
-
-def _rebuild(tree: Any, specs: Any, fn, path: Tuple[str, ...] = ()) -> Any:
-    """``fn(path, leaf, spec)`` over a tree and its specs."""
-    if isinstance(specs, tuple):
-        return fn(path, tree, specs)
-    if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], specs[k], fn, path + (str(k),))
-                for k in tree}
-    return [_rebuild(t, s, fn, path + (f"[{i}]",))
-            for i, (t, s) in enumerate(zip(tree, specs))]
-
-
 def _cut_shape(shape, spec, mesh, axes) -> Tuple[int, ...]:
     """``shape`` cut along the spec's entries that name one of ``axes``."""
     kept = tuple(e if any(_has(e, a) for a in axes) else None for e in spec)
@@ -325,7 +307,7 @@ class Plan:
 def cut_plan(cfg: ModelConfig, aparams: Any, pspecs: Any, mesh: Any) -> Plan:
     m = mesh.shape.get("model", 1)
     cut: Dict[str, bool] = {}
-    for path, leaf, spec in _pairs(aparams, pspecs):
+    for path, leaf, spec in sh.spec_pairs(aparams, pspecs):
         name = path[-1]
         if name in ("wq", "wk", "wq_b", "wo") and "attn" in path:
             cut.setdefault(name, _has(spec[-1 if name != "wo" else -2],
@@ -371,7 +353,7 @@ def cut_plan(cfg: ModelConfig, aparams: Any, pspecs: Any, mesh: Any) -> Plan:
     return Plan(m, attn, shares, frozenset(kinds), frozenset(sums))
 
 
-def _whole(path: Tuple[str, ...], plan: Plan) -> bool:
+def runs_whole(path: Tuple[str, ...], plan: Plan) -> bool:
     """Does this leaf run at its whole width (the share rule)?"""
     name = path[-1]
     if "attn" in path and plan.attn == "shared":
@@ -412,6 +394,9 @@ class Scope:
         self.act_item = torch.empty((), dtype=cfg.adtype).element_size()
         self.bytes = Fraction(0)
         self.collectives = empty_collectives()
+        # the same charges by their rule's label, each kind's count and
+        # bytes (the shape of ``launch.mesh.Mesh.collectives``)
+        self.labels: Dict[str, Dict[str, Dict[str, int]]] = {}
         self.hints: List[Tuple[Tuple[int, ...], tuple]] = []
         self._stack: List[Fraction] = []
         self._spans: List[Tuple[int, int, Fraction]] = []
@@ -456,40 +441,47 @@ class Scope:
 
     # ---- collectives ----
 
-    def charge(self, kind: str, nbytes: int) -> None:
+    def charge(self, kind: str, nbytes: int, label: str) -> None:
         charge(self.collectives, kind, nbytes)
+        entry = self.labels.setdefault(label, {}).setdefault(
+            kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += int(nbytes)
 
-    def block_sum(self, numel: int) -> None:
+    def block_sum(self, numel: int, label: str) -> None:
         """A block's forward sum of ``numel`` float32 partials over the
         "model" axis and, under train, its backward conjugate."""
-        self.charge("all-reduce", numel * 4)
+        self.charge("all-reduce", numel * 4, label)
         if self.train:
-            self.charge("all-reduce", numel * self.act_item)
+            self.charge("all-reduce", numel * self.act_item, label)
 
     def reduce(self, t: torch.Tensor, kind: str) -> None:
         """A sum the model code runs over the "model" axis (and, under
-        train, its backward conjugate)."""
+        train, its backward conjugate): label "tp", or "block" for the
+        output projection of attention the share rule runs whole."""
         if kind in ("attn", "mlp"):
-            self.block_sum(t.numel())
+            shared = kind == "attn" and self.plan.attn == "shared"
+            self.block_sum(t.numel(), "block" if shared else "tp")
             return
-        self.charge("all-reduce", t.nbytes)
+        self.charge("all-reduce", t.nbytes, "tp")
         if self.train and kind == "head":
             rows = t.numel() // t.shape[-1]
-            self.charge("all-reduce", rows * self.cfg.d_model * self.act_item)
+            self.charge("all-reduce", rows * self.cfg.d_model * self.act_item,
+                        "tp")
 
     def hint(self, t: torch.Tensor, spec: tuple) -> None:
         self.hints.append((tuple(t.shape), spec))
         if self.plan.m == 1:
             return
         if t.dim() == 3 and isinstance(spec[0], tuple) and spec[1] == "model":
-            self.charge("all-gather", t.nbytes)           # seq_shard
+            self.charge("all-gather", t.nbytes, "seq")    # seq_shard
             if self.train:
-                self.charge("reduce-scatter", t.nbytes // self.plan.m)
+                self.charge("reduce-scatter", t.nbytes // self.plan.m, "seq")
         elif t.dim() == 4 and spec[-1] == "model":        # shard_cache_hd
             self._hd.append(t)
             if len(self._hd) == 3:
                 B, S, H, _ = self._hd[0].shape
-                self.charge("all-reduce", B * H * S * self.width * 4)
+                self.charge("all-reduce", B * H * S * self.width * 4, "hd")
                 self._hd.clear()
 
     def gradient_collectives(self, aparams: Any, pspecs: Any,
@@ -498,19 +490,19 @@ class Scope:
         gradient sums of a train step (the model in the docstring)."""
         pod = batch_cut.get("pod", False)
         any_cut = any(batch_cut.values())
-        for _, leaf, spec in _pairs(aparams, pspecs):
+        for _, leaf, spec in sh.spec_pairs(aparams, pspecs):
             local = _nbytes(_cut_shape(leaf.shape, spec, self.mesh,
                                        ("model",)), leaf.dtype)
             if any(_has(e, "data") for e in spec):
                 shard = _nbytes(sh.shard_shape(leaf.shape, spec, self.mesh),
                                 leaf.dtype)
-                self.charge("all-gather", local)
-                self.charge("all-gather", local)
-                self.charge("reduce-scatter", shard)
+                self.charge("all-gather", local, "fsdp-gather")
+                self.charge("all-gather", local, "fsdp-gather")
+                self.charge("reduce-scatter", shard, "fsdp-scatter")
                 if pod:
-                    self.charge("all-reduce", shard)
+                    self.charge("all-reduce", shard, "pod")
             elif any_cut:
-                self.charge("all-reduce", local)
+                self.charge("all-reduce", local, "dp")
 
 
 class _CountingTP:
@@ -533,6 +525,10 @@ class _CountingTP:
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         self.scope.reduce(t, self._kind)
         return t
+
+    def block_input(self, x: torch.Tensor) -> torch.Tensor:
+        # its backward sum is charged with the block's forward sum
+        return x
 
 
 class _ByteCounter(TorchDispatchMode):
@@ -569,7 +565,7 @@ def _summed(scope: Scope, fn, widths):
         out = fn(*args, **kwargs)
         x = args[2]
         for w in widths(args[1]):
-            scope.block_sum(x.numel() // x.shape[-1] * w)
+            scope.block_sum(x.numel() // x.shape[-1] * w, "block")
         return out
     return run
 
@@ -615,9 +611,10 @@ def _share_blocks(scope: Scope):
                 n = (x.shape[1] if c.modality == "audio"
                      else c.num_vision_tokens)
                 whole = x.shape[0] * n * x.shape[2] * x.element_size()
-                scope.charge("all-gather", whole)
+                scope.charge("all-gather", whole, "block")
                 if scope.train:
-                    scope.charge("reduce-scatter", whole // scope.plan.m)
+                    scope.charge("reduce-scatter", whole // scope.plan.m,
+                                 "block")
                 return x, positions
             stack_.enter_context(_patched(model_lib, "_embed_inputs",
                                           embed_inputs))
@@ -640,9 +637,9 @@ def _local_step(cfg: ModelConfig, view: Any, mesh: Any, train: bool = False,
     specs)."""
     specs = sh.param_specs(cfg, view, mesh, fsdp=fsdp)
     plan = cut_plan(cfg, view, specs, mesh)
-    local = _rebuild(view, specs, lambda path, t, s: _meta(
-        t.shape if _whole(path, plan) else
-        _cut_shape(t.shape, s, mesh, ("model",)), t.dtype))
+    local = sh.map_with_specs(lambda path, t, s: _meta(
+        t.shape if runs_whole(path, plan) else
+        _cut_shape(t.shape, s, mesh, ("model",)), t.dtype), view, specs)
     scope = Scope(cfg, mesh, plan, train=train, width=width)
     return scope, local, local_config(cfg, plan), specs
 
@@ -658,9 +655,9 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, mesh: Any,
         fsdp=fsdp)
     plan = scope.plan
     gbatch = input_specs(cfg, shape)
-    batch = _rebuild(gbatch, sh.batch_specs(gbatch, mesh),
-                     lambda path, t, s: _meta(sh.shard_shape(t.shape, s,
-                                                             mesh), t.dtype))
+    batch = sh.map_with_specs(
+        lambda path, t, s: _meta(sh.shard_shape(t.shape, s, mesh), t.dtype),
+        gbatch, sh.batch_specs(gbatch, mesh))
     if train:
         opt = optim.adamw(3e-4)
         state = opt.init(params)
@@ -675,9 +672,9 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, mesh: Any,
         cspecs = sh.cache_specs(cfg, gcache, mesh)
         axes = ("pod", "data") + (("model",) if plan.attn == "local"
                                   else ())
-        cache = _rebuild(gcache, cspecs, lambda path, t, s: _meta(
+        cache = sh.map_with_specs(lambda path, t, s: _meta(
             _cut_shape(t.shape, s, mesh, axes if path[-1] in ("k", "v")
-                       else ("pod", "data")), t.dtype))
+                       else ("pod", "data")), t.dtype), gcache, cspecs)
 
         def step():
             model_lib.decode_step(params, lcfg, cache, batch["tokens"],
@@ -687,8 +684,61 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, mesh: Any,
         scope.gradient_collectives(aparams, pspecs, _batch_cut(gbatch, mesh))
     return {"flops": float(flops), "bytes": float(scope.bytes),
             "collectives": dict(scope.collectives),
+            "by_label": scope.labels,
             "hints": len(scope.hints), "attention": plan.attn,
             "shares": sorted(plan.shares)}
+
+
+# How the executed sharded train step (``sharding.training``) departs from
+# the reckoning's model, by label (``Mesh.collectives``): the labels held
+# equal, kind by kind, count and bytes; those only the reckoning charges
+# (the sums of the blocks the share rule runs whole, the sequence hints);
+# those only the step executes (each whole-run block's leaves gathered over
+# "model" before use, the global-batch statistics' sums, the global norm's
+# sum). FSDP: the step gathers a leaf once and keeps the gathered block for
+# the backward, where the reckoning charges a gather before each pass.
+HELD_LABELS = ("tp", "dp", "fsdp-scatter", "pod")
+RECKONED_ONLY = ("block", "seq")
+EXECUTED_ONLY = ("whole", "stat", "norm")
+
+
+def held_to_reckoning(reck: Dict[str, Dict[str, Dict[str, int]]],
+                      executed: Dict[str, Dict[str, Dict[str, int]]]
+                      ) -> Dict[str, Any]:
+    """Hold one executed train step's collectives (``executed``: label ->
+    kind -> {"count", "bytes"}, as ``Mesh.collectives`` counts them on one
+    rank) to the reckoning of the same step (``reck``: ``reckon``'s
+    "by_label" for the same config, global batch, mesh shape and FSDP):
+    every held label equal, FSDP's gathers half the reckoned, and the rest
+    named departures with their bytes. Raises ``AssertionError`` on the
+    first difference. Returns {"held": ..., "departures": {"reckoned":
+    ..., "executed": ...}}."""
+    known = set(HELD_LABELS + EXECUTED_ONLY) | {"fsdp-gather"}
+    if set(executed) - known or set(reck) - known - set(RECKONED_ONLY):
+        raise AssertionError(f"unknown labels: executed {sorted(executed)}, "
+                             f"reckoned {sorted(reck)}")
+    for label in HELD_LABELS:
+        if executed.get(label, {}) != reck.get(label, {}):
+            raise AssertionError(f"{label}: executed {executed.get(label)}, "
+                                 f"reckoned {reck.get(label)}")
+    once = {k: {"count": v["count"] // 2, "bytes": v["bytes"] // 2}
+            for k, v in reck.get("fsdp-gather", {}).items()}
+    twice = {k: {"count": 2 * v["count"], "bytes": 2 * v["bytes"]}
+             for k, v in executed.get("fsdp-gather", {}).items()}
+    if twice != reck.get("fsdp-gather", {}):
+        raise AssertionError(f"fsdp-gather: executed "
+                             f"{executed.get('fsdp-gather')}, reckoned "
+                             f"{reck.get('fsdp-gather')} (two a leaf)")
+    reckoned = {label: reck[label] for label in RECKONED_ONLY
+                if label in reck}
+    if once:
+        reckoned["fsdp-gather (before the backward)"] = once
+    return {"held": {label: reck[label] for label in HELD_LABELS
+                     if label in reck},
+            "departures": {
+                "reckoned": reckoned,
+                "executed": {label: executed[label] for label in EXECUTED_ONLY
+                             if label in executed}}}
 
 
 def _counted(scope: Scope, step) -> Fraction:

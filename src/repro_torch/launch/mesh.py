@@ -5,7 +5,7 @@ serving runs one process per rank over ``torch.distributed``, so a mesh
 here is a named grid of ranks: ``shape`` (axis name -> size, in order),
 ``axis_names`` and ``size``, what the spec rules (``sharding.specs``)
 read. A local mesh also holds this rank's place in the grid (``rank``,
-``coords``) and the process group of its "model" axis.
+``coords``) and the process groups of its axes (``groups``).
 
 Single pod : (16, 16)      axes ("data", "model")          = 256 chips
 Multi-pod  : (2, 16, 16)   axes ("pod", "data", "model")   = 512 chips
@@ -19,18 +19,24 @@ serve step's ``{"pod": 2}``).
 
 Backends (``init_rank``): NCCL where every rank has a card of its own;
 gloo on the CPU and where ranks share a card, since NCCL will not put two
-ranks of one communicator on one device. Gloo runs ``all_reduce`` and
-``broadcast`` on CUDA tensors by staging them through the host, which
-synchronises with the card; the serving path uses only those two
-collectives. ``Mesh.ppermute`` (the reference's ``jax.lax.ppermute``, the
-pod link of the split serve step) sends and receives point to point;
-under gloo it stages a CUDA tensor through the host itself (a copy to the
-host, the send, and a copy back on the receiving rank). FSDP's
-``all_gather`` and ``reduce_scatter`` wait for the sharded train step
-(ROADMAP.md, Queue 1 item 5b-ii). Rendezvous is a ``FileStore`` (no port
-to pick or collide on), and every collective has a timeout, so ranks that
-drift apart fail instead of hanging. ``spawn_ranks`` starts one process a
-rank and fails them all when one fails or the time runs out.
+ranks of one communicator on one device. Tensor-parallel serving
+(``sharding.serving``) hands its CUDA tensors to gloo's ``all_reduce``
+and ``broadcast``, which stage them through the host. ``Mesh.ppermute`` (the
+reference's ``jax.lax.ppermute``, the pod link of the split serve step)
+sends and receives point to point. ``Mesh.all_reduce``,
+``Mesh.all_gather`` and ``Mesh.reduce_scatter`` are the collectives of
+the sharded train step (``sharding.training``: FSDP gathers a parameter
+over "data" and scatters its gradient back, data parallelism sums
+gradients, tensor parallelism sums over "model") over a named axis or
+axes; each counts its calls and result bytes by kind, under the label its
+caller gives (``collectives``), and the seconds it took. Under gloo every
+one of them stages a CUDA tensor through the host itself (a copy to the
+host, the collective, a copy back), which synchronises with the card.
+Every rank builds the process groups of both axes of a local mesh, in the
+same order. Rendezvous is a ``FileStore`` (no port to pick or collide
+on), and every collective has a timeout, so ranks that drift apart fail
+instead of hanging. ``spawn_ranks`` starts one process a rank and fails
+them all when one fails or the time runs out.
 """
 from __future__ import annotations
 
@@ -50,25 +56,37 @@ COLLECTIVE_TIMEOUT_S = 120
 
 
 class Mesh:
-    """A named grid of ranks. ``rank``/``coords``/``model_group`` are set
-    for a local mesh (this process's place, the "model" axis' process
-    group: None where that axis is the whole world or one rank)."""
+    """A named grid of ranks. ``rank``/``coords``/``groups`` are set for a
+    local mesh (this process's place; each axis' process group, None
+    where that axis is the whole world or one rank). ``model_group`` is
+    ``groups["model"]``."""
 
     def __init__(self, shape: Dict[str, int], rank: Optional[int] = None,
-                 model_group: Any = None):
+                 groups: Optional[Dict[str, Any]] = None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.rank = rank
-        self.model_group = model_group
+        self.groups = dict(groups or {})
         self.coords: Optional[Dict[str, int]] = None
         self.sent_bytes = 0
         self.received_bytes = 0
+        self.reset_counts()
         if rank is not None:
             coords, rest = {}, rank
             for name in reversed(self.axis_names):
                 coords[name] = rest % self.shape[name]
                 rest //= self.shape[name]
             self.coords = {name: coords[name] for name in self.axis_names}
+
+    def reset_counts(self) -> None:
+        """Zero ``collectives`` (label -> kind -> {"count", "bytes"}) and
+        ``collective_s``."""
+        self.collectives: Dict[str, Dict[str, Dict[str, int]]] = {}
+        self.collective_s = 0.0
+
+    @property
+    def model_group(self) -> Any:
+        return self.groups.get("model")
 
     @property
     def size(self) -> int:
@@ -125,6 +143,95 @@ class Mesh:
             out.copy_(recv)
         return out
 
+    # ---- the collectives of the sharded train step ----
+
+    def _group(self, axes: Sequence[str]) -> Tuple[Any, int]:
+        """The process group over ``axes`` (those of size > 1) and its
+        size: the world where they are every axis of size > 1, the one
+        axis' group where it is one, else an error."""
+        live = [a for a in axes if self.shape.get(a, 1) > 1]
+        n = 1
+        for a in live:
+            n *= self.shape[a]
+        if n == 1 or n == self.size:
+            return None, n
+        if len(live) == 1:
+            return self.groups[live[0]], n
+        raise ValueError(f"no process group over {tuple(live)} of mesh "
+                         f"{self.shape}")
+
+    def _count(self, label: str, kind: str, nbytes: int) -> None:
+        entry = self.collectives.setdefault(label, {}).setdefault(
+            kind, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += int(nbytes)
+
+    def _run(self, label, kind, t, out, call):
+        """``call(src, dst)`` on host copies under gloo for a CUDA
+        tensor, waited on with the module's timeout; counts ``out``'s
+        bytes and the seconds."""
+        t0 = time.perf_counter()
+        staged = t.is_cuda and dist.get_backend() == "gloo"
+        src = (t.cpu() if staged else t).contiguous()
+        dst = torch.empty(out, dtype=t.dtype,
+                          device="cpu" if staged else t.device)
+        call(src, dst).wait(datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        res = dst.to(t.device) if staged else dst
+        self.collective_s += time.perf_counter() - t0
+        self._count(label, kind, res.nbytes)
+        return res
+
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
+                   label: str = "") -> torch.Tensor:
+        """``t`` summed over the ranks that share this rank's coordinates
+        on every axis but ``axes``; a new tensor, ``t`` untouched. Over
+        one rank it returns ``t`` and counts nothing."""
+        group, n = self._group(axes)
+        if n == 1:
+            return t
+
+        def call(src, dst):
+            dst.copy_(src)
+            return dist.all_reduce(dst, group=group, async_op=True)
+        return self._run(label, "all-reduce", t, t.shape, call)
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int,
+                   label: str = "") -> torch.Tensor:
+        """The blocks of ``axis``' ranks concatenated along ``dim`` in
+        the axis' order (this rank's ``t`` among them). Over one rank it
+        returns ``t`` and counts nothing."""
+        group, n = self._group((axis,))
+        if n == 1:
+            return t
+        moved = t.movedim(dim, 0)
+        shape = (n * moved.shape[0], *moved.shape[1:])
+
+        def call(src, dst):
+            return dist.all_gather_into_tensor(dst, src, group=group,
+                                               async_op=True)
+        return self._run(label, "all-gather", moved, shape,
+                         call).movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int,
+                       label: str = "") -> torch.Tensor:
+        """``t`` summed over ``axis``' ranks, cut along ``dim`` into equal
+        parts, this rank's part (its index on the axis). Over one rank it
+        returns ``t`` and counts nothing."""
+        group, n = self._group((axis,))
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dimension {dim} of "
+                             f"{tuple(t.shape)} does not divide by {n}")
+        moved = t.movedim(dim, 0)
+        shape = (moved.shape[0] // n, *moved.shape[1:])
+
+        def call(src, dst):
+            return dist.reduce_scatter_tensor(dst, src, group=group,
+                                              async_op=True)
+        return self._run(label, "reduce-scatter", moved, shape,
+                         call).movedim(0, dim).contiguous()
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -139,7 +246,9 @@ def make_local_mesh(model: int = 1) -> Mesh:
     to what there is instead of building an empty ``(0, k)`` mesh) and
     must divide it; the rest is the "data" axis. Every rank must call
     this, in the same order: a "model" axis shorter than the world makes
-    one process group a data row, each built by all ranks."""
+    one process group a data row, a "data" axis shorter than the world one
+    a model column (ranks c, c + model, ...), each built by all ranks,
+    the rows first."""
     if model < 1:
         raise ValueError(f"model axis must be >= 1, got {model}")
     live = dist.is_available() and dist.is_initialized()
@@ -150,16 +259,21 @@ def make_local_mesh(model: int = 1) -> Mesh:
         raise ValueError(
             f"model={model} does not divide the {n} ranks; pick a divisor "
             f"of {n}")
-    group = None
+    data = n // model
+    groups: Dict[str, Any] = {}
+    timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
     if live and 1 < model < n:
-        for row in range(n // model):
+        for row in range(data):
             g = dist.new_group(list(range(row * model, (row + 1) * model)),
-                               timeout=datetime.timedelta(
-                                   seconds=COLLECTIVE_TIMEOUT_S))
+                               timeout=timeout)
             if row == rank // model:
-                group = g
-    return Mesh({"data": n // model, "model": model}, rank=rank,
-                model_group=group)
+                groups["model"] = g
+    if live and 1 < data < n:
+        for col in range(model):
+            g = dist.new_group(list(range(col, n, model)), timeout=timeout)
+            if col == rank % model:
+                groups["data"] = g
+    return Mesh({"data": data, "model": model}, rank=rank, groups=groups)
 
 
 def make_named_mesh(shape: Dict[str, int]) -> Mesh:

@@ -25,8 +25,7 @@ pod link's bytes with and without the bottleneck:
 ``--split-selftest`` runs ``split_serve`` over two ranks of lisa-mini
 (spawned by this module; gloo, ``--device cpu`` or the card) and writes
 each rank's outputs. Tensor-parallel serving is ``AveryEngine(mesh=)``
-(``sharding.serving``); a sharded train step is still to come (ROADMAP.md,
-Queue 1 item 5b-ii).
+(``sharding.serving``); the sharded train step is ``sharding.training``.
 """
 import argparse
 import os

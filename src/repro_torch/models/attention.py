@@ -20,7 +20,8 @@ the fresh q/k/v on the cache's head-dim cut (``common.wsc``, the identity
 that a dry-run reckoning reads); the paged paths refuse it, as the
 reference's do. Under tensor-parallel serving (``sharding.serving``) a
 GQA block runs this rank's heads, and the output projection of GQA or MLA
-sums over the ranks (``common.row_linear``).
+sums over the ranks (``common.row_linear``); a full-sequence block takes
+its input through ``common.block_input`` (training's conjugate sum).
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (apply_mrope, apply_rope, fan_in_init,
-                                       full_fp32, linear, rms_norm,
-                                       row_linear, wsc)
+from repro_torch.models.common import (apply_mrope, apply_rope,
+                                       block_input, fan_in_init, full_fp32,
+                                       linear, rms_norm, row_linear, wsc)
 from repro_torch.models.config import ModelConfig
 
 
@@ -551,6 +552,7 @@ def empty_cache(cfg: ModelConfig, batch: int, width: int,
 
 
 def attn_full(p, cfg: ModelConfig, x, positions, mask):
+    x = block_input(x, "attn")
     if cfg.attn_type == "mla":
         return mla_full(p, cfg, x, positions, mask)
     return gqa_full(p, cfg, x, positions, mask)

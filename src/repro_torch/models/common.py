@@ -5,21 +5,35 @@ Plain functions on tensors; every function takes its parameters
 explicitly. Norms and RoPE compute in float32 and cast back, as the
 reference does.
 
-Tensor-parallel serving (``sharding.serving``) runs the model code on one
-rank's slice of the weights inside ``tensor_parallel(tp)``, as the
-reference's sharding hints (``wsc``) read the mesh that ``with mesh:``
-installs. The three layers whose weights are cut along a contracted or
-gathered axis go through ``row_linear`` (output projections), and
-``embed_rows`` / ``vocab_linear`` (a vocab-sharded embedding and head);
-outside a scope each is the plain product or lookup.
+Tensor parallelism (``sharding.serving``, ``sharding.training``) runs
+the model code on one rank's slice of the weights inside
+``tensor_parallel(tp)``, as the reference's sharding hints (``wsc``) read
+the mesh that ``with mesh:`` installs. The three layers whose weights are
+cut along a contracted or gathered axis go through ``row_linear`` (output
+projections), and ``embed_rows`` / ``vocab_linear`` (a vocab-sharded
+embedding and head): each sums over the ranks through ``tp.reduce``
+(Megatron's g). The input of each block whose weights are cut by columns
+(attention after its norm, a dense MLP after its norm, and the head
+inside ``vocab_linear``) goes through ``block_input``: ``tp.block_input``,
+the identity whose backward sums the input's gradient over the ranks
+under training (Megatron's f), the identity in serving. Outside a scope
+each is the plain product, lookup or identity.
+
+Data parallelism (``sharding.training``) runs the model code on one
+rank's share of the batch inside ``data_parallel(dp)``. Where the
+reference takes a mean or an order over the whole batch (the
+cross-entropy's mean, the MoE router's load statistics, its capacity and
+the order in which tokens fill it), the model code reads the other
+ranks' shares through ``batch_ranks``, ``batch_total`` and
+``batch_before``, so that each rank computes its share of the function
+of the whole batch. Outside a scope the model code runs as it did.
 
 The reference's placement hints (``wsc``: ``with_sharding_constraint``
 under a mesh, a no-op off one) are ported as ``wsc`` here: the identity
 on its tensor, always. Inside ``reckoning(scope)`` (the dry-run's
 ``launch.dryrun``) a hint also records the activation's spec, "BATCH"
 resolved to the scope mesh's batch axes, as the reference resolves it;
-the reckoning reads those records. A sharded train step over ranks is
-still to come (ROADMAP.md, Queue 1 item 5b-ii).
+the reckoning reads those records.
 """
 from __future__ import annotations
 
@@ -139,10 +153,19 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 # the tensor-parallel slice the model code runs in (``tensor_parallel``);
 # None outside one. An object with ``sharded(kind)`` (is that layer's
 # weight cut over the ranks: "attn", "mlp", "embed" or "head"), ``index``
-# and ``size`` (this rank's place on the model axis, its length) and
-# ``reduce(t)`` (t summed over the ranks, in place)
+# and ``size`` (this rank's place on the model axis, its length),
+# ``reduce(t)`` (t summed over the ranks) and ``block_input(x)`` (x as the
+# input of a column-cut block)
 _TENSOR_PARALLEL: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
+
+# the data-parallel share of the batch the model code runs on
+# (``data_parallel``); None outside one. An object with ``size`` (the
+# ranks the batch is split over), ``total(t)`` (t summed over them, every
+# rank's gradient of the sum its own) and ``before(t)`` (the sum of t over
+# the ranks before this one, in batch order; no gradient)
+_DATA_PARALLEL: contextvars.ContextVar = contextvars.ContextVar(
+    "data_parallel", default=None)
 
 
 @contextlib.contextmanager
@@ -154,6 +177,37 @@ def tensor_parallel(tp: Any):
         yield tp
     finally:
         _TENSOR_PARALLEL.reset(token)
+
+
+@contextlib.contextmanager
+def data_parallel(dp: Any):
+    """Run the model code inside this block on one rank's share of a batch
+    split over ``dp.size`` ranks (restored on exit)."""
+    token = _DATA_PARALLEL.set(dp)
+    try:
+        yield dp
+    finally:
+        _DATA_PARALLEL.reset(token)
+
+
+def batch_ranks() -> int:
+    """How many ranks the batch is split over (1 outside a scope)."""
+    dp = _DATA_PARALLEL.get()
+    return 1 if dp is None else dp.size
+
+
+def batch_total(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks the batch is split over (``t`` outside
+    a scope)."""
+    dp = _DATA_PARALLEL.get()
+    return t if dp is None else dp.total(t)
+
+
+def batch_before(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """The sum of ``t`` over the ranks whose share of the batch comes
+    before this rank's; None outside a scope."""
+    dp = _DATA_PARALLEL.get()
+    return None if dp is None else dp.before(t)
 
 
 def _sharded(kind: str):
@@ -235,15 +289,24 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return tp.reduce(rows).to(table.dtype)
 
 
+def block_input(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x`` as the input of a block whose weights are cut by columns
+    (``kind`` "attn" or "mlp"): where that layer is sharded,
+    ``tp.block_input(x)``, else ``x``."""
+    tp = _sharded(kind)
+    return x if tp is None else tp.block_input(x)
+
+
 def vocab_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for an output head (d, V). Where the head is
-    vocab-sharded, this rank's columns are computed, placed into a
-    zero-filled full row and summed over the ranks (in float32; adding
-    zeros is exact), so every rank holds the whole logits."""
-    part = linear(x, w)
+    vocab-sharded, this rank's columns are computed (from
+    ``tp.block_input(x)``), placed into a zero-filled full row and summed
+    over the ranks (in float32; adding zeros is exact), so every rank
+    holds the whole logits."""
     tp = _sharded("head")
     if tp is None:
-        return part
+        return linear(x, w)
+    part = linear(tp.block_input(x), w)
     n = part.shape[-1]
     full = part.new_zeros((*part.shape[:-1], n * tp.size),
                           dtype=torch.float32)

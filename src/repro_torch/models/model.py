@@ -32,8 +32,9 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import stack
-from repro_torch.models.common import (cache_mask, causal_mask, embed_rows,
-                                       fan_in_init, linear, normal_init,
+from repro_torch.models.common import (batch_ranks, batch_total, cache_mask,
+                                       causal_mask, embed_rows, fan_in_init,
+                                       linear, normal_init,
                                        sinusoid_positions, vocab_linear)
 from repro_torch.models.config import ModelConfig
 
@@ -163,15 +164,19 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def _xent(logits: torch.Tensor, targets: torch.Tensor,
           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy in float32; with ``mask``, the mean
-    over the masked positions (``+ 1e-6`` under the count)."""
+    over the masked positions (``+ 1e-6`` under the count). On one rank's
+    share of a batch split over data ranks (``common.data_parallel``), the
+    whole batch's mean: the sum and the count over the ranks."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
-        return torch.mean(nll)
+        return batch_total(torch.sum(nll)) / (nll.numel() * batch_ranks())
     mask = mask.float()
-    return torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
+    total, count = batch_total(torch.stack([torch.sum(nll * mask),
+                                            torch.sum(mask)]))
+    return total / (count + 1e-6)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]

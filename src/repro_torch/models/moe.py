@@ -12,7 +12,12 @@ normalised top-k gates and a load-balance auxiliary loss.
 Which tokens a full expert drops is decided by the order of (token, slot)
 pairs, token-major, as in the reference: ties in the router's top-k go to
 the lower expert index (``jax.lax.top_k``), and ranks within an expert
-come from a stable sort. The reference's placement hints are ported:
+come from a stable sort. On one rank's share of a batch split over data
+ranks (``common.data_parallel``) the router's load statistics are the
+whole batch's means, the capacity is the whole batch's, and this rank's
+(token, slot) pairs come after those of the ranks before it in that
+order, so each rank drops what the whole batch's dispatch drops of its
+tokens. The reference's placement hints are ported:
 the scatter dispatch's expert buffers carry ``_buf_spec`` and the grouped
 dispatch's a batch spec, through ``common.wsc`` (the identity; a dry-run
 reckoning reads them).
@@ -24,7 +29,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (ACTIVATIONS, fan_in_init, full_fp32,
+from repro_torch.models.common import (ACTIVATIONS, batch_before,
+                                       batch_ranks, batch_total,
+                                       block_input, fan_in_init, full_fp32,
                                        linear, row_linear, silu, wsc)
 from repro_torch.models.config import ModelConfig
 
@@ -43,6 +50,7 @@ def init_dense_mlp(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
 
 def dense_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = ACTIVATIONS[cfg.mlp_act]
+    x = block_input(x, "mlp")
     if cfg.gated_mlp:
         return row_linear(act(linear(x, p["w_gate"]))
                           * linear(x, p["w_up"]), p["w_down"], "mlp")
@@ -102,9 +110,10 @@ def _router(p: dict, cfg: ModelConfig, xt: torch.Tensor):
     gate_vals, gate_idx = _top_k(probs, k)                        # (T, k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
     # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(0)                                            # (E,)
     onehot_any = torch.nn.functional.one_hot(gate_idx, E).float()
-    ce = onehot_any.sum(1).mean(0)                                # (E,)
+    # the whole batch's means (me, ce), both sums in one collective
+    sums = batch_total(torch.cat([probs.sum(0), onehot_any.sum(1).sum(0)]))
+    me, ce = (sums / (xt.shape[0] * batch_ranks())).split(E)
     aux = m.router_aux_weight * E * torch.sum(me * ce)
     return gate_vals, gate_idx, onehot_any, aux
 
@@ -119,6 +128,20 @@ def _expert_ffn(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, p["w_down"].to(xe.dtype))
 
 
+def _pair_positions(sel: torch.Tensor) -> torch.Tensor:
+    """Each (token, slot) pair's position in its expert, ``sel`` (T*k, E)
+    the pairs' one-hot rows, token-major: the count of earlier pairs that
+    chose the same expert (on one rank's share of a batch, the earlier
+    ranks' pairs first)."""
+    # the running count down the (token, slot) axis, scanned as the inner
+    # axis of (E, T*k): CUDA's scan along an outer axis of 40 columns took
+    # 2.7 ms a layer at T*k = 16,384 on an H100
+    pos_in_e = torch.cumsum(sel.t(), dim=1).t() - sel             # (T*k, E)
+    if batch_ranks() > 1:
+        pos_in_e = pos_in_e + batch_before(sel.sum(0))
+    return (pos_in_e * sel).sum(-1)
+
+
 def _moe_einsum(p: dict, cfg: ModelConfig, xt: torch.Tensor, gate_vals,
                 gate_idx, onehot_any, C: int) -> torch.Tensor:
     """GShard's one-hot dispatch: (T, E, C) dispatch and combine tensors.
@@ -129,11 +152,7 @@ def _moe_einsum(p: dict, cfg: ModelConfig, xt: torch.Tensor, gate_vals,
     T, d = xt.shape
     E, k = m.num_experts, m.top_k
     sel = onehot_any.reshape(T * k, E)                            # token-major
-    # the running count down the (token, slot) axis, scanned as the inner
-    # axis of (E, T*k): CUDA's scan along an outer axis of 40 columns took
-    # 2.7 ms a layer at T*k = 16,384 on an H100
-    pos_in_e = torch.cumsum(sel.t(), dim=1).t() - sel             # (T*k, E)
-    pos = (pos_in_e * sel).sum(-1).reshape(T, k)                  # (T, k)
+    pos = _pair_positions(sel).reshape(T, k)                      # (T, k)
     keep = (pos < C).float()
     gate_vals = gate_vals * keep
     slot = torch.where(keep > 0, pos, torch.full_like(pos, C)).long()
@@ -164,11 +183,13 @@ def _positions_in_expert(flat_e: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def _scatter_plan(gate_idx: torch.Tensor, E: int, C: int):
+def _scatter_plan(gate_idx: torch.Tensor, E: int, C: int,
+                  earlier: Optional[torch.Tensor] = None):
     """The destinations of a scatter dispatch: gate_idx (G, n), n = tokens
     x k of one group, token-major, each group with its own E*C buffer.
     Returns (dest (G, n) into the group's buffer, keep (G, n)). Ranks are
-    taken within (group, expert): a stable sort on group*E + expert.
+    taken within (group, expert): a stable sort on group*E + expert, after
+    ``earlier`` (E,) pairs of each expert where given.
     Dropped slots all point at the buffer's last slot, E*C - 1, and carry
     zero payloads; kept slots' destinations are unique (a rank within
     the expert), so no real destination repeats."""
@@ -176,6 +197,8 @@ def _scatter_plan(gate_idx: torch.Tensor, E: int, C: int):
     e = gate_idx.long()
     base = torch.arange(G, device=e.device)[:, None] * E
     pos = _positions_in_expert((e + base).reshape(-1)).reshape(G, n)
+    if earlier is not None:
+        pos = pos + earlier.long()[e]
     keep = pos < C
     dest = torch.where(keep, e * C + pos, torch.full_like(pos, E * C - 1))
     return dest, keep
@@ -222,7 +245,11 @@ def _moe_scatter(p: dict, cfg: ModelConfig, xt: torch.Tensor, gate_vals,
     m = cfg.moe
     T, d = xt.shape
     E, k = m.num_experts, m.top_k
-    dest, keep = _scatter_plan(gate_idx.reshape(1, T * k), E, C)
+    earlier = None
+    if batch_ranks() > 1:
+        earlier = batch_before(torch.bincount(gate_idx.reshape(-1),
+                                              minlength=E))
+    dest, keep = _scatter_plan(gate_idx.reshape(1, T * k), E, C, earlier)
     buf = wsc(_scatter(xt[None], dest, keep, k, E * C).reshape(E, C, d),
               *_buf_spec(cfg, E, C))
     ye = wsc(_expert_ffn(p, cfg, buf), *_buf_spec(cfg, E, C))
@@ -253,12 +280,14 @@ def moe_mlp(p: dict, cfg: ModelConfig,
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    C = capacity(cfg, T)
+    # the whole batch's rows and capacity on a rank's share of it
+    rows = B * batch_ranks()
+    C = capacity(cfg, rows * S)
     xt = x.reshape(T, d)
     gate_vals, gate_idx, onehot_any, aux = _router(p, cfg, xt)
-    if m.dispatch == "grouped" and B > 1:
+    if m.dispatch == "grouped" and rows > 1:
         out = _moe_grouped(p, cfg, x, gate_vals, gate_idx)
-    elif m.dispatch == "scatter" or (m.dispatch == "grouped" and B == 1):
+    elif m.dispatch == "scatter" or (m.dispatch == "grouped" and rows == 1):
         out = _moe_scatter(p, cfg, xt, gate_vals, gate_idx, C)
     else:
         out = _moe_einsum(p, cfg, xt, gate_vals, gate_idx, onehot_any, C)

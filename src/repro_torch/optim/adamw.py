@@ -14,6 +14,12 @@ counts as zeros, as JAX's gradient does: the moments still decay and the
 weight decay still applies. The step counter, the schedule's rate, the
 clip scale and every update stay on the device: nothing is read to the
 host.
+
+``apply(..., sumsq=)`` is the hook of a sharded step
+(``sharding.training``), whose ``grads`` are one rank's blocks: it hands
+in the sum of squares of the whole gradient (every element counted once
+over the ranks), from which the global norm for clipping is taken in
+place of the blocks' own.
 """
 from __future__ import annotations
 
@@ -31,19 +37,28 @@ class Optimizer:
     apply: Callable[[Any, Any, Any], Tuple[Any, Any]]
 
 
-def _global_norm(grads) -> torch.Tensor:
-    """sqrt(sum of squares + 1e-12) over every leaf, in float32."""
+def sum_of_squares(grads):
+    """The sum of squares over every leaf, in float32 (0 for a tree of
+    ``None``)."""
     total = 0
     for g in leaves(grads):
         if g is not None:
             total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total + 1e-12)
+    return total
 
 
-def _clip_by_global_norm(grads, max_norm: float):
+def _global_norm(grads, sumsq=None) -> torch.Tensor:
+    """sqrt(sum of squares + 1e-12) over every leaf, in float32, or from
+    ``sumsq`` where given."""
+    if sumsq is None:
+        sumsq = sum_of_squares(grads)
+    return torch.sqrt(sumsq + 1e-12)
+
+
+def _clip_by_global_norm(grads, max_norm: float, sumsq=None):
     """float32 gradients scaled by min(1, max_norm / norm); ``None``
     stays ``None``."""
-    scale = torch.clamp(max_norm / _global_norm(grads), max=1.0)
+    scale = torch.clamp(max_norm / _global_norm(grads, sumsq), max=1.0)
     return tree_map(lambda g: None if g is None else g.float() * scale,
                     grads)
 
@@ -74,10 +89,10 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "m": tree_map(_zeros_f32, params),
                 "v": tree_map(_zeros_f32, params)}
 
-    def apply(params, state, grads):
+    def apply(params, state, grads, sumsq=None):
         step = state["step"] + 1
         lr = schedule(step)
-        grads = _clip_by_global_norm(grads, clip_norm)
+        grads = _clip_by_global_norm(grads, clip_norm, sumsq)
 
         def first(mo, g):
             return b1 * mo if g is None else b1 * mo + (1 - b1) * g
@@ -109,10 +124,10 @@ def sgd(schedule, momentum: float = 0.9, clip_norm: float = 1.0) -> Optimizer:
     def init(params):
         return {"step": _step0(params), "m": tree_map(_zeros_f32, params)}
 
-    def apply(params, state, grads):
+    def apply(params, state, grads, sumsq=None):
         step = state["step"] + 1
         lr = schedule(step)
-        grads = _clip_by_global_norm(grads, clip_norm)
+        grads = _clip_by_global_norm(grads, clip_norm, sumsq)
         m = tree_map(lambda mo, g: momentum * mo if g is None
                      else momentum * mo + g, state["m"], grads)
         params = tree_map(lambda p, mo: (p.float() - lr * mo).to(p.dtype),

@@ -88,6 +88,9 @@ class TensorParallel:
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
         return self.owner.all_reduce(t)
 
+    def block_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
 
 class PoolPlacement:
     """``PagePool(placement=)`` of a sharded context: each k/v leaf of the

@@ -35,7 +35,8 @@ leaf to that block along every axis its spec names.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from repro_torch.models.config import ModelConfig
 
@@ -291,6 +292,33 @@ def shard_tree(tree: Any, specs: Any, mesh: Any, coords: Any) -> Any:
             return {k: walk(t[k], s[k]) for k in t}
         return [walk(a, b) for a, b in zip(t, s)]
     return walk(tree, specs)
+
+
+def spec_pairs(tree: Any, specs: Any, path: Tuple[str, ...] = ()
+               ) -> Iterator[Tuple[Tuple[str, ...], Any, Spec]]:
+    """(key path, leaf, spec) of every leaf of a tree and its specs, in
+    the tree's order."""
+    if _is_spec(specs):
+        yield path, tree, specs
+    elif isinstance(tree, dict):
+        for k in tree:
+            yield from spec_pairs(tree[k], specs[k], path + (str(k),))
+    else:
+        for i, (t, s) in enumerate(zip(tree, specs)):
+            yield from spec_pairs(t, s, path + (f"[{i}]",))
+
+
+def map_with_specs(fn: Callable, tree: Any, specs: Any,
+                   path: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf, spec)`` over a tree and its specs; the result has
+    the tree's structure."""
+    if _is_spec(specs):
+        return fn(path, tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, tree[k], specs[k], path + (str(k),))
+                for k in tree}
+    return [map_with_specs(fn, t, s, path + (f"[{i}]",))
+            for i, (t, s) in enumerate(zip(tree, specs))]
 
 
 def leaves_with_paths(tree: Any) -> List[Tuple[Tuple[str, ...], Any]]:
