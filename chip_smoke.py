@@ -321,6 +321,34 @@ Phases, each fatal on failure:
      departures (``dryrun.held_to_reckoning``), and each rank's step
      walls, collectives' time and peak memory (gloo staged through the
      host on one card: the arithmetic, not NCCL's speed).
+ 20. (zoo20, after 19) the attention kernels at head sizes 112 and 192:
+     zamba2-7b at full width (81 Mamba-2 layers, its shared attention
+     block of 32 heads at hd 112 once in each of 9 hybrid groups) and
+     nemotron-4-340b at full widths cut to 2 layers (96 / 8 heads at
+     hd 192), random bf16 weights from ``--seed``, each with
+     ``use_flash``, ``use_flash_decode`` and ``use_ssm_kernel``, the first
+     freed before the second: (a) the parameter counts equal to the
+     reference's ``count_params``; (b) ``prefill_step`` on B = 2 prompts
+     of 1,024 tokens, counters from 0: one flash launch an attention
+     invocation (``attention_invocations``, from the group specs) and one
+     scan launch a Mamba layer, finite logits, peak memory; (c) every
+     prefill layer of a replay with the flash kernel's plain version held
+     to LAYER_RTOL (``layer_check``), the last logits against that replay
+     within PATH_RTOL or ZOO20_CONTROL_RATIO times a control's distance
+     (the replay with the kernel's function summed in float64,
+     ``_flash_f64``: no kernel, other roundings; ``replay_within``) and
+     against ``use_flash=False`` (SDPA_PATH_RTOL); (d) a 64-token prompt
+     through ``decode_step`` and 8 greedy tokens: decode launches steps x
+     attention invocations and no other kernel, the logits against a
+     replay with the decode kernel's plain version (teacher-forced; the
+     same limit beside the float64 control ``_decode_f64``), the tokens
+     against ``use_flash_decode=False`` (12c's near-tie rule, its scales
+     widened to ZOO20_CONTROL_RATIO times the largest moves of the two
+     tokens' logits and margin between the runs with no kernel: the
+     control, the replay and that run),
+     every decode layer held to LAYER_RTOL, the logits at the prompt's
+     last position against one prefill (DECODE_PREFILL_RTOL); (e) a warm
+     prefill and decode step timed beside the card line.
 
 Phase 3 holds the contiguous decode kernel at the serving path's shapes
 (B = 1 and 4, lengths spread) and at the edges of its bf16 split-K design
@@ -354,6 +382,15 @@ bit-equal to ``scan_ref``'s. Phase 14's GQA shapes are timed there too:
 the flash kernel at granite-moe-3b-a800m's and qwen2-vl-2b's prefill (B = 2,
 S = 1,024; G = 3, hd 64 and G = 6, hd 128) and the decode kernel at their
 last decode step's (B = 2, W = 72), each beside SDPA with ``enable_gqa``.
+The head sizes that no LISA path takes (80, 112, 192) have cases of their
+own (``head_dim_cases``, each drawing from ``case_rng``): the flash kernel
+at zamba2-7b's and nemotron-4-340b's prefill (B = 2, S = 1,024, causal) and
+SAM's tail (B = 1, S = 4,096, not causal), timed beside SDPA; at each size
+bf16 causal at an odd S with NaN past S and float32 causal and not; the
+decode kernel at each size's heads at phase 20's last decode step (timed),
+with lengths spread over 4 rows, and in float32 with an idle row; the
+paged decode (pages of 16) and verify (C = 4, pages of 4) kernels at each
+size's heads over random tables, bf16 (timed) and float32.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -3787,13 +3824,15 @@ def _recording(executor, engine, name, calls, logits):
     return run
 
 
+def _bf16_step(v):
+    """The bf16 step at |v|: 2^(e - 7) for |v| in [2^e, 2^(e + 1))."""
+    return 2.0 ** (math.floor(math.log2(abs(float(v)))) - 7) if v else 0.0
+
+
 def _bf16_steps(x, y):
-    """|x - y| in bf16 steps (2^(e - 7) for the larger magnitude in
-    [2^e, 2^(e + 1)))."""
-    top = max(abs(float(x)), abs(float(y)))
-    if top == 0.0:
-        return 0.0
-    return abs(float(x) - float(y)) / 2.0 ** (math.floor(math.log2(top)) - 7)
+    """|x - y| in bf16 steps at the larger magnitude."""
+    step = _bf16_step(max(abs(float(x)), abs(float(y))))
+    return abs(float(x) - float(y)) / step if step else 0.0
 
 
 def engine_spec(executor, pcfg, order):
@@ -4840,8 +4879,8 @@ ZOO_NEW_TOKENS = 4
 DECODE_PREFILL_RTOL = 2.0 ** -3
 
 
-def _within(label, value, limit):
-    log(f"[zoo] {label}: {value:.3g} (limit {limit:.3g})")
+def _within(label, value, limit, tag="zoo"):
+    log(f"[{tag}] {label}: {value:.3g} (limit {limit:.3g})")
     if not value <= limit:
         raise AssertionError(f"{label}: {value:.3g} beyond {limit:.3g}")
     return value
@@ -5146,6 +5185,73 @@ def zoo14_kernel_cases():
     return flash, decode
 
 
+# phase 3 at the head sizes that no LISA path takes: each (H, K) a config
+# of the repo gives with it (SAM ViT-H and hubert-xlarge at 80, zamba2-7b
+# at 112, nemotron-4-340b at 192)
+HD_HEADS = {80: (16, 16), 112: (32, 32), 192: (96, 8)}
+
+
+def head_dim_cases():
+    """The four attention kernels at hd 80, 112 and 192: {kernel: cases},
+    each case with ``timed`` and drawing from a generator of its own
+    (``case_rng``), so the cases before them keep their inputs. Flash:
+    zamba2-7b's and nemotron-4-340b's prefill (B = 2, S = 1,024, causal)
+    and SAM's tail (B = 1, S = 4,096, not causal), timed; at each new size
+    bf16 causal at an odd S with NaN past S (G = 4), and float32 at a small
+    shape, causal and not. Decode: each size's heads at phase 20's last
+    decode step (B = 2, W = 72; timed), once with lengths spread from 1 to
+    W over 4 rows, and float32 with an idle row. Paged decode (pages of
+    16) and verify (C = 4, pages of 4): each size's heads over a random
+    table, lengths spread, in bf16 (timed) and float32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    W = ZOO_DECODE_PROMPT + ZOO14_NEW_TOKENS
+    flash = [dict(name="hd112_zamba2_B2_S1024", B=2, S=1024, H=32, K=32,
+                  hd=112, causal=True, dtype=bf16, pad=0, timed=True),
+             dict(name="hd192_nemotron_B2_S1024", B=2, S=1024, H=96, K=8,
+                  hd=192, causal=True, dtype=bf16, pad=0, timed=True),
+             dict(name="hd80_sam_B1_S4096_full", B=1, S=4096, H=16, K=16,
+                  hd=80, causal=False, dtype=bf16, pad=0, timed=True)]
+    decode, paged, verify = [], [], []
+    for hd, (H, K) in HD_HEADS.items():
+        flash.append(dict(name=f"hd{hd}_bf16_B2_S777_G4_causal_nan_past_S",
+                          B=2, S=777, H=8, K=2, hd=hd, causal=True,
+                          dtype=bf16, pad=40))
+        for causal in (True, False):
+            flash.append(dict(
+                name=f"hd{hd}_float32_B2_S200_G2_"
+                     f"{'causal' if causal else 'full'}",
+                B=2, S=200, H=4, K=2, hd=hd, causal=causal, dtype=f32,
+                pad=0))
+        base = dict(H=H, K=K, hd=hd)
+        decode += [
+            dict(base, name=f"hd{hd}_B2_W{W}", B=2, W=W, dtype=bf16,
+                 lens=[W, W], timed=True),
+            dict(base, name=f"hd{hd}_B4_W{W}_ragged", B=4, W=W, dtype=bf16,
+                 lens=np.linspace(1, W, 4).astype(int).tolist()),
+            dict(base, name=f"hd{hd}_fp32_B3_W100_idle_row", B=3, W=100,
+                 dtype=f32, lens=[0, 37, 100])]
+        rng = np.random.RandomState(hd)
+        for dtype in (bf16, f32):
+            dt = "bf16" if dtype == bf16 else "fp32"
+            P, page, n = 12, 16, 5
+            lens = np.linspace(1, n * page, 3).astype(int)
+            paged.append(dict(
+                base, name=f"hd{hd}_{dt}_B3_page{page}", B=3, P=P,
+                page=page, table=rng.randint(0, P, (3, n)),
+                valid=np.arange(n * page)[None] < lens[:, None],
+                dtype=dtype, timed=dtype == bf16))
+            P, page, n, C = 40, 4, 20, 4
+            lens = rng.randint(1, n * page + 1, (3, C))
+            verify.append(dict(
+                base, name=f"hd{hd}_{dt}_B3_C{C}_page{page}", B=3, C=C, P=P,
+                page=page, table=rng.randint(0, P, (3, n)),
+                valid=np.arange(n * page)[None, None] < lens[..., None],
+                dtype=dtype, timed=dtype == bf16))
+    return {"flash_attention": flash, "decode_attention": decode,
+            "paged_decode_attention": paged,
+            "paged_verify_attention": verify}
+
+
 def zoo14_config(name):
     """The phase's config: full widths, ``use_flash`` and
     ``use_flash_decode`` on, and the cut of ZOO14_CUT."""
@@ -5372,13 +5478,22 @@ def zoo14_decode(params, cfg, prompt, dev, forced=None):
 
 
 def decode_ties(label, tokens, logits, other_tokens, other_logits, limit,
-                tag="zoo14"):
+                tag="zoo14", control=None):
     """Each row's greedy tokens against another path's: equal, or first
     differing at a near tie (12c's rule): at that token the two runs'
-    logits (on the same prefix) must each lead with its own token, the two
-    tokens' logits must agree between the runs within TIE_ULPS bf16 steps,
-    the rows within ``limit`` norm-wise; at most MAX_TIES rows.
-    ``logits[d][b]``: row b's logits that predict its token d."""
+    logits (on the same prefix) must each lead with its own token, each of
+    the two tokens' logits must move between the runs by at most its
+    scale, and their margin by at most its own, the rows within ``limit``
+    norm-wise; at most MAX_TIES rows. ``logits[d][b]``: row b's logits
+    that predict its token d. A logit's scale is TIE_ULPS bf16 steps at
+    its magnitude, the margin's twice that at the larger (which the leads
+    and the two logits' scales already imply). With ``control`` (runs with
+    no kernel, teacher-forced on the same tokens and indexed as
+    ``logits``), the other run, which has no kernel either, joins them, and
+    each scale is the larger of that and ZOO20_CONTROL_RATIO times the
+    largest move of the same logit or margin between two of these runs at
+    that step and row: how far a change of rounding with no kernel moves
+    it."""
     ties = []
     for b in range(tokens.shape[0]):
         x, y = tokens[b].tolist(), other_tokens[b].tolist()
@@ -5388,23 +5503,52 @@ def decode_ties(label, tokens, logits, other_tokens, other_logits, limit,
         A = logits[d][b].double().cpu().numpy()
         P = other_logits[d][b].double().cpu().numpy()
         a, o = x[d], y[d]
+        step = {t: _bf16_step(max(abs(A[t]), abs(P[t]))) for t in (a, o)}
+        top = max(step.values())
         tie = {"row": b, "token": d, "kernel": a, "other": o,
                "margin": float(P[o] - P[a]),
+               "kernel_margin": float(A[a] - A[o]),
                "ulps_kernel_token": _bf16_steps(A[a], P[a]),
                "ulps_other_token": _bf16_steps(A[o], P[o]),
+               "ulps_margin": float((A[a] - A[o]) - (P[a] - P[o])) / top,
                "kernel_leads": bool(A[a] >= A.max()),
                "other_leads": bool(P[o] >= P.max()), "rel": _rel(A, P)}
+        scale = {"kernel_token": TIE_ULPS, "other_token": TIE_ULPS,
+                 "margin": 2 * TIE_ULPS}
+        if control is not None:
+            runs = [P] + [c[d][b].double().cpu().numpy() for c in control]
+            tie["no_kernel_margins"] = [float(r[a] - r[o]) for r in runs]
+            moves = {k: max(abs(f(r) - f(q)) for r in runs for q in runs)
+                     for k, f in (("kernel_token", lambda r: r[a]),
+                                  ("other_token", lambda r: r[o]),
+                                  ("margin", lambda r: r[a] - r[o]))}
+            tie["control_moves"] = {k: float(v) for k, v in moves.items()}
+            per = {"kernel_token": step[a], "other_token": step[o],
+                   "margin": top}
+            scale = {k: max(v, float(ZOO20_CONTROL_RATIO * moves[k] / per[k]))
+                     for k, v in scale.items()}
+        tie["scale_ulps"] = scale
+        near = all(tie[f"ulps_{k}"] <= v for k, v in scale.items())
         ties.append(tie)
         log(f"[{tag}] {label}: row {b} tokens {x} vs {y}, first differing "
-            f"at token {d}: margin {tie['margin']:.4g} of {o} over {a}; "
+            f"at token {d}: margin {tie['margin']:.4g} of {o} over {a}, the "
+            f"kernel run's {tie['kernel_margin']:.4g}; the runs apart by "
             f"{tie['ulps_kernel_token']:.3g} and "
-            f"{tie['ulps_other_token']:.3g} bf16 steps (limit {TIE_ULPS}), "
-            f"each leads its own logits: {tie['kernel_leads']}, "
+            f"{tie['ulps_other_token']:.3g} bf16 steps at the two tokens "
+            f"and {tie['ulps_margin']:.3g} at the margin (scales "
+            f"{scale['kernel_token']:.3g}, {scale['other_token']:.3g}, "
+            f"{scale['margin']:.3g}"
+            + ("" if control is None else
+               f"; the runs with no kernel move them up to "
+               f"{tie['control_moves']['kernel_token']:.4g}, "
+               f"{tie['control_moves']['other_token']:.4g}, "
+               f"{tie['control_moves']['margin']:.4g}, their margins of {a} "
+               f"over {o} "
+               + ", ".join(f"{m:.4g}" for m in tie["no_kernel_margins"]))
+            + f"), each leads its own logits: {tie['kernel_leads']}, "
             f"{tie['other_leads']}; norm-wise {tie['rel']:.3g} (limit "
             f"{limit})")
-        if not (tie["kernel_leads"] and tie["other_leads"]
-                and tie["ulps_kernel_token"] <= TIE_ULPS
-                and tie["ulps_other_token"] <= TIE_ULPS
+        if not (tie["kernel_leads"] and tie["other_leads"] and near
                 and tie["rel"] <= limit):
             raise AssertionError(f"{label}: row {b} differs beyond a near "
                                  f"tie: {tie}")
@@ -7827,6 +7971,279 @@ def train19_phase(seed, dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 20: zamba2-7b and nemotron-4-340b through the flash and decode
+# kernels, at head sizes 112 and 192
+# ---------------------------------------------------------------------------
+
+# each config of the phase with its count of parameters (the reference's
+# count_params) and its depth cut: zamba2-7b whole (81 Mamba-2 layers and a
+# shared attention block of 32 heads at hd 112), nemotron-4-340b at full
+# widths cut to 2 of its 96 layers (96 query and 8 kv heads at hd 192)
+ZOO20 = {"zamba2-7b": 6_751_130_832, "nemotron-4-340b": 16_345_387_008}
+ZOO20_CUT = {"nemotron-4-340b": 2}
+# A replay's distance is held to PATH_RTOL, or, where the path's own
+# conditioning puts that out of reach, to this multiple of its control's:
+# the same path with the kernel's function summed in float64 (no kernel,
+# other roundings; ``_flash_f64``, ``_decode_f64``). Random zamba2-7b at
+# full depth grows any rounding of its 9 attention outputs: its float64
+# control reads 0.076 at the prefill's last logits and 0.0653 over the
+# decode steps, the kernels 0.0829 and 0.0698 on an H100 (PERF.md §6),
+# while every layer holds LAYER_RTOL on its own input. The ratio is
+# SPLIT18_MASK_RATIO's. Tokens against use_flash_decode=False take the
+# same ratio of the largest moves of the two tokens' logits and margin
+# between the runs with no kernel (the control, the replay and
+# use_flash_decode=False) as their near-tie scales where those pass
+# TIE_ULPS (``decode_ties``).
+ZOO20_CONTROL_RATIO = 1.5
+
+
+def zoo20_config(name):
+    """The phase's config: full widths, the three kernel switches on, and
+    the cut of ZOO20_CUT."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name).replace(use_flash=True, use_flash_decode=True,
+                                   use_ssm_kernel=True)
+    if name in ZOO20_CUT:
+        cfg = cfg.replace(num_layers=ZOO20_CUT[name])
+    return cfg
+
+
+def attention_invocations(cfg):
+    """Attention blocks one pass runs, from the group specs: a dense or
+    moe group's layers, and a hybrid group's shared block once a group."""
+    from repro_torch.models import stack
+    return sum(g.count for g in stack.layer_groups(cfg)
+               if g.kind in ("dense", "moe", "hybrid"))
+
+
+def mamba_layers(cfg):
+    """Mamba layers one pass runs, from the group specs."""
+    from repro_torch.models import stack
+    return sum(g.count * (cfg.hybrid.attn_every if g.kind == "hybrid" else 1)
+               for g in stack.layer_groups(cfg)
+               if g.kind in ("hybrid", "mamba1", "mamba2"))
+
+
+def _flash_f64(q, k, v, causal=True, block_q=128, block_k=128):
+    """The flash kernel's function summed in float64 and rounded once to
+    q's dtype: the plain version with other roundings and no kernel, the
+    control of phase 20's replays."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    scores = torch.einsum("bskgh,btkh->bkgst",
+                          q.reshape(B, S, K, H // K, hd).double(),
+                          k.double()) / math.sqrt(hd)
+    if causal:
+        above = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+        scores = scores.masked_fill(above, NEG_INF)
+    out = torch.einsum("bkgst,btkh->bskgh", torch.softmax(scores, dim=-1),
+                       v.double())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _decode_f64(q, k, v, bias):
+    """The decode kernel's function in float64, rounded once to q's dtype
+    (the control of phase 20's decode replay)."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    scores = torch.einsum("bkgh,bwkh->bkgw",
+                          q.reshape(B, K, H // K, hd).double(),
+                          k.double()) / math.sqrt(hd) \
+        + bias.double()[:, None, None, :]
+    out = torch.einsum("bkgw,bwkh->bkgh", torch.softmax(scores, dim=-1),
+                       v.double())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def replay_within(label, control, kernel):
+    """A kernel run's distance from its plain-kernel replay, ``kernel``,
+    held to PATH_RTOL or ZOO20_CONTROL_RATIO times the float64 control's
+    distance from the same replay, ``control``, whichever is larger.
+    Returns (control, kernel)."""
+    limit = max(PATH_RTOL, ZOO20_CONTROL_RATIO * control)
+    log(f"[zoo20] {label}: the float64 control vs the plain-kernel replay "
+        f"{control:.3g}; the kernel run {kernel:.3g} (limit {limit:.3g}: "
+        f"PATH_RTOL {PATH_RTOL:.3g} or {ZOO20_CONTROL_RATIO} x the "
+        f"control's)")
+    if not kernel <= limit:
+        raise AssertionError(f"{label}: the kernel run {kernel:.3g} off "
+                             f"the plain-kernel replay, beyond {limit:.3g}")
+    return control, kernel
+
+
+def zoo20_decode_checks(params, cfg, prompt, dev, n_attn):
+    """(d) the prompt through ``decode_step`` and ZOO14_NEW_TOKENS greedy
+    tokens, counters from 0: decode launches steps x attention
+    invocations and no other kernel; the logits of every step against a
+    replay with the decode kernel's plain version in its place,
+    teacher-forced on the same tokens, the worst step beside the float64
+    control's (``replay_within``); the tokens against
+    ``use_flash_decode=False`` (12c's near-tie rule, ``decode_ties``, its
+    scales widened to the moves of the two tokens' logits and margin
+    between the control, the replay and that run); every decode layer of the plain-kernel replay held
+    to LAYER_RTOL (``layer_check``); the logits at the prompt's last
+    position against one prefill of the prompt (DECODE_PREFILL_RTOL)."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import prefill_step
+    S = prompt.shape[1]
+    steps = S + ZOO14_NEW_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = _sync_s()
+    tokens, logits = zoo14_decode(params, cfg, prompt, dev)
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    want = _only(decode_attention=steps * n_attn)
+    log(f"[zoo20] {cfg.name} decode: prompt {S} + {ZOO14_NEW_TOKENS} greedy "
+        f"tokens, {steps} steps in {wall:.2f} s; launches {counts} "
+        f"(expected {want}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; tokens "
+        f"{tokens.tolist()}")
+    if counts != want:
+        raise AssertionError(f"{cfg.name} decode: launches {counts}, "
+                             f"expected {want}")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()) \
+            or not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError(f"{cfg.name}: bad decode tokens or logits")
+    out = {"steps": steps, "wall_s": wall, "launches": counts,
+           "tokens": tokens.tolist(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with mock.patch.object(ops, "decode_attention",
+                           ref.decode_attention_ref):
+        _, replay = zoo14_decode(params, cfg, prompt, dev, forced=tokens)
+    with mock.patch.object(ops, "decode_attention", _decode_f64):
+        _, control = zoo14_decode(params, cfg, prompt, dev, forced=tokens)
+    out["control_rel"], out["plain_replay_rel"] = replay_within(
+        f"{cfg.name} decode logits (norm-wise, worst of {len(logits)} "
+        f"steps)", max(_rel(a, b) for a, b in zip(control, replay)),
+        max(_rel(a, b) for a, b in zip(logits, replay)))
+    plain_tokens, plain_logits = zoo14_decode(
+        params, cfg.replace(use_flash_decode=False), prompt, dev,
+        forced=tokens)
+    out["ties"] = decode_ties(
+        f"{cfg.name} decode vs use_flash_decode=False", tokens, logits,
+        plain_tokens, plain_logits, SDPA_PATH_RTOL, tag="zoo20",
+        control=(control, replay))
+    log(f"[zoo20] {cfg.name}: {ZOO_BATCH - len(out['ties'])} of {ZOO_BATCH} "
+        f"rows' tokens equal use_flash_decode=False's")
+    _, out["layers"] = layer_check("decode", f"{cfg.name} decode",
+                                   lambda: zoo14_decode(params, cfg, prompt,
+                                                        dev))
+    want_logits, _ = prefill_step(params, cfg, {"tokens": prompt})
+    out["vs_prefill_rel"] = _within(
+        f"{cfg.name} decode logits at position {S - 1} vs one prefill "
+        f"(norm-wise)", _rel(logits[0], want_logits[:, -1].float()),
+        DECODE_PREFILL_RTOL, "zoo20")
+    return out
+
+
+def zoo20_run(name, seed, dev):
+    """Phase 20 for one config: init at full width (a), the counted
+    prefill (b), the flash kernel against its plain version layer by layer
+    and in a replay (c), decode (d) and timings (e). Frees nothing itself:
+    the caller drops its references."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, stack)
+    cfg = zoo20_config(name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = _sync_s()
+    params = init_params(cfg, gen, dev)
+    init_s = _sync_s() - t0
+    n_params = sum(t.numel() for t in stack.leaves(params))
+    if n_params != ZOO20[name] or stack.count_params(cfg) != n_params:
+        raise AssertionError(f"{name}: {n_params} parameters, expected "
+                             f"{ZOO20[name]}")
+    nbytes = sum(t.numel() * t.element_size() for t in stack.leaves(params))
+    n_attn, n_mamba = attention_invocations(cfg), mamba_layers(cfg)
+    log(f"[zoo20] {name}: {n_params:,} parameters ({nbytes / 1e9:.2f} GB) "
+        f"initialised in {init_s:.1f} s; {cfg.num_layers} layers"
+        + (f" (cut from {get_config(name).num_layers})"
+           if name in ZOO20_CUT else "")
+        + f", {n_attn} attention invocations a pass (H {cfg.num_heads}, "
+        f"K {cfg.num_kv_heads}, hd {cfg.resolved_head_dim}), {n_mamba} "
+        f"Mamba layers")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (ZOO_BATCH, ZOO_PROMPT), generator=gen,
+                                     device=dev)}
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = _sync_s()
+    logits, cache = prefill_step(params, cfg, batch)
+    wall = _sync_s() - t0
+    counts = _launch_counts()
+    want = _only(flash_attention=n_attn, ssm_scan=n_mamba)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[zoo20] {name} prefill B={ZOO_BATCH} S={ZOO_PROMPT}: launches "
+        f"{counts} (expected {want}); logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; wall {wall:.2f} s (first "
+        f"call), peak memory {peak:.1f} GiB")
+    if counts != want:
+        raise AssertionError(f"{name} prefill: launches {counts}, expected "
+                             f"{want}")
+    if tuple(logits.shape) != (ZOO_BATCH, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} or not "
+                             f"finite")
+    del cache
+    out = {"params": n_params, "init_s": init_s, "layers_run": cfg.num_layers,
+           "attention_invocations": n_attn, "mamba_layers": n_mamba,
+           "head_dim": cfg.resolved_head_dim, "first_prefill_s": wall,
+           "launches": counts, "peak_gib": peak}
+    _, out["layers"] = layer_check("flash", f"{name} prefill",
+                                   lambda: prefill_step(params, cfg, batch))
+    with mock.patch.object(fops, "flash_attention", _flash_plain):
+        replay, _ = prefill_step(params, cfg, batch)
+    with mock.patch.object(fops, "flash_attention", _flash_f64):
+        control, _ = prefill_step(params, cfg, batch)
+    out["control_rel"], out["plain_replay_rel"] = replay_within(
+        f"{name} last logits (norm-wise)", _rel(control, replay),
+        _rel(logits, replay))
+    plain, _ = prefill_step(params, cfg.replace(use_flash=False), batch)
+    out["plain_path_rel"] = _within(
+        f"{name} last logits vs use_flash=False (norm-wise)",
+        _rel(logits, plain), SDPA_PATH_RTOL, "zoo20")
+    del replay, control, plain
+    out["decode"] = zoo20_decode_checks(
+        params, cfg, batch["tokens"][:, :ZOO_DECODE_PROMPT], dev, n_attn)
+
+    # (e) a warm prefill and one decode step, wall to a synchronise,
+    # median of 3, beside the card line
+    out["prefill_wall_ms"], walls = _median_wall_ms(
+        lambda: prefill_step(params, cfg, batch))
+    cache = init_cache(cfg, ZOO_BATCH, ZOO_DECODE_PROMPT, dev)
+    tok = batch["tokens"][:, :1]
+    decode_step(params, cfg, cache, tok, 0)
+    pos = itertools.count(1)
+    out["decode_step_wall_ms"], dwalls = _median_wall_ms(
+        lambda: decode_step(params, cfg, cache, tok, next(pos)))
+    log(f"[zoo20] {name}: warm prefill wall {out['prefill_wall_ms']:.1f} ms "
+        f"(median of {[round(w, 1) for w in walls]}), decode step wall "
+        f"{out['decode_step_wall_ms']:.2f} ms (median of "
+        f"{[round(w, 2) for w in dwalls]}), peak memory {peak:.1f} GiB "
+        f"(prefill), {out['decode']['peak_gib']:.1f} GiB (decode); "
+        f"{card_line()}")
+    return out
+
+
+def zoo20_phase(seed, dev):
+    """Phase 20: each config in turn, freed before the next."""
+    report = {}
+    for name in ZOO20:
+        t0 = time.perf_counter()
+        report[name] = zoo20_run(name, seed, dev)
+        report[name]["phase_s"] = time.perf_counter() - t0
+        log(f"[zoo20] {name} in {report[name]['phase_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 def _leaves(tree):
     from repro_torch.models.stack import leaves
     return leaves(tree)
@@ -7942,12 +8359,19 @@ def main() -> int:
     enc_cases, dec_cases = bottleneck_cases(pcfg, ranks)
     scan_gen = torch.Generator(device=dev)
     scan_gen.manual_seed(args.seed)
+    hd_cases = head_dim_cases()
+
+    def head_dim_checks(check, name):
+        return [check(case_rng(args.seed, c["name"]), c, dev,
+                      timed=c.get("timed", False)) for c in hd_cases[name]]
+
     phase3 = {
         "decode_attention": lambda: [
             check_decode_attention(rng, c, dev,
                                    timed=c["name"] in DECODE_TIMED
                                    or c["name"].startswith("zoo_"))
-            for c in kernel_cases(pcfg, (1, 4)) + zoo14_kernel_cases()[1]],
+            for c in kernel_cases(pcfg, (1, 4)) + zoo14_kernel_cases()[1]]
+        + head_dim_checks(check_decode_attention, "decode_attention"),
         # lisa-mini's served shape draws from its own RandomState: the
         # cases after it keep the inputs they have always had
         "paged_decode_attention": lambda: [
@@ -7955,17 +8379,22 @@ def main() -> int:
                 rng, c, dev, timed=c["name"] in (paged_main, "main_B1"))
             for c in paged_cases(pcfg)] + [check_paged_decode_attention(
                 np.random.RandomState(args.seed), mini_paged, dev,
-                timed=True)],
+                timed=True)]
+        + head_dim_checks(check_paged_decode_attention,
+                          "paged_decode_attention"),
         "paged_verify_attention": lambda: [
             check_paged_verify_attention(
                 rng, c, dev, timed=c["name"].startswith("main")
                 and c["dtype"] == pcfg.llm.adtype)
-            for c in verify_cases(pcfg)],
+            for c in verify_cases(pcfg)]
+        + head_dim_checks(check_paged_verify_attention,
+                          "paged_verify_attention"),
         "flash_attention": lambda: [
             check_flash_attention(rng, c, dev,
                                   timed=c["name"] in FLASH_TIMED
                                   or c["name"].startswith("zoo_"))
-            for c in flash_cases(pcfg) + zoo14_kernel_cases()[0]],
+            for c in flash_cases(pcfg) + zoo14_kernel_cases()[0]]
+        + head_dim_checks(check_flash_attention, "flash_attention"),
         "bottleneck_encode": lambda: [
             check_bottleneck_encode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))
@@ -8117,6 +8546,10 @@ def main() -> int:
     report["train19"] = train19_phase(args.seed, dev)
     report["train19_s"] = time.perf_counter() - t0
     log(f"[train19] phase 19 in {report['train19_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["zoo20"] = zoo20_phase(args.seed, dev)
+    report["zoo20_s"] = time.perf_counter() - t0
+    log(f"[zoo20] phase 20 in {report['zoo20_s']:.1f} s")
 
     # each kernel's line: its own checks, its own path's launches, and its
     # times at its path's main shape

@@ -44,6 +44,12 @@
 // one-CTA-a-kv-head body of flash_decode.cuh: a warp a slot, kUnroll slots
 // in flight a warp, partial states merged through shared memory.
 //
+// Head sizes 32, 64, 80, 112, 128 and 192 (zamba2-7b 112; nemotron-4-340b
+// 192, whose 12 query heads a kv head take two clusters, sets of 8 and 4):
+// split_decode.cuh pads a row's lane group to a power of two of lanes, and
+// flash_decode.cuh's last load of a row covers part of a warp and, at
+// hd = 192, merges its warps' accumulators in two rounds of query heads.
+//
 // Left for later work: what does not move with the bytes (about 4 us of
 // launch, prologue, second copy round and merge at B = 4; a ring of two
 // copy stages was measured and did not pay here), TMA copies (one 2-D box
@@ -154,8 +160,23 @@ int launch_typed(const void* q, const void* k, const void* v,
           qt, kt, vt, bias, ot, H, K, W, k_sb, k_st, v_sb, v_st, bias_sb,
           scale);
       break;
+    case 80:
+      decode_attention_kernel<T, 80><<<grid, block, 0, stream>>>(
+          qt, kt, vt, bias, ot, H, K, W, k_sb, k_st, v_sb, v_st, bias_sb,
+          scale);
+      break;
+    case 112:
+      decode_attention_kernel<T, 112><<<grid, block, 0, stream>>>(
+          qt, kt, vt, bias, ot, H, K, W, k_sb, k_st, v_sb, v_st, bias_sb,
+          scale);
+      break;
     case 128:
       decode_attention_kernel<T, 128><<<grid, block, 0, stream>>>(
+          qt, kt, vt, bias, ot, H, K, W, k_sb, k_st, v_sb, v_st, bias_sb,
+          scale);
+      break;
+    case 192:
+      decode_attention_kernel<T, 192><<<grid, block, 0, stream>>>(
           qt, kt, vt, bias, ot, H, K, W, k_sb, k_st, v_sb, v_st, bias_sb,
           scale);
       break;

@@ -27,7 +27,8 @@
 //
 // A warp owns one slot at a time; lane i holds elements i, i+32, ... of the
 // head dimension, so each load instruction of the warp reads 32 neighbouring
-// elements. Each warp keeps kUnroll slots' loads in flight and its own
+// elements (at hd = 80, 112 and 192 the last load covers part of the warp:
+// the other lanes hold zeros there). Each warp keeps kUnroll slots' loads in flight and its own
 // running (m, l, acc) in float32 registers over a strided share of the
 // slots; the kWarps partial states are merged once through shared memory.
 
@@ -121,11 +122,13 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
                                        T* __restrict__ out, int W,
                                        const Rows& rows, const Queries& qs,
                                        float scale) {
-  constexpr int VEC = HD / 32;
+  constexpr int VEC = (HD + 31) / 32;
   constexpr int NB = Queries::kSharedBias ? 1 : kMaxGroup;
   const int gc = qs.n;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // element i * 32 + lane lies in the head
+  auto in_head = [&](int i) { return HD % 32 == 0 || i * 32 + lane < HD; };
 
   float qr[kMaxGroup][VEC];
   float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup][VEC];
@@ -138,7 +141,8 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
     l[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      qr[g][i] = g < gc ? to_f32(q[qs.row(g) * HD + i * 32 + lane]) : 0.f;
+      qr[g][i] = g < gc && in_head(i)
+                     ? to_f32(q[qs.row(g) * HD + i * 32 + lane]) : 0.f;
       acc[g][i] = 0.f;
     }
   }
@@ -163,8 +167,10 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
         const T* vr = vh_base + rows.v(t);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          kx[u][i] = to_f32(kr[i * 32 + lane]);
-          vx[u][i] = to_f32(vr[i * 32 + lane]);
+          if (in_head(i)) {
+            kx[u][i] = to_f32(kr[i * 32 + lane]);
+            vx[u][i] = to_f32(vr[i * 32 + lane]);
+          }
         }
 #pragma unroll
         for (int g = 0; g < NB; ++g) {
@@ -197,36 +203,49 @@ __device__ __forceinline__ void attend(const T* __restrict__ q,
     }
   }
 
-  // merge the kWarps partial softmax states
+  // merge the kWarps partial softmax states, MG queries at a time: all
+  // kMaxGroup accumulators at hd = 192 would take 48 KB of static shared
+  // memory, past its limit with the rest, so there they merge in two rounds
+  constexpr int MG =
+      kWarps * kMaxGroup * HD * 4 <= 32 * 1024 ? kMaxGroup : kMaxGroup / 2;
   __shared__ float sm_m[kWarps][kMaxGroup];
   __shared__ float sm_l[kWarps][kMaxGroup];
-  __shared__ float sm_acc[kWarps][kMaxGroup][HD];
+  __shared__ float sm_acc[kWarps][MG][HD];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < gc) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
+  for (int g0 = 0; g0 < kMaxGroup; g0 += MG) {
+    if (g0 > 0) __syncthreads();   // the last round has read sm_acc
+#pragma unroll
+    for (int j = 0; j < MG; ++j) {
+      const int g = g0 + j;
+      if (g < gc) {
+        if (lane == 0) {
+          sm_m[warp][g] = m[g];
+          sm_l[warp][g] = l[g];
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          if (in_head(i)) sm_acc[warp][j][i * 32 + lane] = acc[g][i];
+        }
       }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[warp][g][i * 32 + lane] = acc[g][i];
     }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < gc * HD; idx += blockDim.x) {
-    const int g = idx / HD;
-    const int e = idx % HD;
-    float mx = kNegInf;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < min(MG, gc - g0) * HD;
+         idx += blockDim.x) {
+      const int j = idx / HD;
+      const int g = g0 + j;
+      const int e = idx % HD;
+      float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float den = 0.f, num = 0.f;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+      float den = 0.f, num = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - mx);
-      den = fmaf(sm_l[w][g], f, den);
-      num = fmaf(sm_acc[w][g][e], f, num);
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(sm_m[w][g] - mx);
+        den = fmaf(sm_l[w][g], f, den);
+        num = fmaf(sm_acc[w][j][e], f, num);
+      }
+      store_f32(num / fmaxf(den, 1e-30f), out + qs.row(g) * HD + e);
     }
-    store_f32(num / fmaxf(den, 1e-30f), out + qs.row(g) * HD + e);
   }
 }
 

@@ -207,8 +207,23 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
           qt, kt, vt, table, bias, ot, C, H, K, n_pages, page, k_sp, k_ss,
           v_sp, v_ss, table_sb, bias_sb, bias_sc, scale);
       break;
+    case 80:
+      paged_verify_attention_kernel<T, 80><<<grid, block, smem, stream>>>(
+          qt, kt, vt, table, bias, ot, C, H, K, n_pages, page, k_sp, k_ss,
+          v_sp, v_ss, table_sb, bias_sb, bias_sc, scale);
+      break;
+    case 112:
+      paged_verify_attention_kernel<T, 112><<<grid, block, smem, stream>>>(
+          qt, kt, vt, table, bias, ot, C, H, K, n_pages, page, k_sp, k_ss,
+          v_sp, v_ss, table_sb, bias_sb, bias_sc, scale);
+      break;
     case 128:
       paged_verify_attention_kernel<T, 128><<<grid, block, smem, stream>>>(
+          qt, kt, vt, table, bias, ot, C, H, K, n_pages, page, k_sp, k_ss,
+          v_sp, v_ss, table_sb, bias_sb, bias_sc, scale);
+      break;
+    case 192:
+      paged_verify_attention_kernel<T, 192><<<grid, block, smem, stream>>>(
           qt, kt, vt, table, bias, ot, C, H, K, n_pages, page, k_sp, k_ss,
           v_sp, v_ss, table_sb, bias_sb, bias_sc, scale);
       break;

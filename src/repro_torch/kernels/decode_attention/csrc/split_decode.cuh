@@ -29,8 +29,12 @@
 //
 // Inside a CTA. A slot's (HD) k or v row is read by HD / 8 neighbouring
 // lanes, 16 bytes (8 bf16) each: a whole 256-byte row per 16 lanes at
-// HD = 128. The kThreads / (HD / 8) lane groups take the CTA's slots in
-// turn, in steps of kStage rows a group (64 slots a CTA at HD = 128). In
+// HD = 128. A lane group is the power of two at or above HD / 8 lanes, so
+// that its xor shuffles stay within it: at HD = 80 and 112 (10 and 14
+// chunks a row) 16 lanes, at HD = 192 (24) 32; the lanes past HD / 8 copy
+// nothing and add zeros to the row's sums (a simple design: 62 %, 88 % and
+// 75 % of the lanes read). The kThreads / lanes groups take the CTA's
+// slots in turn, in steps of kStage rows a group (64 slots a CTA at HD = 128). In
 // a step each lane copies its 16 bytes of kStage k rows and kStage v rows
 // into shared memory with cp.async (no registers hold the bytes in flight,
 // so a CTA needs 48-64 registers at HD = 64 and 128, and every CTA of a
@@ -91,9 +95,16 @@ struct Tile {
 // they are consumed, the lane groups' accumulators; then, used in rank 0
 // only, the kMaxSplit CTA states of the cluster: acc (NG, HD), then (m, l)
 // per head, padded to 16 bytes.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
 template <int HD, int NG>
 struct Smem {
-  static constexpr int kLanes = HD / 8;                // lanes a row
+  static constexpr int kChunks = HD / 8;               // lanes that read
+  static constexpr int kLanes = pow2_at_least(kChunks);  // lanes a row
   static constexpr int kGroups = kThreads / kLanes;    // lane groups
   static constexpr int kStageBytes = 2 * kStage * kThreads * 16;
   static constexpr int kMergeBytes = kGroups * NG * HD * 4;
@@ -282,15 +293,17 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
                                        float scale) {
   using S = Smem<HD, NG>;
   constexpr int LPR = S::kLanes;
+  constexpr int CH = S::kChunks;
   constexpr int NGRP = S::kGroups;
   constexpr int U = Tile<NG>::value;
   constexpr int kTiles = kStage / U;
   constexpr bool kShared = Queries::kSharedBias;
   constexpr int NBL = kShared ? 1 : (NG + LPR - 1) / LPR;
-  static_assert(HD % 8 == 0 && 32 % LPR == 0, "head dim");
+  static_assert(HD % 8 == 0 && CH <= 32 && 32 % LPR == 0, "head dim");
   static_assert(kStage % U == 0 && kTiles <= 4, "tiles");
   const int grp = threadIdx.x / LPR;
   const int sub = threadIdx.x % LPR;
+  const bool reads = LPR == CH || sub < CH;   // this lane has a chunk
   const int gc = pl.gc;
   const float c = scale * kLog2e;
   // a shared bias enters as bias * log2e, a per-query one as bias / scale
@@ -330,8 +343,9 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
     for (int r = 0; r < kStage; ++r) {
       const int t = base + r * NGRP;
       const bool valid = t < t1;
-      copy16(&sk[r][threadIdx.x], valid ? k + rows.k(t) + col : k, valid);
-      copy16(&sv[r][threadIdx.x], valid ? v + rows.v(t) + col : v, valid);
+      const bool copy = valid && reads;
+      copy16(&sk[r][threadIdx.x], copy ? k + rows.k(t) + col : k, copy);
+      copy16(&sv[r][threadIdx.x], copy ? v + rows.v(t) + col : v, copy);
       if constexpr (kShared) {
         bx[r][0] = valid ? brow[0][t] * bias_mul : 0.f;
       } else {
@@ -349,7 +363,7 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
   float qf[NG][8];
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
-    if (g < gc) {
+    if (g < gc && reads) {
       unpack(load16(q + qs.row(g) * HD + sub * 8), qf[g]);
     } else {
 #pragma unroll
@@ -434,9 +448,11 @@ __device__ __forceinline__ void attend(const bf16* __restrict__ q,
       sm_m[grp][g] = m[g];
       sm_l[grp][g] = l[g];
     }
-    float4* dst = reinterpret_cast<float4*>(&sm_acc[grp][g][sub * 8]);
-    dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-    dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    if (reads) {
+      float4* dst = reinterpret_cast<float4*>(&sm_acc[grp][g][sub * 8]);
+      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
   }
   __syncthreads();
   // ... into rank 0's states[rank]: stored there by rank 0, sent by the
@@ -590,8 +606,20 @@ cudaError_t launch_split(Sizes<NG...> sizes, int nq, int hd, int B, int K,
       err = launch_sized<Kernel, 64>(sizes, n, heads, split, B, stream,
                                      args...);
       break;
+    case 80:
+      err = launch_sized<Kernel, 80>(sizes, n, heads, split, B, stream,
+                                     args...);
+      break;
+    case 112:
+      err = launch_sized<Kernel, 112>(sizes, n, heads, split, B, stream,
+                                      args...);
+      break;
     case 128:
       err = launch_sized<Kernel, 128>(sizes, n, heads, split, B, stream,
+                                      args...);
+      break;
+    case 192:
+      err = launch_sized<Kernel, 192>(sizes, n, heads, split, B, stream,
                                       args...);
       break;
     default:

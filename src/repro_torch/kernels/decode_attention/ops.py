@@ -28,8 +28,8 @@ from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref,
     paged_verify_attention_ref)
-
-HEAD_DIMS = (32, 64, 128)
+# the flash kernel's head sizes; any other raises before a launch
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
 # the float32 paged decode and verify kernels stage a row's page table in
 # shared memory beside the 33,280 bytes of their merge buffers (hd=128),

@@ -70,6 +70,20 @@
 // within float32 summation order of the plain version. It is not redesigned.
 // Both kernels take more than the 48 KB default of shared memory at
 // hd = 128, so the launcher opts each instantiation in once.
+//
+// Head sizes: 32, 64, 80, 112, 128 and 192 (every causal GQA config of the
+// repo: zamba2-7b 112, nemotron-4-340b 192; SAM and hubert-xlarge 80). A
+// bf16 tile is blocks of 64 columns and TMA zero-fills a box's columns past
+// hd, so at hd = 80 and 112 the second block holds 16 or 48 real columns
+// and zeros, and no column of the next head is read. q.k takes hd / 16
+// k-steps; P.V one m64n{hd}k16 a k-step at the head size's own width,
+// which reads its last block in part through the same descriptor, as
+// hd = 32 already does; P.V at the padded width (n128 over the zero
+// columns) would cost 1.6x / 1.14x the products at hd = 80 / 112. At
+// hd = 192 a tile is three blocks and the kernel 124 KB of shared memory,
+// so an SM holds one CTA, and the accumulator is 96 floats a thread. The
+// float32 kernel reads a thread's columns one at a time where 4 does not
+// divide its hd / 16 (hd = 80 and 112).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -170,6 +184,15 @@ __device__ __forceinline__ void score_tile(const float* q_s,
   }
 }
 
+// Columns a thread reads with one load in pv_tile and stores together:
+// 4 where they divide its HD / 16 columns, else 2 or 1 (hd = 80 and 112:
+// 5 and 7 columns a thread, read one at a time), so that the CPT / VW
+// groups cover every column.
+template <int HD>
+__host__ __device__ constexpr int pv_width() {
+  return (HD / 16) % 4 == 0 ? 4 : (HD / 16) % 2 == 0 ? 2 : 1;
+}
+
 // acc += P.V over the tile's first n_keys keys, for rows ty*RPT + i and
 // columns g*16*VW + tx*VW + e.
 template <int HD>
@@ -179,7 +202,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[kBQ / 16][HD / 16],
   constexpr int P = tile_pitch<HD>();
   constexpr int RPT = kBQ / 16;
   constexpr int CPT = HD / 16;
-  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int VW = pv_width<HD>();
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   for (int c = 0; c < n_keys; ++c) {
     float pp[RPT];
@@ -224,7 +247,7 @@ flash_online_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int P = tile_pitch<HD>();
   constexpr int RPT = kBQ / 16;
   constexpr int CPT = HD / 16;
-  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int VW = pv_width<HD>();
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                    // kBQ x P
   float* kv_s = q_s + kBQ * P;          // kBK x P: a k tile, then a v tile
@@ -334,8 +357,16 @@ __host__ __device__ constexpr int tile_bytes() {
 // the q tile, two stages of k tiles and two of v tiles, the barriers, and
 // 1 KB to align the first tile to the swizzle's 1,024-byte period
 template <int HD>
-constexpr size_t wg_smem_bytes() {
+__host__ __device__ constexpr size_t wg_smem_bytes() {
   return 1024 + 5 * ((size_t)tile_bytes<HD>() + 8);
+}
+
+// CTAs an SM holds: two while both fit in the 227 KB a block may use (up
+// to hd = 128: 2 x 83 KB); at hd = 192 one (124 KB). With 128 threads the
+// register cap is 255 either way.
+template <int HD>
+__host__ __device__ constexpr int wg_ctas_per_sm() {
+  return 2 * wg_smem_bytes<HD>() <= 232448 ? 2 : 1;
 }
 
 // byte offset of element (row, col) in a tile
@@ -548,12 +579,119 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 80) = a . b (+ d if accumulate): a (64 x 16) in registers,
+// b (16 x 80) MN-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 112) = a . b (+ d if accumulate): a (64 x 16) in registers,
+// b (16 x 112) MN-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 192) = a . b (+ d if accumulate): a (64 x 16) in registers,
+// b (16 x 192) MN-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// o += p . v at the head size's own width: m64n{HD}k16. At hd = 80 and 112
+// the instruction reads one whole 64-column block of v and part of the
+// next (16 or 48 of its columns), through the same descriptor (blocks 8 KB
+// apart); hd = 32 already reads part of one block that way.
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (HD == 32) wgmma_rs_n32(d, a, b, 1);
   if constexpr (HD == 64) wgmma_rs_n64(d, a, b, 1);
+  if constexpr (HD == 80) wgmma_rs_n80(d, a, b, 1);
+  if constexpr (HD == 112) wgmma_rs_n112(d, a, b, 1);
   if constexpr (HD == 128) wgmma_rs_n128(d, a, b, 1);
+  if constexpr (HD == 192) wgmma_rs_n192(d, a, b, 1);
 }
 
 // 2^x (MUFU.EX2; results below 2^-126 flush to 0, against a largest
@@ -689,7 +827,7 @@ __device__ __forceinline__ void to_fragments(const float (&s)[32],
 // completing on its stage's barrier: at step i, v tile i + 1 and k tile
 // i + 2, into the stages that tile i - 1 left.
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kWThreads, 2)
+__global__ void __launch_bounds__(kWThreads, wg_ctas_per_sm<HD>())
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
@@ -1018,8 +1156,17 @@ extern "C" int flash_attention_launch(
     case 64:
       return launch_hd<64>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
+    case 80:
+      return launch_hd<80>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
+                           q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
+    case 112:
+      return launch_hd<112>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
     case 128:
       return launch_hd<128>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
+    case 192:
+      return launch_hd<192>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

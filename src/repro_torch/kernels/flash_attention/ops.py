@@ -16,7 +16,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import DTYPE_CODES
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+# every head size a causal GQA config of the repo resolves to (the zoo's
+# decoders and the LISA LLMs: 32, 64, 112, 128, 192) and those of the
+# full-size encoders (SAM and hubert-xlarge 80, CLIP 64); any other raises
+# before a launch
+HEAD_DIMS = (32, 64, 80, 112, 128, 192)
 
 # kernel launches since the last reset (chip_smoke.py sets it to 0 before
 # the main path and reads it after)

@@ -142,3 +142,13 @@ class ModelConfig:
         """The beyond-paper variant the dry-run's long_500k uses for
         dense archs."""
         return self.replace(sliding_window=window)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (exact for our layouts)."""
+        from repro_torch.models import stack
+        return stack.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k experts)."""
+        from repro_torch.models import stack
+        return stack.count_params(self, active_only=True)

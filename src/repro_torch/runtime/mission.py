@@ -10,7 +10,9 @@ only mission time, the frame log, and the fidelity oracle.
 
 Tier control is a ``ControlPolicy`` on the session: ``AdaptivePolicy``
 is AVERY mode, ``StaticTierPolicy`` the §5.3.1 baselines,
-``BestEffortPolicy`` the graceful-degradation fleet variant.
+``BestEffortPolicy`` the graceful-degradation fleet variant. The old
+``mode="avery"|"static"`` / ``fallback=`` knobs still work via
+``policy_from_mode`` (deprecation shim).
 
 Frame capture pipelines with transmission (frame k+1 is computed while
 packet k is in flight), so steady-state throughput is min(compute rate,
@@ -28,8 +30,8 @@ from repro_torch.core.controller import MissionGoal
 from repro_torch.core.intent import DEFAULT_REQUIREMENTS, Intent
 from repro_torch.core.lut import SystemLUT, Tier
 from repro_torch.data import floodseg
-from repro_torch.engine import (AdaptivePolicy, AveryEngine,
-                                ChannelTransport, ControlPolicy)
+from repro_torch.engine import (AveryEngine, ChannelTransport,
+                                ControlPolicy, policy_from_mode)
 # re-exported for compatibility (formulas live with the device models now)
 from repro_torch.network.energy import (edge_insight_flops,  # noqa: F401
                                         full_edge_flops)
@@ -40,11 +42,22 @@ from repro_torch.network.traces import BandwidthTrace
 class MissionSpec:
     duration_s: float = 1200.0
     goal: MissionGoal = MissionGoal.PRIORITIZE_ACCURACY
-    # tier control (AVERY mode by default)
-    policy: ControlPolicy = field(default_factory=AdaptivePolicy)
+    # tier control: pass a ControlPolicy; the mode/static_tier/fallback
+    # trio below is the pre-engine interface, mapped via policy_from_mode
+    policy: Optional[ControlPolicy] = None
+    mode: str = "avery"               # deprecated: "avery" | "static"
+    static_tier: Optional[str] = None  # deprecated: tier for mode="static"
     finetuned: bool = False
     min_pps: float = 0.5              # F_I for Insight intents
     seed: int = 0
+    # deprecated (use policy=BestEffortPolicy()): when no tier satisfies
+    # F_I, transmit the lightest tier best-effort instead of idling
+    fallback: bool = False
+
+    def resolve_policy(self) -> ControlPolicy:
+        if self.policy is not None:
+            return self.policy
+        return policy_from_mode(self.mode, self.static_tier, self.fallback)
 
 
 @dataclass
@@ -168,7 +181,7 @@ def mission_session(engine: AveryEngine, trace: BandwidthTrace,
     return engine.session(
         f"uav-{spec.seed}",
         transport=ChannelTransport.from_trace(trace),
-        policy=spec.policy, goal=spec.goal,
+        policy=spec.resolve_policy(), goal=spec.goal,
         finetuned=spec.finetuned,
         requirements={**DEFAULT_REQUIREMENTS, Intent.INSIGHT: reqs},
         oracle=oracle)

@@ -12,7 +12,11 @@ reference's, tests/test_torch_serving.py, and a pixel at the 0 threshold
 may flip). ``serve_local(smoke=True, device="cpu")`` prints the reference's
 lines in both batchings on the same bridged weights; only the count of
 compiled cloud stages differs (the reference's jit cache; the eager port
-compiles none and prints 0).
+compiles none and prints 0). ``MissionSpec``'s pre-engine forms (``mode``,
+``static_tier``, ``fallback``, and a ``policy`` that wins over them) run
+both packages' missions to equal frames, and ``ModelConfig.param_count``
+/ ``active_param_count`` equal the reference's on the ten full-size
+configs.
 """
 import dataclasses
 import re
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs.lisa_mini import CONFIG as JP
 from repro.core import profile as jprof
 from repro.core.controller import MissionGoal as JGoal
@@ -33,6 +38,7 @@ from repro.launch import serve as jserve
 from repro.network import traces as jtraces
 from repro.runtime import fleet as jfleet
 from repro.runtime import mission as jmission
+from repro_torch import configs as tconfigs
 from repro_torch.configs import get_lisa_config
 from repro_torch.core import lut as tlut
 from repro_torch.core import profile as tprof
@@ -117,6 +123,60 @@ def test_fast_missions_equal(goal):
             (j.infeasible_s, j.mean_pps, j.mean_iou, j.total_edge_energy_j)
         assert t.tier_timeline() == j.tier_timeline()
         np.testing.assert_array_equal(t.pps_timeline(), j.pps_timeline())
+
+
+# the reference's MissionSpec forms (tests/test_mission.py): the
+# pre-engine mode / static_tier / fallback knobs, and a policy that wins
+# over them; (keyword arguments, policy class and arguments or None)
+SPEC_FORMS = [
+    (dict(mode="avery"), None),
+    (dict(mode="static", static_tier="High Accuracy"), None),
+    (dict(mode="static", static_tier="Balanced"), None),
+    (dict(mode="static", static_tier="High Throughput"), None),
+    (dict(mode="avery", fallback=True), None),
+    (dict(mode="static", static_tier="Balanced"),
+     ("StaticTierPolicy", ("High Throughput",))),
+]
+
+
+@pytest.mark.parametrize("form", range(len(SPEC_FORMS)))
+def test_mission_spec_forms_equal(form):
+    """Each form through both packages' ``run_mission``: the resolved
+    policy of the same class and every frame, IoU and timeline equal."""
+    kw, policy = SPEC_FORMS[form]
+    logs = []
+    for mission, lut, traces, pol in (
+            (jmission, jpaper_lut, jtraces, jpolicy),
+            (tmission, tlut.paper_lut, ttraces, tpolicy)):
+        spec = mission.MissionSpec(
+            duration_s=300.0, seed=form, **kw,
+            **({} if policy is None else {"policy": _policy(pol, policy)}))
+        logs.append((type(spec.resolve_policy()).__name__,
+                     mission.run_mission(lut(), traces.paper_trace(4), spec)))
+    (jname, j), (tname, t) = logs
+    assert tname == jname
+    assert _frames(t) == _frames(j) and t.frames
+    assert (t.infeasible_s, t.mean_pps, t.mean_iou) == \
+        (j.infeasible_s, j.mean_pps, j.mean_iou)
+    assert t.tier_timeline() == j.tier_timeline()
+
+
+def test_mission_spec_refusals_equal():
+    """``mode="static"`` without a tier and an unknown mode raise in both."""
+    for kw in (dict(mode="static"), dict(mode="greedy")):
+        for mission in (jmission, tmission):
+            with pytest.raises(ValueError):
+                mission.MissionSpec(**kw).resolve_policy()
+
+
+@pytest.mark.parametrize("name", jconfigs.ARCH_IDS)
+def test_param_count_equals_reference(name):
+    """``ModelConfig.param_count`` / ``active_param_count`` on the full-size
+    configs: the analytic count (the meta device, no weights) against the
+    reference's."""
+    cfg, jcfg = tconfigs.get_config(name), jconfigs.get_config(name)
+    assert (cfg.param_count(), cfg.active_param_count()) == \
+        (jcfg.param_count(), jcfg.active_param_count())
 
 
 def test_executor_mode_missions_on_bridged_weights(system):
