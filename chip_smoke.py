@@ -9,7 +9,9 @@ Phases, each fatal on failure:
   1. report the card (name and power limit from nvidia-smi);
   2. build every CUDA kernel of the serving path from the sources in this
      checkout (nvcc, sm_90a; one nvcc per source, all started together) and
-     report the build time and ptxas' register and spill lines;
+     report the build time and ptxas' register and spill lines and
+     warnings (each warp-specialised flash instantiation must launch with
+     WS_LAUNCH_REGS registers a thread);
   3. hold each kernel against its plain PyTorch version on the card, at
      the serving path's own shapes (once more with lengths spread from 1
      to W across rows) and at a small fp32 shape, and time the
@@ -392,6 +394,19 @@ with lengths spread over 4 rows, and in float32 with an idle row; the
 paged decode (pages of 16) and verify (C = 4, pages of 4) kernels at each
 size's heads over random tables, bf16 (timed) and float32.
 
+The flash kernel runs each bf16 launch on the plan ``ops.flash_plan``
+picks: the one-warpgroup kernel (WGMMA) or the warp-specialised one on two
+halves of a head (WS_HALVES) or, where G is even, on two heads (WS_PAIRS).
+Every flash case is launched twice and bit-equal. Its edge cases
+(``flash_edge_cases``: bf16 at S = 1, 65 and 129, hd 128 and 192, causal
+and not, G = 1 and 12, rows past S NaN) run under every bf16 plan. Each
+timed bf16 flash case prints beside the function bound the product bound
+(the products the plan's kernel issues, p_hi and p_lo and whole diagonal
+tiles, at the bf16 peak), and an A/B line (``[kernel] flash A/B``): every
+bf16 plan on the same inputs, in turn and then in reverse. Four more timed
+cases (``flash_rule_cases``) sit on either side of the launcher's S and
+grid thresholds, to read its rule there.
+
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
 result, when no CUDA device is available or the port is not beside this
@@ -409,6 +424,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -475,9 +491,10 @@ ROUTE_TIE_LOGITS = 2.0 ** -5
 # requires that control to fail this limit.
 SDPA_RTOL = 1e-4
 # The bf16 flash kernel keeps the probabilities near float32 through P.V
-# (p_hi + p_lo, two bf16 MMAs). On the timed bf16 cases its norm-wise error
-# against attention_ref must be under this share of the error of
-# attention_ref with P rounded once to bf16 (FlashAttention's P). A kernel
+# (p_hi + p_lo, two bf16 MMAs). On every bf16 case of phase 3 (where one
+# bf16 P is not exact) its norm-wise error against attention_ref must be
+# under this share of the error of attention_ref with P rounded once to
+# bf16 (FlashAttention's P). A kernel
 # that rounds P once reads about 0.8 of it (normalised by the float32 sum),
 # one that keeps P in float32 about 0.01 (tests/test_torch_flash_layers.py).
 P_SPLIT_RATIO = 0.25
@@ -1148,31 +1165,61 @@ def attention_p_bf16(q, k, v, causal=True):
 def p_split_reading(out, want, q, k, v, causal):
     """How near ``out`` keeps P to float32: its norm-wise error against
     ``want`` (attention_ref), the error of ``attention_p_bf16`` against the
-    same, and their ratio, which must be under P_SPLIT_RATIO."""
+    same, and their ratio, which must be under P_SPLIT_RATIO. The ratio is
+    None where one bf16 P is exact (one key a row, as at S = 1), so that
+    there is no rounding of P to compare with."""
     err = _rel(out, want)
     err_p = _rel(attention_p_bf16(q, k, v, causal), want)
-    return {"rel_err": err, "rel_err_p_bf16": err_p, "ratio": err / err_p,
+    return {"rel_err": err, "rel_err_p_bf16": err_p,
+            "ratio": err / err_p if err_p > 0 else None,
             "limit": P_SPLIT_RATIO}
 
 
+def flash_product_flops(case, rows, keys):
+    """The products a bf16 kernel issues whose CTAs hold ``rows`` query
+    rows of each head and walk kv tiles of ``keys`` keys
+    (``ops.plan_tile``): for each such tile, q.k and P.V twice (p_hi and
+    p_lo), 2 * rows * keys * hd flops each, whole tiles on the diagonal
+    and at S."""
+    B, S, H, hd = (case[k] for k in ("B", "S", "H", "hd"))
+    tiles = sum(-(-(min(q0 + rows, S) if case["causal"] else S) // keys)
+                for q0 in range(0, S, rows))
+    return 3 * 2 * rows * keys * hd * tiles * B * H
+
+
 def check_flash_attention(rng, case, dev, timed):
+    """The kernel (under ``case["plan"]`` where given, else the launcher's
+    own plan) against ``attention_ref`` within TOL, launched twice and
+    bit-equal, and in bf16 its P-split reading under P_SPLIT_RATIO. Timed:
+    its time beside the plain version's, SDPA's, the function bound and the
+    product bound, and for bf16 an A/B of every bf16 plan on the same
+    inputs (plans in turn, then in reverse)."""
     from repro_torch.kernels.flash_attention import ops, ref
     causal = case["causal"]
     args = flash_inputs(rng, case, dev)
-    out = ops.flash_attention(*args, causal=causal)
+    launch = functools.partial(ops.flash_attention, causal=causal,
+                               plan=case.get("plan"))
+    out = launch(*args)
     torch.cuda.synchronize()
     want = ref.attention_ref(*args, causal=causal)
-    max_err = held_against(f"flash_attention {case['name']}", out, want)
+    name = f"flash_attention {case['name']}"
+    max_err = held_against(name, out, want)
     dtype = case["dtype"]
     rtol, atol = TOL[dtype]
     B, S, H, K, hd = (case[k] for k in ("B", "S", "H", "K", "hd"))
+    plan = case.get("plan")
+    if plan is None:
+        plan = ops.flash_plan(B, S, H, K, hd, dtype)
     res = {"case": case["name"], "B": B, "S": S, "H": H, "K": K, "hd": hd,
            "causal": causal, "nan_past_S": case["pad"] > 0,
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": max_err, "rtol": rtol, "atol": atol}
+           "plan": plan.name, "max_abs_err": max_err, "rtol": rtol,
+           "atol": atol,
+           "deterministic": deterministic(name, launch, args, out)}
     msg = (f"[kernel] flash_attention {case['name']}: B={B} S={S} H={H} "
-           f"K={K} hd={hd} causal={causal} {res['dtype']} max_abs_err="
-           f"{max_err:.3g} (rtol {rtol}, atol {atol})")
+           f"K={K} hd={hd} causal={causal} {res['dtype']} plan "
+           f"{plan.name} max_abs_err={max_err:.3g} (rtol "
+           f"{rtol}, atol {atol}), bit-equal twice")
     if timed:
         nbytes, flops = flash_bytes_flops(case, torch.finfo(dtype).bits // 8)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
@@ -1187,28 +1234,96 @@ def check_flash_attention(rng, case, dev, timed):
                 is_causal=causal, **gqa)
 
         res.update({
-            "ms": device_ms(lambda q, k, v: ops.flash_attention(
-                q, k, v, causal=causal), sets),
+            "ms": device_ms(lambda q, k, v: launch(q, k, v), sets),
             "plain_ms": device_ms(lambda q, k, v: ref.attention_ref(
                 q, k, v, causal=causal), sets),
             "library_ms": device_ms(library, sets),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops})
-        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-                f" library_ms={res['library_ms']:.4f} bound_ms="
+        msg += (f" kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.4f}"
+                f" library_ms={res['library_ms']:.5f} bound_ms="
                 f"{res['bound_ms']:.5f} ({res['bound_by']})")
         if dtype == torch.bfloat16:
-            p = res["p_split"] = p_split_reading(out, want, *args, causal)
-            msg += (f"; P near float32: norm-wise err {p['rel_err']:.3g}, "
-                    f"with P rounded to bf16 {p['rel_err_p_bf16']:.3g}, "
-                    f"ratio {p['ratio']:.3g} (limit {P_SPLIT_RATIO})")
+            pf = flash_product_flops(case, *ops.plan_tile(plan, hd))
+            res["product_flops"] = pf
+            res["product_bound_ms"] = 1e3 * pf / PEAK_FLOPS[dtype]
+            msg += (f" product_bound_ms={res['product_bound_ms']:.5f} "
+                    f"({pf / 1e9:.2f} GFLOP issued)")
+            plans = ops.plans(dtype, H // K)
+            ab = {}
+            for pl in plans + plans[::-1]:
+                ab.setdefault(pl.name, []).append(
+                    device_ms(lambda q, k, v: ops.flash_attention(
+                        q, k, v, causal=causal, plan=pl), sets))
+            res["ab_ms"] = ab
+            res["ab_product_bound_ms"] = {
+                pl.name: 1e3 * flash_product_flops(
+                    case, *ops.plan_tile(pl, hd)) / PEAK_FLOPS[dtype]
+                for pl in plans}
+    if dtype == torch.bfloat16:
+        p = res["p_split"] = p_split_reading(out, want, *args, causal)
+        msg += (f"; P near float32: norm-wise err {p['rel_err']:.3g}, with "
+                f"P rounded to bf16 {p['rel_err_p_bf16']:.3g}, ratio "
+                + ("none (one bf16 P is exact)" if p["ratio"] is None
+                   else f"{p['ratio']:.3g}") + f" (limit {P_SPLIT_RATIO})")
     log(msg)
-    if "p_split" in res and not res["p_split"]["ratio"] < P_SPLIT_RATIO:
+    if "ab_ms" in res:
+        log(f"[kernel] flash A/B {case['name']}: " + ", ".join(
+            f"plan {k} " + " / ".join(f"{t:.5f}" for t in v)
+            + f" ms (product bound {res['ab_product_bound_ms'][k]:.5f})"
+            for k, v in res["ab_ms"].items())
+            + f"; launcher's plan {plan.name}")
+    ratio = res.get("p_split", {}).get("ratio")
+    if ratio is not None and not ratio < P_SPLIT_RATIO:
         raise AssertionError(f"flash_attention {case['name']}: the kernel "
                              f"keeps P no nearer float32 than P_SPLIT_RATIO "
                              f"of one bf16 P's error: {res['p_split']}")
     return res
+
+
+def flash_edge_cases():
+    """bf16 at the edges of both bf16 kernels' tiles: S = 1 (one key; a
+    128-row tile's second consumer wholly past S), 65 and 129 (one row
+    into the next 64- or 128-row tile), at hd 128 and 192, causal and not,
+    G = 1 (H = K = 2) and G = 12 (H = 12, K = 1); B = 2, each operand a
+    view of a buffer whose rows past S are NaN. Each runs under every bf16
+    plan (``check_flash_attention`` with ``plan``)."""
+    cases = []
+    for hd in (128, 192):
+        for S in (1, 65, 129):
+            for G, H, K in ((1, 2, 2), (12, 12, 1)):
+                for causal in (True, False):
+                    cases.append(dict(
+                        name=f"edge_hd{hd}_S{S}_G{G}_"
+                             f"{'causal' if causal else 'full'}",
+                        B=2, S=S, H=H, K=K, hd=hd, causal=causal,
+                        dtype=torch.bfloat16, pad=7))
+    return cases
+
+
+def flash_edge_checks(seed, dev):
+    """Every edge case under every bf16 plan of its head size and G, each
+    plan on the case's own inputs (``case_rng``)."""
+    from repro_torch.kernels.flash_attention import ops
+    return [check_flash_attention(
+                case_rng(seed, c["name"]),
+                dict(c, name=f"{c['name']}_{p.name}", plan=p), dev,
+                timed=False)
+            for c in flash_edge_cases()
+            for p in ops.plans(torch.bfloat16, c["H"] // c["K"])]
+
+
+def flash_rule_cases():
+    """bf16 causal cases on either side of ``ops.flash_plan``'s thresholds,
+    each timed with its A/B line: S 512 and 1,024 at LISA-7B's heads (B = 2,
+    H = K = 32, hd 128; ops.WS_MIN_S), and grids of 96 and 128 CTAs of 128
+    rows at S 1,024 (B = 1, H = K = 12 and 16, hd 128; ops.WS_MIN_CTAS).
+    Each draws from a generator of its own (``case_rng``)."""
+    return [dict(name=f"rule_B{B}_S{S}_H{H}_hd128", B=B, S=S, H=H, K=H,
+                 hd=128, causal=True, dtype=torch.bfloat16, pad=0)
+            for B, S, H in ((2, 512, 32), (2, 1024, 32), (1, 1024, 12),
+                            (1, 1024, 16))]
 
 
 # the flash cases that are timed: the prefill's two shapes and the long
@@ -8250,19 +8365,41 @@ def _leaves(tree):
 
 
 def ptxas_lines(log_path):
-    """ptxas' report per kernel instantiation, one line each: the template
-    arguments of the (mangled) entry name, its stack, spills and
-    registers."""
+    """ptxas' report per kernel instantiation, one line each: the kernel's
+    name and the template arguments of its (mangled) entry name, its
+    stack, spills and registers; and every warning line of the log."""
     out, fn, spill = [], "?", ""
     for ln in log_path.read_text().splitlines():
-        if "Function properties for" in ln:
+        if "warning" in ln:
+            out.append(ln.strip())
+        elif "Function properties for" in ln:
             name = ln.split("Function properties for", 1)[1].strip()
-            fn = name.split("_kernel", 1)[-1][:40]
+            head, _, tail = name.partition("_kernel")
+            base = re.search(r"[a-z][a-z_]*$", head)   # after its length
+            fn = (base.group(0) if base else "") + "_kernel" + tail[:36]
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln:
             out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}; {spill}")
     return out
+
+
+# the registers a thread of flash_ws_kernel must launch with: its consumers'
+# setmaxnreg.inc draws on the pool the launch allocates (384 x 168), and a
+# pool any smaller would leave the increase waiting
+WS_LAUNCH_REGS = 168
+
+
+def ws_launch_regs(lines):
+    """The launch registers of every flash_ws_kernel instantiation in
+    ``ptxas_lines``; raises unless each is WS_LAUNCH_REGS."""
+    regs = [int(re.search(r"Used (\d+) registers", ln).group(1))
+            for ln in lines if ln.startswith("flash_ws_kernel")
+            and "Used" in ln]
+    if not regs or any(r != WS_LAUNCH_REGS for r in regs):
+        raise AssertionError(f"flash_ws_kernel launches with {regs} "
+                             f"registers a thread, not {WS_LAUNCH_REGS}")
+    return regs
 
 
 def _write_report(path, report):
@@ -8331,6 +8468,8 @@ def main() -> int:
         report["ptxas"][name] = lines
         for ln in lines:
             log(f"[build] {name}: {ln}")
+    if "flash_attention" in names:
+        ws_launch_regs(report["ptxas"]["flash_attention"])
     if args.split18_seed:
         report["split18_seeds"], failed = [], []
         for s in args.split18_seed:
@@ -8394,7 +8533,10 @@ def main() -> int:
                                   timed=c["name"] in FLASH_TIMED
                                   or c["name"].startswith("zoo_"))
             for c in flash_cases(pcfg) + zoo14_kernel_cases()[0]]
-        + head_dim_checks(check_flash_attention, "flash_attention"),
+        + head_dim_checks(check_flash_attention, "flash_attention")
+        + [check_flash_attention(case_rng(args.seed, c["name"]), c, dev,
+                                 timed=True) for c in flash_rule_cases()]
+        + flash_edge_checks(args.seed, dev),
         "bottleneck_encode": lambda: [
             check_bottleneck_encode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))

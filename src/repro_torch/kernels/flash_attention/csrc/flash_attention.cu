@@ -18,7 +18,12 @@
 // about 51 flops a byte, far below the tensor cores' ~295 flops/byte
 // balance point. Past about 1,000 keys at hd = 128 the operations bind.
 //
-// The bf16 kernel (flash_wgmma_kernel), one design for every S:
+// bf16 takes one of two kernels, by the launch plan the wrapper passes
+// (kernels/flash_attention/ops.py:flash_plan, measured on the card:
+// PERF.md §6). Both compute the same function to the same rounding; what
+// they share comes first.
+//
+// flash_wgmma_kernel (one warpgroup a CTA; plan WGMMA):
 //   * One warpgroup (four warps) a CTA, one CTA per (64-query tile, query
 //     head, batch row); warp w owns query rows 16w..16w+15.
 //   * Both products on the tensor cores with wgmma (bf16 in, float32
@@ -64,11 +69,64 @@
 //     warpgroups. A short grid (B = 1 with few heads) leaves SMs idle.
 //   * Each warp stages its output rows in shared memory and stores them as
 //     16-byte rows.
+//
+// flash_ws_kernel (plans WS_HALVES and, where G is even, WS_PAIRS; kv
+// tiles of 128 keys, of 96 at hd = 192): the same products, P
+// split, softmax and copies, warp-specialised. What held the
+// kernel above back at the wide head sizes and long sequences: its one
+// warpgroup both copied and computed (thread 0 issued the TMA, a
+// __syncthreads began every kv step), only its own P.V hid its softmax,
+// and at hd = 192 (124 KB) an SM held one such CTA, so nothing ran while
+// it did softmax; q.k as m64n64k16 reads 4 KB of shared memory for 32
+// clocks of products, the SM's whole 128 bytes a clock.
+//   * Three warpgroups a CTA. Warpgroup 2 is the producer: one thread
+//     issues every TMA copy (the two q halves, then each kv tile's k and v
+//     into a ring of two stages). Warpgroups 0 and 1 are the consumers, 64
+//     query rows each, sharing every k and v tile: either two 64-row
+//     halves of one head's 128-query tile, which works at any G (zamba2,
+//     SAM and LLaMA-7B's heads have G = 1), or, where G is even, the same
+//     64 rows of two query heads that read one kv head. Both were
+//     measured (PERF.md §6): under causal masking both halves
+//     walk the second half's extent, so the first, whose rows end 64 keys
+//     earlier, computes up to one tile its mask zeroes, where two heads
+//     share one extent; that took nemotron's prefill from 0.233 to 0.224
+//     ms.
+//   * No CTA-wide barrier after set-up. Each stage has a full barrier (the
+//     producer's expected bytes, completed by TMA) and an empty one (one
+//     arrival from each consumer once its products that read the stage
+//     have completed); the producer waits on empty before it refills.
+//   * setmaxnreg: the launch gives 168 registers a thread (384 x 168); the
+//     producer drops to 40 and the consumers rise to 232, which holds
+//     hd = 192's 96 accumulators, 48 scores and 48 words of p_hi / p_lo
+//     without spilling (ptxas: PERF.md §6).
+//   * Ping-pong: named barriers 1 and 2 order the consumers' turns. A
+//     consumer waits for its turn, issues q.k of tile i + 1 and P.V of
+//     tile i, and passes the turn; so one consumer's softmax, rescale and
+//     hi/lo split run while the other's products occupy the tensor cores.
+//     Within a consumer the overlap of the kernel above stays: tile
+//     i + 1's softmax runs while its own P.V does, and the last P.V is
+//     peeled off the loop, so no wgmma is issued under a condition.
+//   * kv tiles of 128 keys (96 at hd = 192, where 128 would not fit the
+//     registers): q.k as m64n128k16 (m64n96k16) reads 6 KB for 64 clocks
+//     (5 KB for 48) of products.
+//   * Both consumers walk the CTA's kv tiles. Letting the first of two
+//     halves stop at its own extent was measured (PERF.md §6): the CTA
+//     still ends with the second half's last tile, and the turns under a
+//     condition cost 2-5 %.
+//   * A 128-row tile at S = 1 or 65 leaves the second consumer's rows
+//     wholly past S: TMA zero-fills them, they compute finite values, and
+//     no row at or past S is written. Its mbarrier waits are bounded: a
+//     copy or release that never comes traps (a launch error) rather than
+//     hanging the card.
+//   * An FP8 second product (p_lo against an FP8 copy of v, at twice the
+//     bf16 rate) is not taken: p_lo is below 2^-9 of p, so FP8's range
+//     needs it scaled, and a product at another scale needs its own
+//     accumulator: hd / 2 more registers a thread, 96 at hd = 192.
 // float32 inputs (small test shapes, not on LISA-7B's path) take the online
 // kernel on the CUDA cores (flash_online_kernel): the TPU kernel's running
 // (m, l, acc) per row over kv tiles with one tile's scores in shared memory,
 // within float32 summation order of the plain version. It is not redesigned.
-// Both kernels take more than the 48 KB default of shared memory at
+// The kernels take more than the 48 KB default of shared memory at
 // hd = 128, so the launcher opts each instantiation in once.
 //
 // Head sizes: 32, 64, 80, 112, 128 and 192 (every causal GQA config of the
@@ -80,10 +138,11 @@
 // which reads its last block in part through the same descriptor, as
 // hd = 32 already does; P.V at the padded width (n128 over the zero
 // columns) would cost 1.6x / 1.14x the products at hd = 80 / 112. At
-// hd = 192 a tile is three blocks and the kernel 124 KB of shared memory,
-// so an SM holds one CTA, and the accumulator is 96 floats a thread. The
-// float32 kernel reads a thread's columns one at a time where 4 does not
-// divide its hd / 16 (hd = 80 and 112).
+// hd = 192 a tile is three blocks, flash_wgmma_kernel takes 124 KB of
+// shared memory (one CTA an SM) and flash_ws_kernel 193 KB, and the
+// accumulator is 96 floats a thread. The float32 kernel reads a thread's
+// columns one at a time where 4 does not divide its hd / 16 (hd = 80 and
+// 112).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -120,6 +179,10 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 template <int HD>
 __host__ __device__ constexpr int tile_pitch() { return HD + 4; }
 constexpr int kScorePitch = kBK + 4;
+
+// the shared memory a block may use on the H100 (227 KB); each launcher
+// asserts its kernel's size against it
+constexpr size_t kBlockSmem = 232448;
 
 // q and kv tiles, one tile of scores, and m, l and alpha per row.
 template <int HD>
@@ -344,14 +407,14 @@ constexpr int kTile = 64;          // rows of every tile: the CTA's queries,
 constexpr int kWThreads = 128;     // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A 64-row tile in shared memory: blocks of 64 columns (128 bytes a row),
-// each 64 rows x 128 bytes, 16-byte chunks swizzled within 8-row groups
-// (chunk c of row r at c ^ (r % 8)), the layout wgmma reads with a
-// 128-byte swizzle. At hd = 32 TMA fills the upper half of each row with
-// zeros.
-template <int HD>
+// A tile of ROWS rows (64: a q tile or a kv tile of flash_wgmma_kernel) in
+// shared memory: blocks of 64 columns (128 bytes a row), each ROWS rows x
+// 128 bytes, 16-byte chunks swizzled within 8-row groups (chunk c of row r
+// at c ^ (r % 8)), the layout wgmma reads with a 128-byte swizzle. At
+// hd = 32 TMA fills the upper half of each row with zeros.
+template <int HD, int ROWS = kTile>
 __host__ __device__ constexpr int tile_bytes() {
-  return kTile * 128 * ((HD + 63) / 64);
+  return ROWS * 128 * ((HD + 63) / 64);
 }
 
 // the q tile, two stages of k tiles and two of v tiles, the barriers, and
@@ -366,7 +429,7 @@ __host__ __device__ constexpr size_t wg_smem_bytes() {
 // register cap is 255 either way.
 template <int HD>
 __host__ __device__ constexpr int wg_ctas_per_sm() {
-  return 2 * wg_smem_bytes<HD>() <= 232448 ? 2 : 1;
+  return 2 * wg_smem_bytes<HD>() <= kBlockSmem ? 2 : 1;
 }
 
 // byte offset of element (row, col) in a tile
@@ -379,8 +442,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// armed with mbar_expect)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 
@@ -402,6 +473,33 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// The same wait, bounded: after 2^26 polls that find the phase open it
+// traps, so a fault in the warp-specialised kernel's protocol ends the
+// launch with an error instead of hanging the card. A poll returns within
+// the hardware's suspend window, so the bound is seconds, far past any
+// copy or product a CTA waits for.
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\nadd.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 67108864;\n@p bra.uni WAIT;\ntrap;\nDONE:\n}\n"
+      ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// named barrier `id` of N threads: wait for all N, or count these threads
+// in without waiting
+template <int N>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
 // TMA: the box at (c0, c1, c2, c3) of a 4-d tensor map into shared memory,
 // completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -415,18 +513,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Rows [t0, t0 + 64) of head `head`, batch row b, of a tensor map's
-// operand into a tile: one box of 64 columns a 128-byte block (TMA writes
-// the 128-byte swizzle itself; rows at or past S, and columns past hd,
-// are zero-filled and not read).
-template <int HD>
+// Rows [t0, t0 + ROWS) of head `head`, batch row b, of a tensor map's
+// operand (boxes of ROWS rows) into a tile: one box of 64 columns a
+// 128-byte block (TMA writes the 128-byte swizzle itself; rows at or past
+// S, and columns past hd, are zero-filled and not read).
+template <int HD, int ROWS = kTile>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, uint32_t bar,
                                          int head, int t0, int b) {
-  mbar_expect(bar, tile_bytes<HD>());
+  mbar_expect(bar, tile_bytes<HD, ROWS>());
 #pragma unroll
   for (int cb = 0; cb < (HD + 63) / 64; ++cb) {
-    tma_load(smem_addr(dst + cb * kTile * 128), map, bar, cb * 64, head,
+    tma_load(smem_addr(dst + cb * ROWS * 128), map, bar, cb * 64, head,
              t0, b);
   }
 }
@@ -440,19 +538,23 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
          | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// K-major (q, k: hd contiguous): k-step kk's 16 columns. 8-row groups
-// 1 KB apart; the leading offset is not read with this swizzle.
+// K-major (q, k: hd contiguous) in a tile of ROWS rows: k-step kk's 16
+// columns. 8-row groups 1 KB apart; the leading offset is not read with
+// this swizzle.
+template <int ROWS = kTile>
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile,
                                                 int kk) {
-  return smem_desc(tile + (kk / 4) * (kTile * 128) + (kk % 4) * 32, 16,
+  return smem_desc(tile + (kk / 4) * (ROWS * 128) + (kk % 4) * 32, 16,
                    1024);
 }
 
-// MN-major (v read as keys x hd, hd contiguous): k-step kk's 16 keys;
-// 64-column blocks 8 KB apart, 8-key groups 1 KB apart.
+// MN-major (v read as keys x hd, hd contiguous) in a tile of ROWS keys:
+// k-step kk's 16 keys; 64-column blocks ROWS x 128 bytes apart, 8-key
+// groups 1 KB apart.
+template <int ROWS = kTile>
 __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile,
                                                  int kk) {
-  return smem_desc(tile + kk * 16 * 128, kTile * 128, 1024);
+  return smem_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -503,6 +605,74 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 96) = a . b (+ d if accumulate): a (64 x 16) and b (96 x 16)
+// both K-major in shared memory, by their descriptors
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) = a . b (+ d if accumulate): a (64 x 16) and b (128 x 16)
+// both K-major in shared memory, by their descriptors
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// q . k^T for a kv tile of BN keys: m64n{BN}k16, both from shared memory
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BN / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (BN == 64) wgmma_ss_n64(d, a, b, accumulate);
+  if constexpr (BN == 96) wgmma_ss_n96(d, a, b, accumulate);
+  if constexpr (BN == 128) wgmma_ss_n128(d, a, b, accumulate);
 }
 
 // d (64 x 32) = a . b (+ d if accumulate): a (64 x 16) in registers,
@@ -717,22 +887,23 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// Mask and the online softmax of one tile's scores, in place: s[4n + e] is
-// row row0 + (e / 2) * 8, key k0 + 8n + 2tq + e % 2, its q.k on entry and
+// Mask and the online softmax of one tile's scores (BN keys), in place:
+// s[4n + e] is row row0 + (e / 2) * 8, key k0 + 8n + 2tq + e % 2, its q.k
+// on entry and
 // its probability exp(x - max x) on exit, x = q.k * scale. The scale is
 // applied inside the exponent: with c = scale * log2(e), exp(x - m) =
 // 2^(q.k c - m' c), where m' (m, updated here) is the rows' running max of
 // q.k, NEG_INF where masked (2^(NEG_INF c) = 0). l (this thread's part of
 // the rows' sums) is updated; returns the factor exp(m_old - m_new) for the
 // rows' accumulator.
-template <bool CAUSAL>
-__device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2],
-                                               float (&l)[2], float c,
-                                               bool masked, int k0, int row0,
-                                               int tq, int S) {
+template <bool CAUSAL, int BN = kTile>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[BN / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float c, bool masked, int k0,
+                                               int row0, int tq, int S) {
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       const int key = k0 + (i / 4) * 8 + 2 * tq + (i & 1);
       const int row = row0 + ((i >> 1) & 1) * 8;
       if (key >= S || (CAUSAL && key > row)) s[i] = kNegInf;
@@ -741,7 +912,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2],
   // the rows' maxima by a tree: t[e] over the scores with i % 4 == e
   float t[4] = {s[0], s[1], s[2], s[3]};
 #pragma unroll
-  for (int i = 4; i < 32; ++i) t[i % 4] = fmaxf(t[i % 4], s[i]);
+  for (int i = 4; i < BN / 2; ++i) t[i % 4] = fmaxf(t[i % 4], s[i]);
   float mx[2] = {fmaxf(m[0], fmaxf(t[0], t[1])),
                  fmaxf(m[1], fmaxf(t[2], t[3]))};
   float alpha[2], mc[2];
@@ -756,7 +927,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2],
   }
   float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     s[i] = fast_exp2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
     sum[i % 4] += s[i];
   }
@@ -765,29 +936,30 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2],
   return make_float2(alpha[0], alpha[1]);
 }
 
-// s = q . k^T over the tile's hd / 16 k-steps (issued, not waited for)
-template <int HD>
-__device__ __forceinline__ void qk_wgmma(float (&s)[32],
+// s = q . k^T over the tile's hd / 16 k-steps, a 64-row q tile against a
+// kv tile of BN keys (issued, not waited for)
+template <int HD, int BN = kTile>
+__device__ __forceinline__ void qk_wgmma(float (&s)[BN / 2],
                                          const unsigned char* q_tile,
                                          const unsigned char* k_tile) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    wgmma_ss_n64(s, kmajor_desc(q_tile, kk), kmajor_desc(k_tile, kk),
+    wgmma_qk<BN>(s, kmajor_desc(q_tile, kk), kmajor_desc<BN>(k_tile, kk),
                  kk > 0);
   }
 }
 
-// o += (p_hi + p_lo) . v over the tile's 4 k-steps of 16 keys (issued, not
-// waited for)
-template <int HD>
+// o += (p_hi + p_lo) . v over the tile's BN / 16 k-steps of 16 keys
+// (issued, not waited for)
+template <int HD, int BN = kTile>
 __device__ __forceinline__ void pv_wgmma(float (&o)[HD / 2],
-                                         const uint32_t (&ph)[4][4],
-                                         const uint32_t (&pl)[4][4],
+                                         const uint32_t (&ph)[BN / 16][4],
+                                         const uint32_t (&pl)[BN / 16][4],
                                          const unsigned char* v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_pv<HD>(o, ph[kk], mnmajor_desc(v_tile, kk));
-    wgmma_pv<HD>(o, pl[kk], mnmajor_desc(v_tile, kk));
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    wgmma_pv<HD>(o, ph[kk], mnmajor_desc<BN>(v_tile, kk));
+    wgmma_pv<HD>(o, pl[kk], mnmajor_desc<BN>(v_tile, kk));
   }
 }
 
@@ -803,11 +975,12 @@ __device__ __forceinline__ void rescale(float (&o)[N], float2 alpha) {
 // The probabilities s as wgmma A fragments of p_hi and p_lo: k-step kk,
 // fragment f holds rows +0 / +8 (f % 2) and keys 16kk + 2tq (+ 8 for
 // f / 2).
-__device__ __forceinline__ void to_fragments(const float (&s)[32],
-                                             uint32_t (&ph)[4][4],
-                                             uint32_t (&pl)[4][4]) {
+template <int BN = kTile>
+__device__ __forceinline__ void to_fragments(const float (&s)[BN / 2],
+                                             uint32_t (&ph)[BN / 16][4],
+                                             uint32_t (&pl)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       const int i = (2 * kk + f / 2) * 4 + (f % 2) * 2;
@@ -992,6 +1165,260 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, warp-specialised: a producer warp and two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWsRows = 128;       // query rows a CTA: 64 a consumer
+constexpr int kWsThreads = 384;    // consumer warpgroups 0 and 1, producer 2
+// setmaxnreg: the launch gives every thread 168 registers (65,536 / 384);
+// the producer gives most of its share to the consumers: 128 x 40 +
+// 256 x 232 = 384 x 168
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// the q tile (two 64-row halves), ST stages of k tiles and ST of v tiles
+// (BN rows each), the barriers (q halves; k and v full; k and v empty),
+// and 1 KB to align the first tile to the swizzle's period
+template <int HD, int BN, int ST>
+__host__ __device__ constexpr size_t ws_smem_bytes() {
+  return 1024 + 2 * (size_t)tile_bytes<HD>()
+         + 2 * ST * (size_t)tile_bytes<HD, BN>() + 8 * (2 + 4 * ST);
+}
+
+// Keys a kv tile of flash_ws_kernel holds: 128, so that q.k runs as
+// m64n128k16 (its two operands 6 KB of shared memory for 64 clocks of
+// products, where m64n64k16's 4 KB for 32 clocks is the SM's whole 128
+// bytes a clock); at hd = 192 96, which keeps a consumer's 96 accumulators,
+// 48 scores and 48 words of p_hi / p_lo under its 232 registers.
+template <int HD>
+__host__ __device__ constexpr int ws_kv_rows() {
+  return HD == 192 ? 96 : 128;
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// q, k and v through their tensor maps, out (B, S, H, HD) contiguous. The
+// two consumers take two 64-row halves of one head's 128-query tile (grid
+// (ceil(S / 128), H, B)), or with HEADS the same 64 query rows of two
+// heads that read one kv head (G even; grid (ceil(S / 64), H / 2, B)).
+//
+// Warpgroup 2 is the producer: after giving up its registers, one thread
+// loads the two q halves and then, for each kv tile i, k tile i and v tile
+// i into stage i % ST, each after both consumers have given that stage
+// back (its empty barrier, two arrivals) and each completing its stage's
+// full barrier (TMA's bytes). Warpgroups 0 and 1 are the consumers, 64
+// query rows each, warp v of a consumer rows 16v.. + 15 of those. Both
+// walk the same kv tiles: of two halves, the CTA's causal extent is the
+// second half's, so the first computes at most one tile that its mask
+// zeroes; that keeps every wgmma out of conditional code and both
+// consumers in step. Two heads share their rows and so their extent.
+// Each consumer runs flash_wgmma_kernel's overlap within itself (q.k of
+// tile i + 1 beside P.V of tile i; the softmax of tile i + 1 while P.V
+// runs; the last P.V peeled), and the two take turns issuing their
+// products through two
+// named barriers: consumer w waits on barrier 1 + w, issues q.k and P.V,
+// then arrives on the other's. So one consumer's softmax, rescale and
+// hi/lo split run while the other's products occupy the tensor cores.
+template <int HD, bool CAUSAL, int BN, int ST, bool HEADS>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ out, int S, int H, int K, float scale) {
+  constexpr int TB = tile_bytes<HD>();       // a q half
+  constexpr int KB = tile_bytes<HD, BN>();   // a k or v tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023))
+                                   & 1023);
+  unsigned char* k_s = q_s + 2 * TB;     // ST k stages, then ST v stages
+  unsigned char* v_s = k_s + ST * KB;
+  // barriers: the q halves', then full k, full v, empty k, empty v (ST
+  // each); a stage's n-th tile completes its barriers' phase n % 2
+  const uint32_t bar_q = smem_addr(v_s + ST * KB);
+  const uint32_t full_k = bar_q + 16, full_v = full_k + 8 * ST;
+  const uint32_t empty_k = full_v + 8 * ST, empty_v = empty_k + 8 * ST;
+
+  // the q tiles nearest S first, as flash_wgmma_kernel orders them
+  const int hb_count = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y
+                                            * blockIdx.z);
+  constexpr int kRows = HEADS ? kTile : kWsRows;  // rows of each head
+  const int q0 = (gridDim.x - 1 - lin / hb_count) * kRows;
+  const int h = (lin % hb_count % gridDim.y) * (HEADS ? 2 : 1);  // first
+  const int b = lin % hb_count / gridDim.y;
+  const int kh = h / (H / K);
+  const int kv_end = CAUSAL ? min(q0 + kRows, S) : S;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 2 + 2 * ST; ++i) mbar_init(bar_q + 8 * i, 1);
+#pragma unroll
+    for (int i = 0; i < 2 * ST; ++i) mbar_init(empty_k + 8 * i, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      tma_tile<HD>(q_s, &tm_q, bar_q, h, q0, b);
+      tma_tile<HD>(q_s + TB, &tm_q, bar_q + 8, HEADS ? h + 1 : h,
+                   HEADS ? q0 : q0 + kTile, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % ST;
+        // the stage's previous tile, i - ST, completed empty phase
+        // (i / ST - 1) % 2
+        const uint32_t parity = ((i / ST) & 1) ^ 1;
+        if (i >= ST) mbar_wait_bounded(empty_k + 8 * st, parity);
+        tma_tile<HD, BN>(k_s + st * KB, &tm_k, full_k + 8 * st, kh, i * BN,
+                         b);
+        if (i >= ST) mbar_wait_bounded(empty_v + 8 * st, parity);
+        tma_tile<HD, BN>(v_s + st * KB, &tm_v, full_v + 8 * st, kh, i * BN,
+                         b);
+      }
+    }
+  } else {
+    regs_alloc<kConsumerRegs>();
+    // the modulo tells ptxas that tid < 128 (see flash_wgmma_kernel)
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, tq = lane % 4;   // fragment row and column
+    unsigned char* q_w = q_s + wg * TB;      // this consumer's q half
+    const int rows0 = HEADS ? q0 : q0 + wg * kTile;
+    const int hw = HEADS ? h + wg : h;       // this consumer's head
+    const int row0 = rows0 + warp * 16 + g;  // this thread's rows: +0, +8
+    auto masked = [&](int k0) {
+      return (CAUSAL && k0 + BN > rows0) || k0 + BN > S;
+    };
+    auto wait_full = [&](uint32_t bars, int i) {
+      mbar_wait_bounded(bars + (i % ST) * 8, (i / ST) & 1);
+    };
+    // one arrival a consumer, after its wait for the products that read
+    // the stage
+    auto release = [&](uint32_t bars, int i) {
+      if (tid == 0) mbar_arrive(bars + (i % ST) * 8);
+    };
+    // the turns: consumer 0 issues first; every turn taken is passed on,
+    // but consumer 1's last, which no turn of consumer 0 waits for
+    auto take_turn = [&] { bar_sync<256>(1 + wg); };
+    auto pass_turn = [&] { bar_arrive<256>(2 - wg); };
+    if (wg == 1) pass_turn();
+
+    float o[HD / 2];                 // 64 x HD accumulator
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}; // running max of rows row0, row0 + 8
+    float l[2] = {0.f, 0.f};         // this thread's part of their sums
+    const float c = scale * kLog2e;
+    {
+      float s[BN / 2] = {};          // 64 x BN scores, then probabilities
+      // p_hi, p_lo as wgmma A fragments
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
+      // tile 0's scores and probabilities
+      mbar_wait_bounded(bar_q + 8 * wg, 0);
+      wait_full(full_k, 0);
+      take_turn();
+      fence_regs(s);
+      wgmma_fence();
+      qk_wgmma<HD, BN>(s, q_w, k_s);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(empty_k, 0);
+      float2 alpha = softmax_tile<CAUSAL, BN>(s, m, l, c, masked(0), 0,
+                                              row0, tq, S);
+      // step i: tile i's probabilities are in s, and o still waits for
+      // tile i's rescale factor alpha
+      for (int i = 0; i + 1 < n_tiles; ++i) {
+        to_fragments<BN>(s, ph, pl);
+        rescale(o, alpha);
+        fence_regs(ph);
+        fence_regs(pl);
+        wait_full(full_k, i + 1);
+        wait_full(full_v, i);
+        take_turn();
+        fence_regs(s);               // s = q . k^T of tile i + 1
+        wgmma_fence();
+        qk_wgmma<HD, BN>(s, q_w, k_s + ((i + 1) % ST) * KB);
+        wgmma_commit();
+        fence_regs(s);
+        pv_wgmma<HD, BN>(o, ph, pl, v_s + (i % ST) * KB);
+        wgmma_commit();
+        pass_turn();
+        fence_regs(o);
+        wgmma_wait<1>();             // the scores; P.V may still run
+        fence_regs(s);
+        release(empty_k, i + 1);
+        const int k1 = (i + 1) * BN;
+        alpha = softmax_tile<CAUSAL, BN>(s, m, l, c, masked(k1), k1, row0,
+                                         tq, S);
+        wgmma_wait<0>();
+        fence_regs(o);
+        release(empty_v, i);
+      }
+      // the last tile's P.V
+      to_fragments<BN>(s, ph, pl);
+      rescale(o, alpha);
+      fence_regs(ph);
+      fence_regs(pl);
+      wait_full(full_v, n_tiles - 1);
+      take_turn();
+      wgmma_fence();
+      pv_wgmma<HD, BN>(o, ph, pl, v_s + ((n_tiles - 1) % ST) * KB);
+      wgmma_commit();
+      if (wg == 0) pass_turn();
+      fence_regs(o);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {    // the rows' sums
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+
+    // o times 1 / max(l, 1e-30), rounded once to bf16; once the whole
+    // consumer is done with its q half, each warp stages its 16 rows there
+    // and stores them as 16-byte rows
+    l[0] = 1.f / fmaxf(l[0], 1e-30f);
+    l[1] = 1.f / fmaxf(l[1], 1e-30f);
+    bar_sync<128>(3 + wg);
+    const int r0 = warp * 16;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(q_w + swz(r0 + g, col)) =
+          __floats2bfloat162_rn(o[4 * n] * l[0], o[4 * n + 1] * l[0]);
+      *reinterpret_cast<__nv_bfloat162*>(q_w + swz(r0 + g + 8, col)) =
+          __floats2bfloat162_rn(o[4 * n + 2] * l[1], o[4 * n + 3] * l[1]);
+    }
+    __syncwarp();
+    constexpr int CH = HD / 8;
+#pragma unroll
+    for (int i = 0; i < 16 * CH / 32; ++i) {
+      const int e = lane + 32 * i;
+      const int r = r0 + e / CH, c16 = e % CH;
+      const int t = rows0 + r;
+      if (t < S) {
+        *reinterpret_cast<uint4*>(out + (((long long)b * S + t) * H + hw)
+                                  * HD + c16 * 8) =
+            *reinterpret_cast<const uint4*>(q_w + swz(r, c16 * 8));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1014,6 +1441,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
                long long v_ss, float scale, cudaStream_t stream) {
   static bool opted_in = false;
   constexpr size_t bytes = online_smem_bytes<HD>();
+  static_assert(bytes <= kBlockSmem, "over the 227 KB a block may use");
   const cudaError_t err =
       opt_in(flash_online_kernel<HD, CAUSAL>, bytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1048,11 +1476,12 @@ EncodeTiled encode_tiled() {
 
 // The tensor map of a (B, S, heads, HD) bf16 operand read in place: dims
 // (HD, heads, S, B) with the caller's sequence and batch strides, boxes of
-// 64 columns x 64 rows of one head, 128-byte swizzle, zeros outside (rows
-// at or past S, columns past HD).
+// 64 columns x `rows` rows of one head, 128-byte swizzle, zeros outside
+// (rows at or past S, columns past HD).
 template <int HD>
 cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int heads, int S,
-                       int B, long long s_stride, long long b_stride) {
+                       int B, long long s_stride, long long b_stride,
+                       int rows = kTile) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S,
@@ -1060,7 +1489,7 @@ cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int heads, int S,
   const cuuint64_t strides[3] = {HD * sizeof(bf16),
                                  (cuuint64_t)s_stride * sizeof(bf16),
                                  (cuuint64_t)b_stride * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims,
@@ -1070,11 +1499,52 @@ cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int heads, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The launch plan (ops.py:FlashPlan, chosen by ops.py:flash_plan): which
+// kernel runs; each kernel's tiles and stages follow from it here. The
+// launcher refuses any other plan, a plan of the other dtype, and
+// kWsPairs at an odd G.
+enum Plan : int {
+  kOnline = 0,     // float32: flash_online_kernel
+  kWgmma = 1,      // bf16: flash_wgmma_kernel
+  kWsHalves = 2,   // bf16: flash_ws_kernel, two halves of a head's 128 rows
+  kWsPairs = 3,    // bf16: flash_ws_kernel, 64 rows of two heads (G even)
+};
+
+template <int HD, bool CAUSAL, bool HEADS, int BN = ws_kv_rows<HD>()>
+int launch_ws(const bf16* k, const bf16* v, const CUtensorMap& tm_q,
+              bf16* out, int B, int S, int H, int K, long long k_sb,
+              long long k_ss, long long v_sb, long long v_ss, float scale,
+              cudaStream_t stream) {
+  constexpr int ST = 2;
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err = tensor_map<HD>(&tm_k, k, K, S, B, k_ss, k_sb, BN);
+  if (err == cudaSuccess) {
+    err = tensor_map<HD>(&tm_v, v, K, S, B, v_ss, v_sb, BN);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool opted_in = false;
+  constexpr size_t bytes = ws_smem_bytes<HD, BN, ST>();
+  static_assert(bytes <= kBlockSmem, "over the 227 KB a block may use");
+  err = opt_in(flash_ws_kernel<HD, CAUSAL, BN, ST, HEADS>, bytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int rows = HEADS ? kTile : kWsRows;
+  const dim3 grid((S + rows - 1) / rows, HEADS ? H / 2 : H, B);
+  flash_ws_kernel<HD, CAUSAL, BN, ST, HEADS>
+      <<<grid, kWsThreads, bytes, stream>>>(tm_q, tm_k, tm_v, out, S, H, K,
+                                            scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD, bool CAUSAL>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                 int B, int S, int H, int K, long long q_sb, long long q_ss,
                 long long k_sb, long long k_ss, long long v_sb,
-                long long v_ss, float scale, cudaStream_t stream) {
+                long long v_ss, float scale, int plan, cudaStream_t stream) {
+  const bool pairs = plan == kWsPairs && (H / K) % 2 == 0;
+  const bool ws = plan == kWsHalves || pairs;
+  if (!(plan == kWgmma || ws)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   // TMA reads 16-byte aligned rows: base pointers and strides must keep
   // them so (the wrapper refuses other layouts first)
   const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss;
@@ -1084,13 +1554,24 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   if ((strides % 8) != 0 || (ptrs % 16) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  CUtensorMap tm_q, tm_k, tm_v;
+  CUtensorMap tm_q;
   cudaError_t err = tensor_map<HD>(&tm_q, q, H, S, B, q_ss, q_sb);
-  if (err == cudaSuccess) err = tensor_map<HD>(&tm_k, k, K, S, B, k_ss, k_sb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ws) {
+    return pairs ? launch_ws<HD, CAUSAL, true>(k, v, tm_q, out, B, S, H, K,
+                                               k_sb, k_ss, v_sb, v_ss, scale,
+                                               stream)
+                 : launch_ws<HD, CAUSAL, false>(k, v, tm_q, out, B, S, H, K,
+                                                k_sb, k_ss, v_sb, v_ss,
+                                                scale, stream);
+  }
+  CUtensorMap tm_k, tm_v;
+  err = tensor_map<HD>(&tm_k, k, K, S, B, k_ss, k_sb);
   if (err == cudaSuccess) err = tensor_map<HD>(&tm_v, v, K, S, B, v_ss, v_sb);
   if (err != cudaSuccess) return static_cast<int>(err);
   static bool opted_in = false;
   constexpr size_t bytes = wg_smem_bytes<HD>();
+  static_assert(bytes <= kBlockSmem, "over the 227 KB a block may use");
   err = opt_in(flash_wgmma_kernel<HD, CAUSAL>, bytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
@@ -1103,9 +1584,9 @@ template <int HD, bool CAUSAL>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  int dtype, int B, int S, int H, int K, long long q_sb,
                  long long q_ss, long long k_sb, long long k_ss,
-                 long long v_sb, long long v_ss, float scale,
+                 long long v_sb, long long v_ss, float scale, int plan,
                  cudaStream_t stream) {
-  if (dtype == 0) {
+  if (dtype == 0 && plan == kOnline) {
     return launch_f32<HD, CAUSAL>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), B, S, H, K,
@@ -1115,7 +1596,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
     return launch_bf16<HD, CAUSAL>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), B, S, H, K,
-        q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
+        q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, plan, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1124,50 +1605,78 @@ template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               int dtype, int B, int S, int H, int K, int causal,
               long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-              long long v_sb, long long v_ss, float scale,
+              long long v_sb, long long v_ss, float scale, int plan,
               cudaStream_t stream) {
   if (causal) {
     return launch_typed<HD, true>(q, k, v, out, dtype, B, S, H, K, q_sb,
                                   q_ss, k_sb, k_ss, v_sb, v_ss, scale,
-                                  stream);
+                                  plan, stream);
   }
   return launch_typed<HD, false>(q, k, v, out, dtype, B, S, H, K, q_sb, q_ss,
-                                 k_sb, k_ss, v_sb, v_ss, scale, stream);
+                                 k_sb, k_ss, v_sb, v_ss, scale, plan,
+                                 stream);
+}
+
+// the query rows a CTA holds of each of its heads and the keys of a kv
+// tile under `plan`
+template <int HD>
+int plan_tile(int plan, int* rows, int* keys) {
+  switch (plan) {
+    case kOnline: *rows = kBQ; *keys = kBK; return 0;
+    case kWgmma: *rows = kTile; *keys = kTile; return 0;
+    case kWsHalves: *rows = kWsRows; *keys = ws_kv_rows<HD>(); return 0;
+    case kWsPairs: *rows = kTile; *keys = ws_kv_rows<HD>(); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// CUDA error of the launch (0 on success); the caller raises on anything
-// else.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. plan: the
+// kernel (enum Plan above). Returns the CUDA error of the launch (0 on
+// success); the caller raises on anything else.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
     int S, int H, int K, int hd, int causal, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-    float scale, void* stream) {
+    float scale, int plan, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32:
-      return launch_hd<32>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                           q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
-    case 64:
-      return launch_hd<64>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                           q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
-    case 80:
-      return launch_hd<80>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                           q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
-    case 112:
-      return launch_hd<112>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
-    case 128:
-      return launch_hd<128>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
-    case 192:
-      return launch_hd<192>(q, k, v, out, dtype, B, S, H, K, causal, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, s);
+#define FLASH_HD(N)                                                          \
+  case N:                                                                    \
+    return launch_hd<N>(q, k, v, out, dtype, B, S, H, K, causal, q_sb, q_ss, \
+                        k_sb, k_ss, v_sb, v_ss, scale, plan, s);
+    FLASH_HD(32)
+    FLASH_HD(64)
+    FLASH_HD(80)
+    FLASH_HD(112)
+    FLASH_HD(128)
+    FLASH_HD(192)
+#undef FLASH_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The query rows a CTA holds of each of its heads (`rows`) and the keys of
+// a kv tile (`keys`) of `plan`'s kernel at head size `hd`: what the
+// kernel's issued products are counted by (chip_smoke.py's product bound).
+// Returns 0, or cudaErrorInvalidValue for an unknown plan or head size.
+extern "C" int flash_attention_tile(int plan, int hd, int* rows, int* keys) {
+  switch (hd) {
+#define FLASH_HD(N) \
+  case N:           \
+    return plan_tile<N>(plan, rows, keys);
+    FLASH_HD(32)
+    FLASH_HD(64)
+    FLASH_HD(80)
+    FLASH_HD(112)
+    FLASH_HD(128)
+    FLASH_HD(192)
+#undef FLASH_HD
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,6 +9,8 @@ plain version (``ref.py``). There is no other path.
 from __future__ import annotations
 
 import ctypes
+import enum
+from typing import Optional
 
 import torch
 
@@ -28,7 +30,73 @@ flash_launches = 0
 
 # the C signature of flash_attention_launch (csrc/flash_attention.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 6 + [ctypes.c_float] + [ctypes.c_int]
+             + [ctypes.c_void_p])
+
+# flash_ws_kernel's least sequence and least grid (CTAs of 128 query rows
+# of a head: B * H * ceil(S / 128)); below either, and at hd under 80, the
+# one-warpgroup kernel was measured faster (``flash_plan``)
+WS_MIN_S = 1024
+WS_MIN_CTAS = 128
+
+
+class FlashPlan(enum.IntEnum):
+    """One launch's kernel (``enum Plan`` of csrc/flash_attention.cu,
+    which derives each kernel's tiles and stages and refuses a plan of the
+    other dtype). float32 runs the online kernel; bf16 one warpgroup a CTA
+    over 64-row tiles (flash_wgmma_kernel), or a producer warp and two
+    consumer warpgroups over wide kv tiles (flash_ws_kernel) on two halves
+    of one head's 128 query rows, or on 64 rows of two heads that read one
+    kv head (G even)."""
+    ONLINE = 0
+    WGMMA = 1
+    WS_HALVES = 2
+    WS_PAIRS = 3
+
+
+def plans(dtype: torch.dtype, G: int = 1) -> tuple:
+    """Every plan the library holds for ``dtype`` at G query heads a kv
+    head."""
+    if dtype == torch.float32:
+        return (FlashPlan.ONLINE,)
+    if dtype == torch.bfloat16:
+        return ((FlashPlan.WGMMA, FlashPlan.WS_HALVES)
+                + ((FlashPlan.WS_PAIRS,) if G % 2 == 0 else ()))
+    return ()
+
+
+def flash_plan(B: int, S: int, H: int, K: int, hd: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """The kernel a launch of B rows, S positions, H query heads and K kv
+    heads takes. float32: the online kernel. bf16: the warp-specialised
+    kernel where its products outweigh the softmax (hd of at least 80),
+    where its 128-row tiles waste little of the sequence (S of at least
+    WS_MIN_S) and where its grid of B * H * ceil(S / 128) CTAs, one an SM,
+    fills the card (at least WS_MIN_CTAS); there two heads a CTA where
+    G = H / K is even, else two halves of one head's 128 rows. Else one
+    warpgroup a CTA. The A/B lines of ``chip_smoke.py`` phase 3 read each
+    threshold on both sides (``flash_rule_cases``; PERF.md §6): at LISA-7B's
+    heads WGMMA is faster at S 512 and the two tie at 1,024; at S 1,024
+    WGMMA is faster over 96 CTAs and WS over 128. LISA-7B's prefill
+    (S 204), S 1,500 over 4 heads (48 CTAs) and granite's hd 64 read faster
+    on WGMMA, every other timed shape on the warp-specialised kernel."""
+    if dtype == torch.float32:
+        return FlashPlan.ONLINE
+    if hd < 80 or S < WS_MIN_S or B * H * -(-S // 128) < WS_MIN_CTAS:
+        return FlashPlan.WGMMA
+    return FlashPlan.WS_PAIRS if (H // K) % 2 == 0 else FlashPlan.WS_HALVES
+
+
+def plan_tile(plan: FlashPlan, hd: int) -> tuple:
+    """(query rows a CTA holds of each of its heads, keys a kv tile) of
+    ``plan``'s kernel at ``hd``, read from the built library
+    (``flash_attention_tile``); needs ``nvcc``, as a launch does."""
+    rows, keys = ctypes.c_int(), ctypes.c_int()
+    err = _build.load("flash_attention").flash_attention_tile(
+        int(plan), hd, ctypes.byref(rows), ctypes.byref(keys))
+    if err != 0:
+        raise ValueError(f"no tile for plan {plan!r} at head_dim {hd}")
+    return rows.value, keys.value
 
 
 def _check(q, k, v) -> None:
@@ -70,7 +138,8 @@ def _check_rows_aligned(q, k, v) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 128,
-                    block_k: int = 128) -> torch.Tensor:
+                    block_k: int = 128,
+                    plan: Optional[FlashPlan] = None) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,K,hd) with H % K == 0. Returns (B,S,H,hd)
     in q's dtype.
 
@@ -81,9 +150,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at or past S are never read. Any S runs. bf16 runs on the tensor
     cores and copies 16-byte rows, so it refuses tensors whose data
     pointer or batch or sequence stride is not a multiple of 16 bytes;
-    float32 runs on the CUDA cores (``csrc/flash_attention.cu``)."""
+    float32 runs on the CUDA cores (``csrc/flash_attention.cu``).
+    ``plan`` (default ``flash_plan``'s) picks the kernel; one of
+    ``plans(dtype, H // K)``, else ``ValueError``. Every plan computes the
+    same function."""
     global flash_launches
     device = _build.device_of("flash_attention", q, k, v)
+    if plan is not None:
+        built = plans(q.dtype, q.shape[2] // max(k.shape[2], 1))
+        if plan not in built:
+            raise ValueError(f"no {q.dtype} kernel at {tuple(q.shape)} was "
+                             f"built for {plan}; plans: {built}")
     if device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     _check(q, k, v)
@@ -91,6 +168,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rows_aligned(q, k, v)
     B, S, H, hd = q.shape
     K = k.shape[2]
+    if plan is None:
+        plan = flash_plan(B, S, H, K, hd, q.dtype)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -98,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPE_CODES[q.dtype], B, S, H, K, hd, int(causal),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), 1.0 / hd ** 0.5, stream)
+            v.stride(0), v.stride(1), 1.0 / hd ** 0.5, int(plan), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
