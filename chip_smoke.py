@@ -639,25 +639,34 @@ def deterministic(name, launch, args, out):
 
 
 def check_decode_attention(rng, case, dev, timed):
+    """The kernel (under ``case["plan"]`` where given, else the launcher's
+    own plan) against ``decode_attention_ref`` within TOL, launched twice
+    and bit-equal, and in bf16 its P-split reading under P_SPLIT_RATIO.
+    Timed: its time beside the plain version's, SDPA's and the byte bound,
+    and at G > 1 in bf16 the A/B line of every bf16 kernel
+    (``decode_ab``)."""
     from repro_torch.kernels.decode_attention import ops, ref
     B, H, K, hd, W, dtype, lens = (case[k] for k in
                                    ("B", "H", "K", "hd", "W", "dtype",
                                     "lens"))
     args = decode_inputs(rng, B, H, K, hd, W, dtype, lens, dev)
-    out = ops.decode_attention(*args)
+    plan = case.get("plan") or ops.decode_plan(B, H, K, hd, W, dtype)
+    launch = functools.partial(ops.decode_attention, plan=plan)
+    out = launch(*args)
     torch.cuda.synchronize()
     name = f"decode_attention {case['name']}"
-    max_err = held_against(name, out, ref.decode_attention_ref(*args))
+    want = ref.decode_attention_ref(*args)
+    max_err = held_against(name, out, want)
     rtol, atol = TOL[dtype]
     res = {
         "case": case["name"], "B": B, "H": H, "K": K, "hd": hd, "W": W,
-        "dtype": str(dtype).replace("torch.", ""),
+        "dtype": str(dtype).replace("torch.", ""), "plan": plan.name,
         "max_abs_err": max_err, "rtol": rtol, "atol": atol,
-        "deterministic": deterministic(name, ops.decode_attention, args,
-                                       out)}
+        "deterministic": deterministic(name, launch, args, out)}
     msg = (f"[kernel] decode_attention {case['name']}: B={B} H={H} K={K} "
-           f"hd={hd} W={W} {res['dtype']} max_abs_err={max_err:.3g} "
-           f"(rtol {rtol}, atol {atol}); a second launch bit-equal")
+           f"hd={hd} W={W} {res['dtype']} plan {plan.name} max_abs_err="
+           f"{max_err:.3g} (rtol {rtol}, atol {atol}); a second launch "
+           f"bit-equal")
     if timed:
         es = torch.finfo(dtype).bits // 8
         nbytes = (2 * B * H * hd + 2 * B * W * K * hd) * es + B * W * 4
@@ -674,20 +683,171 @@ def check_decode_attention(rng, case, dev, timed):
                 qq, kk, vv, attn_mask=mm, **gqa)
 
         res.update({
-            "ms": device_ms(ops.decode_attention, sets),
+            "ms": device_ms(launch, sets),
             "plain_ms": device_ms(ref.decode_attention_ref, sets),
             "library_ms": device_ms(library, lib_sets),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops})
-        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-                f" library_ms={res['library_ms']:.4f} bound_ms="
-                f"{res['bound_ms']:.4f} ({res['bound_by']})")
+        msg += (f" kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.4f}"
+                f" library_ms={res['library_ms']:.5f} bound_ms="
+                f"{res['bound_ms']:.5f} ({res['bound_by']})")
+        if dtype == torch.bfloat16 and H // K > 1:
+            res["ab_ms"], res["ab_split"] = decode_ab(
+                ops.decode_attention, sets,
+                lambda split: ops.set_split(B, H, K, hd, W, split))
+    if dtype == torch.bfloat16:
+        res["p_split"] = p_split_of(
+            out, want, decode_p_bf16(*args))
+        msg += p_split_msg(res["p_split"])
     log(msg)
+    log_decode_ab("decode", case["name"], res)
+    p_split_check(name, res.get("p_split"))
     return res
 
 
+def decode_ab(launch, sets, split_of):
+    """Device times of every bf16 decode kernel on the same inputs, each
+    in turn and then in reverse (ms lists by label): SPLIT; SETS at the
+    rule's split (``ops.sets_split``), at a split of 1 (one CTA a set, no
+    cluster, no merge) and at MAX_SPLIT (as many CTAs as the card holds at
+    once). Also each SETS label's split as the launcher takes it
+    (``split_of(cap)``, ``ops.set_split``)."""
+    from repro_torch.kernels.decode_attention import ops
+    sets_plan = ops.DecodePlan.SETS
+    variants = [("SPLIT", {"plan": ops.DecodePlan.SPLIT}),
+                ("SETS", {"plan": sets_plan}),
+                ("SETS_split1", {"plan": sets_plan, "split": 1}),
+                (f"SETS_split{ops.MAX_SPLIT}",
+                 {"plan": sets_plan, "split": ops.MAX_SPLIT})]
+    ab = {}
+    for label, kw in variants + variants[::-1]:
+        ab.setdefault(label, []).append(
+            device_ms(functools.partial(launch, **kw), sets))
+    splits = {label: split_of(kw.get("split"))
+              for label, kw in variants if kw["plan"] == sets_plan}
+    return ab, splits
+
+
+def log_decode_ab(kind, case, res):
+    """The ``[kernel] decode A/B`` line of a timed case with an A/B."""
+    if "ab_ms" not in res:
+        return
+    mean = {k: sum(v) / len(v) for k, v in res["ab_ms"].items()}
+    other = min(mean[k] for k in ("SPLIT", "SETS") if k != res["plan"])
+    log(f"[kernel] {kind} A/B {case}: " + ", ".join(
+        f"{k} " + " / ".join(f"{t:.5f}" for t in v) + " ms"
+        + (f" (split {res['ab_split'][k]})" if k in res["ab_split"] else "")
+        for k, v in res["ab_ms"].items())
+        + f"; launcher's plan {res['plan']}, "
+        f"{mean[res['plan']] / other:.3f} x the other plan")
+
+
 DECODE_TIMED = ("main_B1", "main_B4")
+
+# grouped-query decode at the SETS kernel's set edges: G query heads a kv
+# head (one set of 16 rows up to G = 16; two sets at 24), each under every
+# bf16 plan
+DECODE_SET_G = (2, 3, 6, 12, 16, 24)
+DECODE_SET_HD = (64, 128, 192)
+DECODE_SET_W = (1, 17, 72, 300)
+# the other head sizes of HEAD_DIMS at two (G, W) each: one set over a
+# cluster split with lengths spread, and two sets at W = 1 with a fully
+# masked row
+DECODE_SET_HD_EDGE = (32, 80, 112)
+DECODE_SET_GW_EDGE = ((12, 300), (24, 1))
+# the long windows off the launch floor, where one read a kv head shows:
+# (name, H, K, hd) at B = 8, W = 4,096, every slot filled
+DECODE_LONG = (("granite", 24, 8, 64), ("nemotron", 96, 8, 192))
+DECODE_LONG_B, DECODE_LONG_W = 8, 4096
+
+
+def decode_set_shapes():
+    """The (G, hd, W) of the grouped-query cases: every G of DECODE_SET_G,
+    hd of DECODE_SET_HD and W of DECODE_SET_W, then each hd of
+    DECODE_SET_HD_EDGE at each (G, W) of DECODE_SET_GW_EDGE."""
+    return (list(itertools.product(DECODE_SET_G, DECODE_SET_HD,
+                                   DECODE_SET_W))
+            + [(G, hd, W) for hd in DECODE_SET_HD_EDGE
+               for G, W in DECODE_SET_GW_EDGE])
+
+
+def decode_set_cases():
+    """bf16 decode at every (G, hd, W) of ``decode_set_shapes`` over K = 2
+    kv heads, each under every bf16 plan (``ops.plans``): {kernel: cases}. Contiguous: W = 1 with a fully
+    masked row beside a live one (B = 2), else B = 3 with lengths spread
+    from 1 to W. Paged (pages of 16, n = ceil(W / 16), each row its own
+    pages in a shuffled order): the same lengths over n x 16 slots. Each
+    case draws from a generator of its own (``case_rng``)."""
+    from repro_torch.kernels.decode_attention import ops
+    bf16 = torch.bfloat16
+    dec, paged = [], []
+    for G, hd, W in decode_set_shapes():
+        lens = [0, 1] if W == 1 else \
+            np.linspace(1, W, 3).astype(int).tolist()
+        B, page = len(lens), 16
+        n = -(-W // page)
+        table = 1 + np.random.RandomState(G * 10000 + hd * 10 + W) \
+            .permutation(B * n).reshape(B, n)
+        valid = np.arange(n * page)[None] < np.array(lens)[:, None]
+        base = dict(B=B, H=2 * G, K=2, hd=hd, dtype=bf16)
+        for plan in ops.plans(bf16, G):
+            tag = f"G{G}_hd{hd}_W{W}_{plan.name}"
+            dec.append(dict(base, name=f"set_{tag}", W=W, lens=lens,
+                            plan=plan))
+            paged.append(dict(base, name=f"set_{tag}_page{page}",
+                              P=B * n + 1, page=page, table=table,
+                              valid=valid, plan=plan))
+    return {"decode_attention": dec, "paged_decode_attention": paged}
+
+
+# the zoo's grouped-query decode steps (phases 14 and 20: B = 2, W = 72,
+# all filled), paged over pages of 8: (name, H, K, hd)
+DECODE_ZOO = (("granite", 24, 8, 64), ("qwen2", 12, 2, 128),
+              ("nemotron", 96, 8, 192))
+
+
+def decode_timed_cases():
+    """The timed grouped-query cases that phase 3 has no other case for:
+    the long windows, contiguous and paged (pages of 16, each row its own
+    256 pages), and the zoo's decode steps paged (each row its own 9 pages
+    of 8; the contiguous ones are ``zoo14_kernel_cases`` and
+    ``head_dim_cases``' hd192_B2_W72): {kernel: cases}."""
+    B, W, page = DECODE_LONG_B, DECODE_LONG_W, 16
+    n = W // page
+    dec, paged = [], []
+    for name, H, K, hd in DECODE_LONG:
+        base = dict(B=B, H=H, K=K, hd=hd, dtype=torch.bfloat16, timed=True)
+        dec.append(dict(base, name=f"long_{name}_B{B}_W{W}", W=W,
+                        lens=[W] * B))
+        paged.append(dict(base, name=f"long_{name}_B{B}_n{n}_page{page}",
+                          P=B * n + 1, page=page,
+                          table=1 + np.arange(B * n).reshape(B, n),
+                          valid=np.ones((B, n * page), bool)))
+    W = ZOO_DECODE_PROMPT + ZOO14_NEW_TOKENS
+    B, page = ZOO_BATCH, 8
+    n = W // page
+    for name, H, K, hd in DECODE_ZOO:
+        paged.append(dict(name=f"zoo_{name}_B{B}_n{n}_page{page}", B=B, H=H,
+                          K=K, hd=hd, dtype=torch.bfloat16, timed=True,
+                          P=B * n + 1, page=page,
+                          table=1 + np.arange(B * n).reshape(B, n),
+                          valid=np.ones((B, n * page), bool)))
+    return {"decode_attention": dec, "paged_decode_attention": paged}
+
+
+# the SETS split's threshold (ops.SETS_MIN_SLOTS) read on both sides:
+# nemotron's and granite's heads at B = 2 over these windows, all filled
+DECODE_RULE_W = (128, 256, 512, 1024)
+
+
+def decode_rule_cases():
+    """Timed bf16 decode cases beside ``ops.sets_split``'s threshold, each
+    with its A/B line: nemotron's heads (H 96, K 8, hd 192) and granite's
+    (H 24, K 8, hd 64) at B = 2 and each W of DECODE_RULE_W."""
+    return [dict(name=f"rule_{name}_B2_W{W}", B=2, H=H, K=K, hd=hd, W=W,
+                 dtype=torch.bfloat16, lens=[W, W], timed=True)
+            for name, H, K, hd in DECODE_LONG for W in DECODE_RULE_W]
 
 
 def kernel_cases(pcfg, batches):
@@ -767,27 +927,31 @@ def paged_bytes_flops(case, es):
 
 
 def check_paged_decode_attention(rng, case, dev, timed):
+    """As ``check_decode_attention``, over the case's page table; the
+    yardstick is the page gather then SDPA (two calls)."""
     from repro_torch.kernels.decode_attention import ops, ref
     args = paged_inputs(rng, case, dev)
-    out = ops.paged_decode_attention(*args)
+    dtype = case["dtype"]
+    B, H, K, hd, page = (case[k] for k in ("B", "H", "K", "hd", "page"))
+    n = case["table"].shape[1]
+    plan = case.get("plan") or ops.decode_plan(B, H, K, hd, n * page,
+                                               dtype)
+    launch = functools.partial(ops.paged_decode_attention, plan=plan)
+    out = launch(*args)
     torch.cuda.synchronize()
     want = ref.paged_decode_attention_ref(*args)
     name = f"paged_decode_attention {case['name']}"
     max_err = held_against(name, out, want)
-    dtype = case["dtype"]
     rtol, atol = TOL[dtype]
-    B, H, K, hd, page = (case[k] for k in ("B", "H", "K", "hd", "page"))
-    n = case["table"].shape[1]
     res = {"case": case["name"], "B": B, "H": H, "K": K, "hd": hd,
            "P": case["P"], "page": page, "n": n,
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "plan": plan.name,
            "max_abs_err": max_err, "rtol": rtol, "atol": atol,
-           "deterministic": deterministic(name, ops.paged_decode_attention,
-                                          args, out)}
+           "deterministic": deterministic(name, launch, args, out)}
     msg = (f"[kernel] paged_decode_attention {case['name']}: B={B} H={H} "
            f"K={K} hd={hd} P={case['P']} page={page} n={n} {res['dtype']} "
-           f"max_abs_err={max_err:.3g} (rtol {rtol}, atol {atol}); a second "
-           f"launch bit-equal")
+           f"plan {plan.name} max_abs_err={max_err:.3g} (rtol {rtol}, atol "
+           f"{atol}); a second launch bit-equal")
     if timed:
         nbytes, flops = paged_bytes_flops(case, torch.finfo(dtype).bits // 8)
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -805,18 +969,32 @@ def check_paged_decode_attention(rng, case, dev, timed):
                 attn_mask=bias[:, None, None, :].to(q.dtype), **gqa)
 
         res.update({
-            "ms": device_ms(ops.paged_decode_attention, sets),
+            "ms": device_ms(launch, sets),
             "plain_ms": device_ms(ref.paged_decode_attention_ref, sets),
             "gather_sdpa_ms": device_ms(gather_sdpa, sets),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
             "distinct_pages": int(len(np.unique(case["table"])))})
-        msg += (f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-                f" gather_sdpa_ms={res['gather_sdpa_ms']:.4f} bound_ms="
+        msg += (f" kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.4f}"
+                f" gather_sdpa_ms={res['gather_sdpa_ms']:.5f} bound_ms="
                 f"{res['bound_ms']:.5f} ({res['bound_by']}, "
                 f"{res['distinct_pages']} distinct pages)")
+        if dtype == torch.bfloat16 and H // K > 1:
+            res["ab_ms"], res["ab_split"] = decode_ab(
+                ops.paged_decode_attention, sets,
+                lambda split: ops.set_split(B, H, K, hd, n * page, split,
+                                            n_pages=n))
+    if dtype == torch.bfloat16:
+        q, kp, vp, table, bias = args
+        idx = table.long()
+        res["p_split"] = p_split_of(out, want, decode_p_bf16(
+            q, kp[idx].reshape(B, n * page, K, hd),
+            vp[idx].reshape(B, n * page, K, hd), bias))
+        msg += p_split_msg(res["p_split"])
     log(msg)
+    log_decode_ab("paged decode", case["name"], res)
+    p_split_check(name, res.get("p_split"))
     return res
 
 
@@ -1162,17 +1340,52 @@ def attention_p_bf16(q, k, v, causal=True):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def p_split_reading(out, want, q, k, v, causal):
+def decode_p_bf16(q, k, v, bias):
+    """``decode_attention_ref`` with the probabilities rounded to bf16
+    before P.V, as one bf16 P in the P.V MMA would have them."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    scores = torch.einsum("bkgh,bwkh->bkgw",
+                          q.reshape(B, K, H // K, hd).float(),
+                          k.float()) / math.sqrt(hd)
+    scores = scores + bias[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    out = torch.einsum("bkgw,bwkh->bkgh", probs, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def p_split_of(out, want, want_p):
     """How near ``out`` keeps P to float32: its norm-wise error against
-    ``want`` (attention_ref), the error of ``attention_p_bf16`` against the
-    same, and their ratio, which must be under P_SPLIT_RATIO. The ratio is
-    None where one bf16 P is exact (one key a row, as at S = 1), so that
-    there is no rounding of P to compare with."""
-    err = _rel(out, want)
-    err_p = _rel(attention_p_bf16(q, k, v, causal), want)
+    ``want`` (the plain version), the error of ``want_p`` (the plain
+    version with P rounded once to bf16) against the same, and their
+    ratio, which must be under P_SPLIT_RATIO. The ratio is None where one
+    bf16 P is exact (one key a row, as at S = 1), so that there is no
+    rounding of P to compare with."""
+    err, err_p = _rel(out, want), _rel(want_p, want)
     return {"rel_err": err, "rel_err_p_bf16": err_p,
             "ratio": err / err_p if err_p > 0 else None,
             "limit": P_SPLIT_RATIO}
+
+
+def p_split_reading(out, want, q, k, v, causal):
+    """``p_split_of`` a flash output against ``attention_ref``."""
+    return p_split_of(out, want, attention_p_bf16(q, k, v, causal))
+
+
+def p_split_msg(p):
+    return (f"; P near float32: norm-wise err {p['rel_err']:.3g}, with "
+            f"P rounded to bf16 {p['rel_err_p_bf16']:.3g}, ratio "
+            + ("none (one bf16 P is exact)" if p["ratio"] is None
+               else f"{p['ratio']:.3g}") + f" (limit {P_SPLIT_RATIO})")
+
+
+def p_split_check(name, p):
+    """Raises where a P-split reading is at or over P_SPLIT_RATIO."""
+    if p is not None and p["ratio"] is not None \
+            and not p["ratio"] < P_SPLIT_RATIO:
+        raise AssertionError(f"{name}: the kernel keeps P no nearer "
+                             f"float32 than P_SPLIT_RATIO of one bf16 P's "
+                             f"error: {p}")
 
 
 def flash_product_flops(case, rows, keys):
@@ -1262,11 +1475,8 @@ def check_flash_attention(rng, case, dev, timed):
                     case, *ops.plan_tile(pl, hd)) / PEAK_FLOPS[dtype]
                 for pl in plans}
     if dtype == torch.bfloat16:
-        p = res["p_split"] = p_split_reading(out, want, *args, causal)
-        msg += (f"; P near float32: norm-wise err {p['rel_err']:.3g}, with "
-                f"P rounded to bf16 {p['rel_err_p_bf16']:.3g}, ratio "
-                + ("none (one bf16 P is exact)" if p["ratio"] is None
-                   else f"{p['ratio']:.3g}") + f" (limit {P_SPLIT_RATIO})")
+        res["p_split"] = p_split_reading(out, want, *args, causal)
+        msg += p_split_msg(res["p_split"])
     log(msg)
     if "ab_ms" in res:
         log(f"[kernel] flash A/B {case['name']}: " + ", ".join(
@@ -1274,11 +1484,7 @@ def check_flash_attention(rng, case, dev, timed):
             + f" ms (product bound {res['ab_product_bound_ms'][k]:.5f})"
             for k, v in res["ab_ms"].items())
             + f"; launcher's plan {plan.name}")
-    ratio = res.get("p_split", {}).get("ratio")
-    if ratio is not None and not ratio < P_SPLIT_RATIO:
-        raise AssertionError(f"flash_attention {case['name']}: the kernel "
-                             f"keeps P no nearer float32 than P_SPLIT_RATIO "
-                             f"of one bf16 P's error: {res['p_split']}")
+    p_split_check(name, res.get("p_split"))
     return res
 
 
@@ -1330,6 +1536,10 @@ def flash_rule_cases():
 # sequences
 FLASH_TIMED = ("main_B1", "main_B4", "bf16_B1_S1500_G2_hd128_causal",
                "bf16_B1_S4096_G1_hd128_causal")
+# the float32 kernel's (FlashPlan.ONLINE) timed case, timed once more after
+# the others on inputs of its own (``case_rng``), so that the cases that
+# draw from the shared generator after it keep their inputs
+FLASH_F32_TIMED = "float32_B2_S3000_G4_hd64_full_online"
 
 
 def flash_cases(pcfg):
@@ -8402,6 +8612,17 @@ def ws_launch_regs(lines):
     return regs
 
 
+def set_kernels_spill_free(lines):
+    """Raises unless ``ptxas_lines`` holds a SETS kernel instantiation
+    (``set_*_kernel``) and every one of them reports no spill."""
+    rows = [ln for ln in lines if ln.startswith("set_") and "Used" in ln]
+    bad = [ln for ln in rows if re.search(r"\b[1-9]\d* bytes spill", ln)]
+    if not rows or bad:
+        raise AssertionError(f"SETS kernels spill (or none was built): "
+                             f"{bad or lines}")
+    return rows
+
+
 def _write_report(path, report):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -8470,6 +8691,9 @@ def main() -> int:
             log(f"[build] {name}: {ln}")
     if "flash_attention" in names:
         ws_launch_regs(report["ptxas"]["flash_attention"])
+    for name in ("decode_attention", "paged_decode_attention"):
+        if name in names:
+            set_kernels_spill_free(report["ptxas"][name])
     if args.split18_seed:
         report["split18_seeds"], failed = [], []
         for s in args.split18_seed:
@@ -8504,13 +8728,23 @@ def main() -> int:
         return [check(case_rng(args.seed, c["name"]), c, dev,
                       timed=c.get("timed", False)) for c in hd_cases[name]]
 
+    set_cases, timed_cases = decode_set_cases(), decode_timed_cases()
+
+    def own_rng_checks(check, cases):
+        return [check(case_rng(args.seed, c["name"]), c, dev,
+                      timed=c.get("timed", False)) for c in cases]
+
     phase3 = {
         "decode_attention": lambda: [
             check_decode_attention(rng, c, dev,
                                    timed=c["name"] in DECODE_TIMED
                                    or c["name"].startswith("zoo_"))
             for c in kernel_cases(pcfg, (1, 4)) + zoo14_kernel_cases()[1]]
-        + head_dim_checks(check_decode_attention, "decode_attention"),
+        + head_dim_checks(check_decode_attention, "decode_attention")
+        + own_rng_checks(check_decode_attention,
+                         set_cases["decode_attention"]
+                         + timed_cases["decode_attention"]
+                         + decode_rule_cases()),
         # lisa-mini's served shape draws from its own RandomState: the
         # cases after it keep the inputs they have always had
         "paged_decode_attention": lambda: [
@@ -8520,7 +8754,10 @@ def main() -> int:
                 np.random.RandomState(args.seed), mini_paged, dev,
                 timed=True)]
         + head_dim_checks(check_paged_decode_attention,
-                          "paged_decode_attention"),
+                          "paged_decode_attention")
+        + own_rng_checks(check_paged_decode_attention,
+                         set_cases["paged_decode_attention"]
+                         + timed_cases["paged_decode_attention"]),
         "paged_verify_attention": lambda: [
             check_paged_verify_attention(
                 rng, c, dev, timed=c["name"].startswith("main")
@@ -8536,7 +8773,11 @@ def main() -> int:
         + head_dim_checks(check_flash_attention, "flash_attention")
         + [check_flash_attention(case_rng(args.seed, c["name"]), c, dev,
                                  timed=True) for c in flash_rule_cases()]
-        + flash_edge_checks(args.seed, dev),
+        + flash_edge_checks(args.seed, dev)
+        + [check_flash_attention(case_rng(args.seed, c["name"]),
+                                 dict(c, name=f"{c['name']}_timed"), dev,
+                                 timed=True)
+           for c in flash_cases(pcfg) if c["name"] == FLASH_F32_TIMED],
         "bottleneck_encode": lambda: [
             check_bottleneck_encode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))

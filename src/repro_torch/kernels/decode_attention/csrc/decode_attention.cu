@@ -36,6 +36,13 @@
 //     share the arithmetic.
 //   * All G query heads of a kv head (G <= kMaxGroup) share a cluster, so
 //     each k/v slot is read once per kv head, not once per query head.
+// The plan (ops.py:DecodePlan, picked by ops.py:decode_plan): SPLIT is the
+// design above, in query sets of up to kMaxGroup = 8 on CUDA cores, and
+// takes every G = 1 shape (LISA-7B's). SETS (split_decode.cuh:attend_set)
+// takes G > 1: one cluster serves a kv head's whole query set (up to 16;
+// nemotron-4-340b's G = 12 had taken two clusters of 8 and 4 under SPLIT,
+// each reading the rows again), with q.k and P.V as tensor-core products
+// (mma.sync m16n8k16, the set's queries as the 16 rows).
 //   * The cache is read in place, in the reference's public (B, W, K, hd)
 //     layout, through the batch and slot strides: no transposed copy and no
 //     padding of W. The ragged tail is masked here. The strides and base
@@ -45,8 +52,8 @@
 // in flight a warp, partial states merged through shared memory.
 //
 // Head sizes 32, 64, 80, 112, 128 and 192 (zamba2-7b 112; nemotron-4-340b
-// 192, whose 12 query heads a kv head take two clusters, sets of 8 and 4):
-// split_decode.cuh pads a row's lane group to a power of two of lanes, and
+// 192): SPLIT pads a row's lane group to a power of two of lanes, SETS
+// takes every head size as whole k-steps of 16, and
 // flash_decode.cuh's last load of a row covers part of a warp and, at
 // hd = 192, merges its warps' accumulators in two rounds of query heads.
 //
@@ -62,6 +69,9 @@
 namespace {
 
 using namespace flash_decode;
+
+// ops.py:DecodePlan
+enum Plan { kFlashDecode = 0, kSplit = 1, kSets = 2 };
 
 // Slot t of batch row b: a batch stride and a slot stride, in elements.
 struct RingRows {
@@ -119,21 +129,65 @@ struct SplitKernel {
   static auto fn() { return &split_decode_attention_kernel<HD, NG>; }
 };
 
+// The set kernel (plan SETS): one cluster of `split` CTAs a (kv head, set
+// of up to kSetRows of its query heads) along x, batch row b along y; CTA
+// r folds slots [r W / split, (r + 1) W / split).
+template <int HD>
+__global__ void __launch_bounds__(split_decode::kSetThreads, 2)
+set_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out, int H, int K,
+                            int W, long long k_sb, long long k_st,
+                            long long v_sb, long long v_st,
+                            long long bias_sb, float scale) {
+  const split_decode::Place pl =
+      split_decode::place(H / K, split_decode::kSetRows);
+  const int b = blockIdx.y;
+  const RingRows rows{b, k_sb, k_st, v_sb, v_st};
+  split_decode::attend_set<HD>(
+      q, k, v, out, rows,
+      split_decode::head_queries(pl, H, K, bias + (long long)b * bias_sb),
+      split_decode::part(W, pl.rank, pl.split),
+      split_decode::part(W, pl.rank + 1, pl.split), pl, scale);
+}
+
+template <int HD>
+struct SetKernel {
+  static_assert(split_decode::SetSmem<HD>::kBytes <= split_decode::kBlockSmem,
+                "over the 227 KB a block may use");
+  static auto fn() { return &set_decode_attention_kernel<HD>; }
+};
+
+// plan: ops.py:DecodePlan (SPLIT: Sizes<1, kMaxGroup>, the split at most
+// one CTA per kMinSlots slots; SETS: sets of kSetRows, the split at most
+// max_split, which SPLIT refuses).
 int launch_bf16(const void* q, const void* k, const void* v,
                 const float* bias, void* out, int B, int H, int K, int W,
                 int hd, long long k_sb, long long k_st, long long v_sb,
-                long long v_st, long long bias_sb, float scale,
-                cudaStream_t stream) {
+                long long v_st, long long bias_sb, float scale, int plan,
+                int max_split, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   if (!split_decode::aligned16({q, k, v}, {k_sb, k_st, v_sb, v_st})) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  return static_cast<int>(split_decode::launch_split<SplitKernel>(
-      split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
-      W / split_decode::kMinSlots, stream,
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), bias, static_cast<bf*>(out), H, K, W, k_sb,
-      k_st, v_sb, v_st, bias_sb, scale));
+  if (plan == kSplit && max_split == 0) {
+    return static_cast<int>(split_decode::launch_split<SplitKernel>(
+        split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
+        W / split_decode::kMinSlots, stream,
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), bias, static_cast<bf*>(out), H, K, W, k_sb,
+        k_st, v_sb, v_st, bias_sb, scale));
+  }
+  if (plan == kSets && max_split >= 1) {
+    return static_cast<int>(split_decode::launch_sets<SetKernel>(
+        H / K, hd, B, K, max_split < W ? max_split : W, stream,
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), bias, static_cast<bf*>(out), H, K, W, k_sb,
+        k_st, v_sb, v_st, bias_sb, scale));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -188,26 +242,42 @@ int launch_typed(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
+// dtype: 0 = float32, 1 = bfloat16; plan: ops.py:DecodePlan, FLASH_DECODE
+// for float32 only, SPLIT or SETS for bf16 (max_split: SETS' most CTAs a
+// cluster, 0 for the other plans). Strides are in elements. Returns the
 // CUDA error of the launch (0 on success); the caller raises on anything
 // else.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     int dtype, int B, int H, int K, int W, int hd, long long k_sb,
     long long k_st, long long v_sb, long long v_st, long long bias_sb,
-    float scale, void* stream) {
+    float scale, int plan, int max_split, void* stream) {
   if (B <= 0 || K <= 0 || W <= 0 || H % K != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && plan == kFlashDecode && max_split == 0) {
     return launch_typed<float>(q, k, v, bf, out, B, H, K, W, hd, k_sb, k_st,
                                v_sb, v_st, bias_sb, scale, s);
   }
   if (dtype == 1) {
     return launch_bf16(q, k, v, bf, out, B, H, K, W, hd, k_sb, k_st, v_sb,
-                       v_st, bias_sb, scale, s);
+                       v_st, bias_sb, scale, plan, max_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split a SETS launch of B rows, H query heads over K kv heads at head
+// dim hd takes with `most` its cap (decode: min(max_split, W); paged:
+// min(max_split, n_pages)), into *split; returns the CUDA error of the
+// query (0 on success).
+extern "C" int decode_attention_set_split(int B, int H, int K,
+                                          int hd, int most,
+                                          int* split) {
+  if (B <= 0 || K <= 0 || H % K != 0 || most < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      split_decode::set_splits<SetKernel>(H / K, hd, B, K, most, split));
 }

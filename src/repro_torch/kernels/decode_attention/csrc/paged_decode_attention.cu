@@ -47,6 +47,9 @@
 //     entries at the trash page. No page is skipped, even when its bias
 //     masks it whole, so a fully masked row is the mean of v over all its
 //     slots, as in the plain version (ref.py).
+// At G > 1 the plan SETS (ops.py:decode_plan) takes the grouped-query body
+// (split_decode.cuh:attend_set) with the same paged addressing: one cluster
+// a kv head's whole query set, q.k and P.V on the tensor cores.
 // float32 inputs keep flash_decode.cuh's one-CTA-a-kv-head body with the
 // row's table staged in shared memory.
 //
@@ -66,6 +69,9 @@
 namespace {
 
 using namespace flash_decode;
+
+// ops.py:DecodePlan
+enum Plan { kFlashDecode = 0, kSplit = 1, kSets = 2 };
 
 // q (B, H, HD) contiguous; k_pool/v_pool (P, page, K, HD) with unit stride
 // over HD and stride HD over K; table (B, n_pages) int32 with unit stride
@@ -123,27 +129,75 @@ struct SplitKernel {
   static auto fn() { return &split_paged_decode_attention_kernel<HD, NG>; }
 };
 
-// At most one split a page, and one per kMinSlots slots.
+// The set kernel (plan SETS): one cluster of `split` CTAs a (kv head, set
+// of up to kSetRows of its query heads) along x, batch row b along y; CTA
+// r folds the slots of pages [r n / split, (r + 1) n / split).
+template <int HD>
+__global__ void __launch_bounds__(split_decode::kSetThreads, 2)
+set_paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k_pool,
+                                  const __nv_bfloat16* __restrict__ v_pool,
+                                  const int* __restrict__ table,
+                                  const float* __restrict__ bias,
+                                  __nv_bfloat16* __restrict__ out, int H,
+                                  int K, int n_pages, int page,
+                                  long long k_sp, long long k_ss,
+                                  long long v_sp, long long v_ss,
+                                  long long table_sb, long long bias_sb,
+                                  float scale) {
+  const split_decode::Place pl =
+      split_decode::place(H / K, split_decode::kSetRows);
+  const int b = blockIdx.y;
+  const PagedRows rows{table + (long long)b * table_sb, page, k_sp, k_ss,
+                       v_sp, v_ss};
+  split_decode::attend_set<HD>(
+      q, k_pool, v_pool, out, rows,
+      split_decode::head_queries(pl, H, K, bias + (long long)b * bias_sb),
+      split_decode::part(n_pages, pl.rank, pl.split) * page,
+      split_decode::part(n_pages, pl.rank + 1, pl.split) * page, pl, scale);
+}
+
+template <int HD>
+struct SetKernel {
+  static_assert(split_decode::SetSmem<HD>::kBytes <= split_decode::kBlockSmem,
+                "over the 227 KB a block may use");
+  static auto fn() { return &set_paged_decode_attention_kernel<HD>; }
+};
+
+// plan: ops.py:DecodePlan. SPLIT: Sizes<1, kMaxGroup>, at most one split a
+// page and one per kMinSlots slots. SETS: sets of kSetRows, at most one
+// split a page and max_split (which SPLIT refuses).
 int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
                 const int* table, const float* bias, void* out, int B, int H,
                 int K, int n_pages, int page, int hd, long long k_sp,
                 long long k_ss, long long v_sp, long long v_ss,
-                long long table_sb, long long bias_sb, float scale,
-                cudaStream_t stream) {
+                long long table_sb, long long bias_sb, float scale, int plan,
+                int max_split, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   if (!split_decode::aligned16({q, k_pool, v_pool},
                                {k_sp, k_ss, v_sp, v_ss})) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const long long slots = (long long)n_pages * page;
-  const int most = static_cast<int>(
-      std::min<long long>(n_pages, slots / split_decode::kMinSlots));
-  return static_cast<int>(split_decode::launch_split<SplitKernel>(
-      split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
-      most, stream, static_cast<const bf*>(q),
-      static_cast<const bf*>(k_pool), static_cast<const bf*>(v_pool), table,
-      bias, static_cast<bf*>(out), H, K, n_pages, page, k_sp, k_ss, v_sp,
-      v_ss, table_sb, bias_sb, scale));
+  if (plan == kSplit && max_split == 0) {
+    const long long slots = (long long)n_pages * page;
+    const int most = static_cast<int>(
+        std::min<long long>(n_pages, slots / split_decode::kMinSlots));
+    return static_cast<int>(split_decode::launch_split<SplitKernel>(
+        split_decode::Sizes<1, split_decode::kMaxGroup>{}, H / K, hd, B, K,
+        most, stream, static_cast<const bf*>(q),
+        static_cast<const bf*>(k_pool), static_cast<const bf*>(v_pool),
+        table, bias, static_cast<bf*>(out), H, K, n_pages, page, k_sp, k_ss,
+        v_sp, v_ss, table_sb, bias_sb, scale));
+  }
+  if (plan == kSets && max_split >= 1) {
+    return static_cast<int>(split_decode::launch_sets<SetKernel>(
+        H / K, hd, B, K, std::min(n_pages, max_split), stream,
+        static_cast<const bf*>(q), static_cast<const bf*>(k_pool),
+        static_cast<const bf*>(v_pool), table, bias, static_cast<bf*>(out),
+        H, K, n_pages, page, k_sp, k_ss, v_sp, v_ss, table_sb, bias_sb,
+        scale));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -200,7 +254,9 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
+// dtype: 0 = float32, 1 = bfloat16; plan: ops.py:DecodePlan, FLASH_DECODE
+// for float32 only, SPLIT or SETS for bf16 (max_split: SETS' most CTAs a
+// cluster, 0 for the other plans). Strides are in elements. Returns the
 // CUDA error of the launch (0 on success); the caller raises on anything
 // else.
 extern "C" int paged_decode_attention_launch(
@@ -208,14 +264,14 @@ extern "C" int paged_decode_attention_launch(
     const void* bias, void* out, int dtype, int B, int H, int K, int n_pages,
     int page, int hd, long long k_sp, long long k_ss, long long v_sp,
     long long v_ss, long long table_sb, long long bias_sb, float scale,
-    void* stream) {
+    int plan, int max_split, void* stream) {
   if (B <= 0 || K <= 0 || n_pages <= 0 || page <= 0 || H % K != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int* tb = static_cast<const int*>(table);
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && plan == kFlashDecode && max_split == 0) {
     return launch_typed<float>(q, k_pool, v_pool, tb, bf, out, B, H, K,
                                n_pages, page, hd, k_sp, k_ss, v_sp, v_ss,
                                table_sb, bias_sb, scale, s);
@@ -223,7 +279,21 @@ extern "C" int paged_decode_attention_launch(
   if (dtype == 1) {
     return launch_bf16(q, k_pool, v_pool, tb, bf, out, B, H, K, n_pages,
                        page, hd, k_sp, k_ss, v_sp, v_ss, table_sb, bias_sb,
-                       scale, s);
+                       scale, plan, max_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split a SETS launch of B rows, H query heads over K kv heads at head
+// dim hd takes with `most` its cap (decode: min(max_split, W); paged:
+// min(max_split, n_pages)), into *split; returns the CUDA error of the
+// query (0 on success).
+extern "C" int paged_decode_attention_set_split(int B, int H, int K,
+                                                int hd, int most,
+                                                int* split) {
+  if (B <= 0 || K <= 0 || H % K != 0 || most < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      split_decode::set_splits<SetKernel>(H / K, hd, B, K, most, split));
 }

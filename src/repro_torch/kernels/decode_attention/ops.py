@@ -15,11 +15,15 @@ keys over a cluster of CTAs and read 16-byte rows
 (``csrc/split_decode.cuh``), so they refuse a q, cache or pool whose data
 pointer, or a cache or pool whose batch, page or slot stride, is not a
 multiple of 16 bytes. The float32 kernels keep one CTA a (row, kv head)
-(``csrc/flash_decode.cuh``).
+(``csrc/flash_decode.cuh``). The two decode wrappers take one of three
+kernels (``DecodePlan``), picked by ``decode_plan`` unless the caller
+forces one.
 """
 from __future__ import annotations
 
 import ctypes
+import enum
+from typing import Optional
 
 import torch
 
@@ -37,6 +41,103 @@ from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 # have no such limit, but share the check
 MAX_PAGES = 2048
 
+# the most CTAs a cluster of the SETS kernel splits a row's keys over (the
+# portable cluster size; split_decode.cuh:kMaxSplit)
+MAX_SPLIT = 8
+# the fewest slots a CTA of a SETS split must take: below that the kernel
+# runs one CTA a set, with no cluster and no merge (``sets_split``). Read on
+# both sides on the H100 (chip_smoke.py's decode A/B lines, PERF.md §6):
+# at W = 72 one CTA ran nemotron-4-340b's heads in 0.0062 ms against 0.0123
+# at a split of 8, at W = 128 a split of 2 in 0.0071 against one CTA's
+# 0.0075, at W = 256 a split of 4 in 0.0084 against 0.0119
+SETS_MIN_SLOTS = 64
+
+
+class DecodePlan(enum.IntEnum):
+    """One decode launch's kernel (``enum Plan`` of the two decode
+    launchers, which refuse a plan of the other dtype). float32: one CTA a
+    (row, kv head) (``flash_decode.cuh``). bf16: the split-K body in sets
+    of at most 8 queries on CUDA cores (``split_decode.cuh:attend``), or
+    one cluster a kv head's whole query set (up to 16) with both products
+    on the tensor cores (``split_decode.cuh:attend_set``)."""
+    FLASH_DECODE = 0
+    SPLIT = 1
+    SETS = 2
+
+
+def plans(dtype: torch.dtype, G: int = 1) -> tuple:
+    """Every plan the library holds for ``dtype`` at G query heads a kv
+    head: at G = 1 bf16 keeps SPLIT alone."""
+    if dtype == torch.float32:
+        return (DecodePlan.FLASH_DECODE,)
+    if dtype == torch.bfloat16:
+        return ((DecodePlan.SPLIT,) if G == 1
+                else (DecodePlan.SPLIT, DecodePlan.SETS))
+    return ()
+
+
+def decode_plan(B: int, H: int, K: int, hd: int, W: int,
+                dtype: torch.dtype) -> DecodePlan:
+    """The kernel a decode launch of B rows, H query heads over K kv heads
+    and W slots takes (the paged launch: W = pages x page). float32:
+    FLASH_DECODE. bf16 at G = H / K = 1: SPLIT, at every B and W (LISA-7B's
+    whole serving path). bf16 at G > 1: SETS, which reads each kv head's
+    rows once for all its query heads (SPLIT reads them once a set of 8)
+    and ran faster than SPLIT at every timed G > 1 shape on the H100
+    (``chip_smoke.py`` phase 3's A/B lines, PERF.md §6)."""
+    if dtype == torch.float32:
+        return DecodePlan.FLASH_DECODE
+    if H // K == 1:
+        return DecodePlan.SPLIT
+    return DecodePlan.SETS
+
+
+def sets_split(W: int) -> int:
+    """The most CTAs the SETS kernel may split W slots over: one per
+    SETS_MIN_SLOTS slots, at most MAX_SPLIT, at least 1 (the launcher takes
+    the largest power of two under it that puts no more CTAs on an SM than
+    ``split_decode.cuh:set_ctas_per_sm`` aims for)."""
+    return max(1, min(MAX_SPLIT, W // SETS_MIN_SLOTS))
+
+
+def set_split(B: int, H: int, K: int, hd: int, W: int,
+              split: Optional[int] = None,
+              n_pages: Optional[int] = None) -> int:
+    """The CTAs a cluster of the SETS kernel takes at this shape (the
+    contiguous kernel, or the paged one over ``n_pages`` pages), with
+    ``split`` its cap (default ``sets_split(W)``), read from the built
+    library (``*_set_split``: from the card's SMs and the CTAs an SM the
+    kernel aims for); needs ``nvcc`` and the card, as a launch does."""
+    cap = sets_split(W) if split is None else split
+    name = "decode_attention" if n_pages is None else \
+        "paged_decode_attention"
+    most = min(cap, W if n_pages is None else n_pages)
+    out = ctypes.c_int()
+    err = getattr(_build.load(name), f"{name}_set_split")(
+        B, H, K, hd, most, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{name}_set_split failed: CUDA error {err}")
+    return out.value
+
+
+def _launch_plan(plan, split, dtype, G, B, H, K, hd, W):
+    """(plan, max_split) of one launch: the caller's plan (one of
+    ``plans``) or ``decode_plan``'s, and SETS' split cap (``split``, else
+    ``sets_split``; 0 for the other plans)."""
+    if plan is None:
+        plan = decode_plan(B, H, K, hd, W, dtype)
+    if plan not in plans(dtype, G):
+        raise ValueError(f"plan {plan!r} is not one of {plans(dtype, G)} "
+                         f"for {dtype} at G = {G}")
+    if plan != DecodePlan.SETS:
+        if split is not None:
+            raise ValueError(f"split is SETS' only; plan {plan!r}")
+        return plan, 0
+    if split is not None and not 1 <= split <= MAX_SPLIT:
+        raise ValueError(f"split {split} not in 1..{MAX_SPLIT}")
+    return plan, sets_split(W) if split is None else split
+
+
 # kernel launches since the last reset, one plain counter per kernel
 # (chip_smoke.py sets them to 0 before the main path and reads them after)
 launches = 0
@@ -48,10 +149,12 @@ verify_launches = 0
 _ARGTYPES = {
     "decode_attention": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                          + [ctypes.c_longlong] * 5
-                         + [ctypes.c_float, ctypes.c_void_p]),
+                         + [ctypes.c_float] + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p]),
     "paged_decode_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                + [ctypes.c_longlong] * 6
-                               + [ctypes.c_float, ctypes.c_void_p]),
+                               + [ctypes.c_float] + [ctypes.c_int] * 2
+                               + [ctypes.c_void_p]),
     "paged_verify_attention": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                                + [ctypes.c_longlong] * 7
                                + [ctypes.c_float, ctypes.c_void_p]),
@@ -105,8 +208,12 @@ def _check_rows_aligned(q, k, v) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
-    """q (B,H,hd); k/v (B,W,K,hd); bias (B,W) additive. -> (B,H,hd)."""
+                     bias: torch.Tensor, plan: Optional[DecodePlan] = None,
+                     split: Optional[int] = None) -> torch.Tensor:
+    """q (B,H,hd); k/v (B,W,K,hd); bias (B,W) additive. -> (B,H,hd).
+    ``plan`` forces one of ``plans(dtype, H // K)`` (default
+    ``decode_plan``'s); ``split`` caps the SETS kernel's cluster (default
+    ``sets_split(W)``; 1: one CTA a set)."""
     global launches
     device = _build.device_of("decode_attention", q, k, v, bias)
     if device.type == "cpu":
@@ -116,6 +223,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rows_aligned(q, k, v)
     B, H, hd = q.shape
     W, K = k.shape[1], k.shape[2]
+    plan, max_split = _launch_plan(plan, split, q.dtype, H // K, B, H, K,
+                                   hd, W)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -123,7 +232,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), DTYPE_CODES[q.dtype], B, H, K, W, hd,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            bias.stride(0), 1.0 / hd ** 0.5, stream)
+            bias.stride(0), 1.0 / hd ** 0.5, int(plan), max_split, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -177,11 +286,15 @@ def _check_paged(q, k_pool, v_pool, page_table, bias) -> None:
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
+                           bias: torch.Tensor,
+                           plan: Optional[DecodePlan] = None,
+                           split: Optional[int] = None) -> torch.Tensor:
     """q (B,H,hd); k_pool/v_pool (P,page,K,hd), the shared page pool, read
     in place; page_table (B,n) int32, every entry a valid page id (the
     kernel does not check: idle rows point at the trash page); bias
-    (B, n*page) additive over the row's virtual sequence. -> (B,H,hd)."""
+    (B, n*page) additive over the row's virtual sequence. -> (B,H,hd).
+    ``plan`` and ``split`` as ``decode_attention``'s, over W = n*page
+    slots (the SETS split is also at most one CTA a page)."""
     global paged_launches
     device = _build.device_of("paged_decode_attention", q, k_pool, v_pool,
                      page_table, bias)
@@ -196,6 +309,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     B, H, hd = q.shape
     page, K = k_pool.shape[1], k_pool.shape[2]
     n = page_table.shape[1]
+    plan, max_split = _launch_plan(plan, split, q.dtype, H // K, B, H, K,
+                                   hd, n * page)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -204,7 +319,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
             DTYPE_CODES[q.dtype], B, H, K, n, page, hd, k_pool.stride(0),
             k_pool.stride(1), v_pool.stride(0), v_pool.stride(1),
-            page_table.stride(0), bias.stride(0), 1.0 / hd ** 0.5, stream)
+            page_table.stride(0), bias.stride(0), 1.0 / hd ** 0.5,
+            int(plan), max_split, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
