@@ -11,7 +11,8 @@ Phases, each fatal on failure:
      checkout (nvcc, sm_90a; one nvcc per source, all started together) and
      report the build time and ptxas' register and spill lines and
      warnings (each warp-specialised flash instantiation must launch with
-     WS_LAUNCH_REGS registers a thread);
+     WS_LAUNCH_REGS registers a thread, and no float32 flash
+     instantiation, flash_tf32_kernel, may spill);
   3. hold each kernel against its plain PyTorch version on the card, at
      the serving path's own shapes (once more with lengths spread from 1
      to W across rows) and at a small fp32 shape, and time the
@@ -26,7 +27,10 @@ Phases, each fatal on failure:
      the kernel's scales within SCALES_TOL of the plain version's and both
      within SCALES_TOL of a float64 product's (``encode_draws``);
   4. check the serving path on a small input: LISA-mini in fp32, the
-     scheduler's tokens with the kernel equal those of the plain path;
+     scheduler's tokens with the kernel equal those of the plain path, and
+     once more with ``llm.use_flash=True`` (the float32 flash kernel in
+     every LLM prefill layer, exactly one launch a layer and microbatch),
+     its tokens equal those of the run without it;
   5. serve six mixed Context/Insight requests over two bottleneck tiers at
      the full width of LISA-7B (random bf16 weights from ``--seed``)
      through ``MicrobatchScheduler(generate=True)``, with every kernel
@@ -373,8 +377,8 @@ bf16), at the LLM prefill's (B = 1 and 4,
 S = 204, bf16), once more with q, k and v as views of buffers whose
 rows past S are NaN, and at long sequences: bf16 causal at 1,500 and
 4,096 (SAM's token grid, LLaMA-7B's heads), bf16 at 1,000 (not causal,
-NaN past S) and 777 (hd = 32), float32 at 3,000 (the online kernel, with
-NaN past S); the bottleneck encode and decode kernels at the
+NaN past S) and 777 (hd = 32), float32 at 3,000 (with NaN past S); the
+bottleneck encode and decode kernels at the
 reference test's shapes, at ranks wider than a cluster of column tiles,
 at odd widths and ragged tiles, and at the split point's (one frame of
 4096 tokens x 1280, the three tiers' ranks); and the scan kernel at the
@@ -406,6 +410,18 @@ tiles, at the bf16 peak), and an A/B line (``[kernel] flash A/B``): every
 bf16 plan on the same inputs, in turn and then in reverse. Four more timed
 cases (``flash_rule_cases``) sit on either side of the launcher's S and
 grid thresholds, to read its rule there.
+
+float32 launches take the split-TF32 kernel (plan TF32). Its edge cases
+(``flash_f32_edge_cases``: S = 1, 65 and 129 at every head size, causal and
+not, G = 1 and 12, rows past S NaN) run under every float32 plan, and three
+float32 cases are timed with their A/B lines (``flash_f32_timed_cases``
+and FLASH_F32_TIMED), each beside the split products' bound (six products
+a tile issued, at the TF32 peak), the function bound (``bound_ms``: three
+TF32 products a float32 product, at that peak) and the same function's
+bound on the CUDA cores (``cuda_core_bound_ms``), and beside the plain
+version with one TF32 product each (``tf32_control``), which must
+miss TOL or read TF32_CONTROL_RATIO times the kernel's error. Every
+comparison against a plain version asserts that ``allow_tf32`` is off.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing any
@@ -440,6 +456,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core peak
               torch.float32: 67e12}        # float32 outside tensor cores
+PEAK_TF32 = 495e12                         # dense TF32 tensor-core peak
 L2_BYTES = 50 * 2 ** 20
 QUERY_LEN = 8
 MAX_NEW_TOKENS = 4
@@ -448,7 +465,10 @@ MAX_NEW_TOKENS = 4
 # bf16 they may differ by one rounding of the output: 2**-7 relative
 # (rtol 8e-3), plus atol for float32 summation order near zero.
 TOL = {torch.bfloat16: (8e-3, 1e-3),
-       torch.float32: (1e-4, 2e-5)}        # summation order only
+       # the reference test's: summation order, and in the flash kernel the
+       # split TF32 products' dropped lo.lo and rounded low parts (each
+       # below 2**-21 of its product)
+       torch.float32: (1e-4, 2e-5)}
 # The LISA-7B outputs of the kernel path against the same path with the
 # kernel's plain version in its place, as a norm-wise relative error
 # ||a - b|| / ||b||. Each launch differs by at most one bf16 rounding of
@@ -498,6 +518,11 @@ SDPA_RTOL = 1e-4
 # that rounds P once reads about 0.8 of it (normalised by the float32 sum),
 # one that keeps P in float32 about 0.01 (tests/test_torch_flash_layers.py).
 P_SPLIT_RATIO = 0.25
+# The float32 flash kernel keeps float32's precision through split TF32
+# products (x = hi + lo, three products each). Its control, the plain
+# version with one TF32 product each (allow_tf32), must miss TOL or read at
+# least this many times the kernel's norm-wise error (``tf32_control``).
+TF32_CONTROL_RATIO = 10.0
 REPLACES = {  # the TPU kernel each CUDA kernel replaces
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:246",
@@ -617,6 +642,9 @@ def held_against(name, out, want, tol=None):
     """Max abs error of a kernel's output against its plain version's;
     raises if it is not finite or beyond ``tol`` (default TOL for its
     dtype)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{name}: the plain version is the oracle, but "
+                             f"its float32 products run in TF32")
     rtol, atol = tol or TOL[want.dtype]
     err = (out.float() - want.float()).abs()
     max_err = float(err.max())
@@ -1388,16 +1416,72 @@ def p_split_check(name, p):
                              f"error: {p}")
 
 
-def flash_product_flops(case, rows, keys):
-    """The products a bf16 kernel issues whose CTAs hold ``rows`` query
-    rows of each head and walk kv tiles of ``keys`` keys
-    (``ops.plan_tile``): for each such tile, q.k and P.V twice (p_hi and
-    p_lo), 2 * rows * keys * hd flops each, whole tiles on the diagonal
-    and at S."""
+def flash_product_flops(case, rows, keys, products=3):
+    """The products a kernel issues whose CTAs hold ``rows`` query rows of
+    each head and walk kv tiles of ``keys`` keys (``ops.plan_tile``): for
+    each such tile, ``products`` products of 2 * rows * keys * hd flops
+    (bf16: q.k and P.V twice, p_hi and p_lo; ``plan_products``), whole
+    tiles on the diagonal and at S."""
     B, S, H, hd = (case[k] for k in ("B", "S", "H", "hd"))
     tiles = sum(-(-(min(q0 + rows, S) if case["causal"] else S) // keys)
                 for q0 in range(0, S, rows))
-    return 3 * 2 * rows * keys * hd * tiles * B * H
+    return products * 2 * rows * keys * hd * tiles * B * H
+
+
+def flash_ops_per_flop(dtype):
+    """Seconds a flop of the attention function takes at the least on the
+    card in ``dtype``: bf16 at the bf16 tensor-core peak; float32 as three
+    TF32 products (hi.hi, hi.lo, lo.hi: the split that holds float32's
+    tolerance on the tensor cores) at the TF32 peak."""
+    if dtype == torch.float32:
+        return 3 / PEAK_TF32
+    return 1 / PEAK_FLOPS[dtype]
+
+
+def plan_products(plan):
+    """(products a tile, the rate they run at) of ``plan``'s kernel: bf16
+    q.k once and P.V twice on the bf16 tensor cores; TF32 q.k and P.V three
+    times each (hi.hi, hi.lo, lo.hi) on the TF32 tensor cores."""
+    if plan.name == "TF32":
+        return 6, PEAK_TF32
+    return 3, PEAK_FLOPS[torch.bfloat16]
+
+
+def plan_product_bound(case, plan):
+    """``plan``'s product bound at ``case``: the flops its kernel issues
+    (``flash_product_flops`` at its tile) and their ms at their rate."""
+    from repro_torch.kernels.flash_attention import ops
+    products, rate = plan_products(plan)
+    flops = flash_product_flops(case, *ops.plan_tile(plan, case["hd"]),
+                                products)
+    return flops, 1e3 * flops / rate
+
+
+def tf32_control(args, want, out, causal):
+    """The plain version with each product one TF32 product
+    (``allow_tf32``) against the plain version, beside the kernel's
+    norm-wise error: it must miss TOL, or read at least TF32_CONTROL_RATIO
+    times the kernel's error, or the split's low parts are not what keeps
+    the kernel within TOL."""
+    from repro_torch.kernels.flash_attention import ref
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32:
+        raise AssertionError("allow_tf32 was on before the TF32 control")
+    matmul.allow_tf32 = True
+    try:
+        one = ref.attention_ref(*args, causal=causal)
+    finally:
+        matmul.allow_tf32 = False
+    rtol, atol = TOL[torch.float32]
+    excess = float(((one - want).abs() - rtol * want.abs()).max())
+    res = {"rel_err_one_tf32": _rel(one, want), "rel_err_kernel":
+           _rel(out, want), "misses_tol": excess > atol,
+           "max_abs_err_one_tf32": float((one - want).abs().max()),
+           "ratio_limit": TF32_CONTROL_RATIO}
+    res["ratio"] = (res["rel_err_one_tf32"] / res["rel_err_kernel"]
+                    if res["rel_err_kernel"] > 0 else math.inf)
+    res["ok"] = res["misses_tol"] or res["ratio"] >= TF32_CONTROL_RATIO
+    return res
 
 
 def check_flash_attention(rng, case, dev, timed):
@@ -1435,7 +1519,8 @@ def check_flash_attention(rng, case, dev, timed):
            f"{rtol}, atol {atol}), bit-equal twice")
     if timed:
         nbytes, flops = flash_bytes_flops(case, torch.finfo(dtype).bits // 8)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops * flash_ops_per_flop(dtype)
         copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
         sets = [args] + [flash_inputs(rng, case, dev)
                          for _ in range(copies - 1)]
@@ -1457,23 +1542,32 @@ def check_flash_attention(rng, case, dev, timed):
         msg += (f" kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.4f}"
                 f" library_ms={res['library_ms']:.5f} bound_ms="
                 f"{res['bound_ms']:.5f} ({res['bound_by']})")
-        if dtype == torch.bfloat16:
-            pf = flash_product_flops(case, *ops.plan_tile(plan, hd))
-            res["product_flops"] = pf
-            res["product_bound_ms"] = 1e3 * pf / PEAK_FLOPS[dtype]
-            msg += (f" product_bound_ms={res['product_bound_ms']:.5f} "
-                    f"({pf / 1e9:.2f} GFLOP issued)")
-            plans = ops.plans(dtype, H // K)
-            ab = {}
-            for pl in plans + plans[::-1]:
-                ab.setdefault(pl.name, []).append(
-                    device_ms(lambda q, k, v: ops.flash_attention(
-                        q, k, v, causal=causal, plan=pl), sets))
-            res["ab_ms"] = ab
-            res["ab_product_bound_ms"] = {
-                pl.name: 1e3 * flash_product_flops(
-                    case, *ops.plan_tile(pl, hd)) / PEAK_FLOPS[dtype]
-                for pl in plans}
+        if dtype == torch.float32:
+            res["cuda_core_bound_ms"] = 1e3 * max(
+                t_bytes, flops / PEAK_FLOPS[torch.float32])
+            msg += f" cuda_core_bound_ms={res['cuda_core_bound_ms']:.5f}"
+        pf, res["product_bound_ms"] = plan_product_bound(case, plan)
+        res["product_flops"] = pf
+        msg += (f" product_bound_ms={res['product_bound_ms']:.5f} "
+                f"({pf / 1e9:.2f} GFLOP issued)")
+        plans = ops.plans(dtype, H // K)
+        ab = {}
+        for pl in plans + plans[::-1]:
+            ab.setdefault(pl.name, []).append(
+                device_ms(lambda q, k, v: ops.flash_attention(
+                    q, k, v, causal=causal, plan=pl), sets))
+        res["ab_ms"] = ab
+        res["ab_product_bound_ms"] = {
+            pl.name: plan_product_bound(case, pl)[1] for pl in plans}
+        if dtype == torch.float32:
+            res["tf32_control"] = tf32_control(args, want, out, causal)
+            t = res["tf32_control"]
+            msg += (f"; one TF32 product (allow_tf32): norm-wise err "
+                    f"{t['rel_err_one_tf32']:.3g} against the kernel's "
+                    f"{t['rel_err_kernel']:.3g} (ratio {t['ratio']:.3g}, "
+                    f"limit {TF32_CONTROL_RATIO}), max abs err "
+                    f"{t['max_abs_err_one_tf32']:.3g}, "
+                    + ("misses" if t["misses_tol"] else "within") + " TOL")
     if dtype == torch.bfloat16:
         res["p_split"] = p_split_reading(out, want, *args, causal)
         msg += p_split_msg(res["p_split"])
@@ -1483,8 +1577,18 @@ def check_flash_attention(rng, case, dev, timed):
             f"plan {k} " + " / ".join(f"{t:.5f}" for t in v)
             + f" ms (product bound {res['ab_product_bound_ms'][k]:.5f})"
             for k, v in res["ab_ms"].items())
-            + f"; launcher's plan {plan.name}")
+            + f"; function bound {res['bound_ms']:.5f} ({res['bound_by']}, "
+            + (f"3 TF32 products at {PEAK_TF32 / 1e12:.0f} TFLOP/s; on the "
+               f"CUDA cores at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s "
+               f"{res['cuda_core_bound_ms']:.5f}"
+               if dtype == torch.float32 else
+               f"at {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s")
+            + f"); launcher's plan {plan.name}")
     p_split_check(name, res.get("p_split"))
+    if "tf32_control" in res and not res["tf32_control"]["ok"]:
+        raise AssertionError(f"{name}: one TF32 product a product reads "
+                             f"within TOL and under TF32_CONTROL_RATIO of "
+                             f"the kernel's error: {res['tf32_control']}")
     return res
 
 
@@ -1508,16 +1612,32 @@ def flash_edge_cases():
     return cases
 
 
-def flash_edge_checks(seed, dev):
-    """Every edge case under every bf16 plan of its head size and G, each
-    plan on the case's own inputs (``case_rng``)."""
+def flash_f32_edge_cases():
+    """float32 at the edges of flash_tf32_kernel's tiles (64 or 128 query
+    rows, kv tiles of 32 or 64 keys) at every head size of ``HEAD_DIMS``:
+    S = 1, 65 and 129, G = 1 (H = K = 2) and G = 12 (H = 12, K = 1), causal
+    and not; B = 2, each operand a view of a buffer whose rows past S are
+    NaN. Each runs under every float32 plan (``flash_edge_checks``)."""
+    from repro_torch.kernels.flash_attention import ops
+    return [dict(name=f"f32_edge_hd{hd}_S{S}_G{G}_"
+                      f"{'causal' if causal else 'full'}",
+                 B=2, S=S, H=H, K=K, hd=hd, causal=causal,
+                 dtype=torch.float32, pad=7)
+            for hd in ops.HEAD_DIMS for S in (1, 65, 129)
+            for G, H, K in ((1, 2, 2), (12, 12, 1))
+            for causal in (True, False)]
+
+
+def flash_edge_checks(seed, dev, cases=None):
+    """Every edge case (default ``flash_edge_cases``) under every plan of
+    its dtype and G, each plan on the case's own inputs (``case_rng``)."""
     from repro_torch.kernels.flash_attention import ops
     return [check_flash_attention(
                 case_rng(seed, c["name"]),
                 dict(c, name=f"{c['name']}_{p.name}", plan=p), dev,
                 timed=False)
-            for c in flash_edge_cases()
-            for p in ops.plans(torch.bfloat16, c["H"] // c["K"])]
+            for c in (flash_edge_cases() if cases is None else cases)
+            for p in ops.plans(c["dtype"], c["H"] // c["K"])]
 
 
 def flash_rule_cases():
@@ -1536,10 +1656,29 @@ def flash_rule_cases():
 # sequences
 FLASH_TIMED = ("main_B1", "main_B4", "bf16_B1_S1500_G2_hd128_causal",
                "bf16_B1_S4096_G1_hd128_causal")
-# the float32 kernel's (FlashPlan.ONLINE) timed case, timed once more after
-# the others on inputs of its own (``case_rng``), so that the cases that
-# draw from the shared generator after it keep their inputs
+# the float32 kernel's timed case, timed once more after the others on
+# inputs of its own (``case_rng``), so that the cases that draw from the
+# shared generator after it keep their inputs (its name keeps the plan it
+# was first timed on, ONLINE)
 FLASH_F32_TIMED = "float32_B2_S3000_G4_hd64_full_online"
+
+
+def flash_f32_timed_cases():
+    """The float32 cases timed beside FLASH_F32_TIMED, each with the A/B
+    line of every float32 plan: causal at hd 128 (B 1, S 2,048, H = K = 32,
+    LLaMA-7B's heads), and lisa-mini's prefill (B 4, S = clip tokens +
+    query, its LLM's heads; the float32 shape of ``small_input_check``'s
+    use_flash run). Each draws from a generator of its own
+    (``case_rng``)."""
+    from repro_torch.configs import get_lisa_config
+    mini = get_lisa_config("lisa-mini")
+    llm = mini.llm
+    return [dict(name="float32_B1_S2048_G1_hd128_causal", B=1, S=2048, H=32,
+                 K=32, hd=128, causal=True, dtype=torch.float32, pad=0),
+            dict(name="float32_lisa_mini_prefill_B4", B=4,
+                 S=mini.clip_tokens + QUERY_LEN, H=llm.num_heads,
+                 K=llm.num_kv_heads, hd=llm.resolved_head_dim, causal=True,
+                 dtype=torch.float32, pad=0)]
 
 
 def flash_cases(pcfg):
@@ -1583,9 +1722,8 @@ def flash_cases(pcfg):
                       pad=24))
     cases.append(dict(name="bf16_B1_S777_G4_hd32_causal", B=1, S=777, H=4,
                       K=1, hd=32, causal=True, dtype=torch.bfloat16, pad=0))
-    cases.append(dict(name="float32_B2_S3000_G4_hd64_full_online", B=2,
-                      S=3000, H=8, K=2, hd=64, causal=False,
-                      dtype=torch.float32, pad=40))
+    cases.append(dict(name=FLASH_F32_TIMED, B=2, S=3000, H=8, K=2, hd=64,
+                      causal=False, dtype=torch.float32, pad=40))
     return cases
 
 
@@ -2178,10 +2316,32 @@ def serve_requests(executor, reqs, timings=None):
     return [by_id[r.seq_id] for r in reqs], sched
 
 
+def _small_against(label, results, other):
+    """Tokens equal, answer logits and masks within 1e-4 (rtol and atol):
+    the largest absolute difference."""
+    worst = 0.0
+    for a, b in zip(results, other):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"seq {a.seq_id}: {label}: tokens "
+                                 f"{a.tokens} != {b.tokens}")
+        pairs = [(a.answer_logits, b.answer_logits)]
+        if a.mask_logits is not None:
+            pairs.append((a.mask_logits, b.mask_logits))
+        for x, y in pairs:
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4,
+                                       err_msg=label)
+            worst = max(worst, float(np.abs(x - y).max()))
+    return worst
+
+
 def small_input_check(seed, dev):
-    """LISA-mini, fp32, on the card: the serving path with the kernel gives
-    the same greedy tokens as the plain path, and logits and masks within
-    fp32 summation-order tolerance."""
+    """LISA-mini, fp32, on the card: the serving path with the decode
+    kernel gives the same greedy tokens as the plain path, and logits and
+    masks within fp32 summation-order tolerance. Then the same requests
+    with ``llm.use_flash=True`` (the float32 flash kernel in every LLM
+    prefill layer), counters from 0: exactly one flash launch a layer and
+    microbatch, tokens equal to the ``use_flash=False`` kernel run's, logits
+    and masks within the same tolerance."""
     from repro_torch.configs import get_lisa_config
     from repro_torch.core.streams import DualStreamExecutor
     pcfg = get_lisa_config("lisa-mini")
@@ -2192,20 +2352,33 @@ def small_input_check(seed, dev):
                                 lut=lut, max_new_tokens=MAX_NEW_TOKENS,
                                 flash_decode=flash, device=dev)
         outs[flash] = serve(ex, pcfg, seed)[1]
-    worst = 0.0
-    for a, b in zip(outs[True], outs[False]):
-        if not np.array_equal(a.tokens, b.tokens):
-            raise AssertionError(f"seq {a.seq_id}: kernel tokens "
-                                 f"{a.tokens} != plain {b.tokens}")
-        pairs = [(a.answer_logits, b.answer_logits)]
-        if a.mask_logits is not None:
-            pairs.append((a.mask_logits, b.mask_logits))
-        for x, y in pairs:
-            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4)
-            worst = max(worst, float(np.abs(x - y).max()))
+    worst = _small_against("decode kernel vs plain path", outs[True],
+                           outs[False])
     log(f"[small] lisa-mini fp32: tokens equal with and without the kernel "
         f"on {len(outs[True])} requests; max |logit/mask diff| {worst:.3g}")
-    return {"requests": len(outs[True]), "max_abs_diff": worst}
+    fcfg = dataclasses.replace(pcfg, llm=pcfg.llm.replace(use_flash=True))
+    ex = DualStreamExecutor(pcfg=fcfg, params=params, bottlenecks=bns,
+                            lut=lut, max_new_tokens=MAX_NEW_TOKENS,
+                            flash_decode=True, device=dev)
+    _reset_launch_counts()
+    _, results, sched = serve(ex, fcfg, seed)
+    counts = _launch_counts()
+    n, L = sched.n_microbatches, fcfg.llm.num_layers
+    expect = _only(flash_attention=n * L,
+                   decode_attention=n * MAX_NEW_TOKENS * L)
+    if counts != expect:
+        raise AssertionError(f"lisa-mini use_flash launches {counts}, "
+                             f"expected {expect}")
+    worst_flash = _small_against("use_flash=True vs use_flash=False",
+                                 results, outs[True])
+    log(f"[small] lisa-mini fp32, use_flash=True: {n} microbatches x {L} "
+        f"layers = {counts['flash_attention']} flash launches, decode "
+        f"{counts['decode_attention']}; "
+        f"tokens equal use_flash=False's on {len(results)} requests; max "
+        f"|logit/mask diff| {worst_flash:.3g}")
+    return {"requests": len(outs[True]), "max_abs_diff": worst,
+            "use_flash": {"launches": counts, "expected": expect,
+                          "max_abs_diff": worst_flash}}
 
 
 def _rel(a, b):
@@ -2674,7 +2847,8 @@ def _only(**want):
 
 # the device functions of a kernel whose names are not "<kernel>_kernel"
 KERNEL_FUNCTIONS = {"flash_attention": ("flash_wgmma_kernel",
-                                        "flash_online_kernel")}
+                                        "flash_ws_kernel",
+                                        "flash_tf32_kernel")}
 
 
 def _kernel_class(name: str, classes=None) -> str:
@@ -8574,6 +8748,19 @@ def _leaves(tree):
     return leaves(tree)
 
 
+def _mangled_base(head):
+    """The identifier that ends ``head`` in a mangled name, before its
+    ``_kernel``: the shortest tail ``x`` that starts with a letter and
+    follows its own length with ``_kernel`` added (``17flash_tf32`` for
+    ``flash_tf32_kernel``), so digits inside the name are kept."""
+    for n in range(1, len(head) + 1):
+        base = head[len(head) - n:]
+        if base[0].isalpha() and head[:len(head) - n].endswith(
+                str(n + len("_kernel"))):
+            return base
+    return ""
+
+
 def ptxas_lines(log_path):
     """ptxas' report per kernel instantiation, one line each: the kernel's
     name and the template arguments of its (mangled) entry name, its
@@ -8585,8 +8772,7 @@ def ptxas_lines(log_path):
         elif "Function properties for" in ln:
             name = ln.split("Function properties for", 1)[1].strip()
             head, _, tail = name.partition("_kernel")
-            base = re.search(r"[a-z][a-z_]*$", head)   # after its length
-            fn = (base.group(0) if base else "") + "_kernel" + tail[:36]
+            fn = _mangled_base(head) + "_kernel" + tail[:36]
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln:
@@ -8612,13 +8798,14 @@ def ws_launch_regs(lines):
     return regs
 
 
-def set_kernels_spill_free(lines):
-    """Raises unless ``ptxas_lines`` holds a SETS kernel instantiation
-    (``set_*_kernel``) and every one of them reports no spill."""
-    rows = [ln for ln in lines if ln.startswith("set_") and "Used" in ln]
+def kernels_spill_free(lines, prefix):
+    """Raises unless ``ptxas_lines`` holds an instantiation of a kernel
+    whose name starts with ``prefix`` and every one of them reports no
+    spill."""
+    rows = [ln for ln in lines if ln.startswith(prefix) and "Used" in ln]
     bad = [ln for ln in rows if re.search(r"\b[1-9]\d* bytes spill", ln)]
     if not rows or bad:
-        raise AssertionError(f"SETS kernels spill (or none was built): "
+        raise AssertionError(f"{prefix}* kernels spill (or none was built): "
                              f"{bad or lines}")
     return rows
 
@@ -8691,9 +8878,10 @@ def main() -> int:
             log(f"[build] {name}: {ln}")
     if "flash_attention" in names:
         ws_launch_regs(report["ptxas"]["flash_attention"])
+        kernels_spill_free(report["ptxas"]["flash_attention"], "flash_tf32_")
     for name in ("decode_attention", "paged_decode_attention"):
         if name in names:
-            set_kernels_spill_free(report["ptxas"][name])
+            kernels_spill_free(report["ptxas"][name], "set_")
     if args.split18_seed:
         report["split18_seeds"], failed = [], []
         for s in args.split18_seed:
@@ -8774,10 +8962,14 @@ def main() -> int:
         + [check_flash_attention(case_rng(args.seed, c["name"]), c, dev,
                                  timed=True) for c in flash_rule_cases()]
         + flash_edge_checks(args.seed, dev)
+        + flash_edge_checks(args.seed, dev, flash_f32_edge_cases())
         + [check_flash_attention(case_rng(args.seed, c["name"]),
                                  dict(c, name=f"{c['name']}_timed"), dev,
                                  timed=True)
-           for c in flash_cases(pcfg) if c["name"] == FLASH_F32_TIMED],
+           for c in flash_cases(pcfg) if c["name"] == FLASH_F32_TIMED]
+        + [check_flash_attention(case_rng(args.seed, c["name"]), c, dev,
+                                 timed=True)
+           for c in flash_f32_timed_cases()],
         "bottleneck_encode": lambda: [
             check_bottleneck_encode(case_rng(args.seed, c["name"]), c, dev,
                                     timed=c["name"].startswith("main"))

@@ -122,10 +122,40 @@
 //     bf16 rate) is not taken: p_lo is below 2^-9 of p, so FP8's range
 //     needs it scaled, and a product at another scale needs its own
 //     accumulator: hd / 2 more registers a thread, 96 at hd = 192.
-// float32 inputs (small test shapes, not on LISA-7B's path) take the online
-// kernel on the CUDA cores (flash_online_kernel): the TPU kernel's running
-// (m, l, acc) per row over kv tiles with one tile's scores in shared memory,
-// within float32 summation order of the plain version. It is not redesigned.
+//
+// flash_tf32_kernel (float32: the reference's fp32 tests, lisa-mini and the
+// float32 reduced configs under use_flash; plan TF32): split TF32 products
+// on the tensor cores. The first float32 kernel, on the CUDA cores, reached
+// 16 TFLOP/s, a quarter of their 67: every product an FFMA with shared memory
+// read every few FMAs, copies through registers between four
+// __syncthreads a tile, 32-row CTAs each streaming all of K and V.
+//   * Precision: each float32 operand x = hi + lo, hi = tf32(x) and
+//     lo = tf32(x - hi) (to nearest), each product hi.hi + hi.lo + lo.hi by
+//     wgmma m64nNk8 .tf32 into one float32 accumulator: the dropped lo.lo
+//     and lo's rounding stay below 2^-21 of a product, where one TF32
+//     product keeps 2^-11 and misses the reference's fp32 tolerance
+//     (PERF.md §6). Three products at 495 TFLOP/s make 165 TFLOP/s
+//     of float32, 2.5x the CUDA cores' peak.
+//   * tf32 wgmma reads its shared-memory operands K-major only. q.k fits
+//     (q and k are hd-contiguous, K = hd); P.V does not (v lands keys x hd,
+//     its K is keys). So a transform warpgroup beside the consumers splits
+//     each landed k tile in place into its high part and its low part, and
+//     writes v's high and low parts transposed (hd rows of keys, 128-byte
+//     swizzle); a proxy fence and an mbarrier then hand the stage to the
+//     consumers. Its thread 0 issues every TMA copy.
+//   * P comes from registers. A thread holds keys 2tq and 2tq + 1 of each
+//     8-key block where the tf32 A fragment wants columns tq and tq + 4,
+//     so the transposed v keeps each 8-key block's keys in that order
+//     (tf_key_pos) and P needs no shuffle.
+//   * Shape by head size (TfShape): up to hd = 80 two consumer warpgroups
+//     (two halves of a head's 128 rows, taking turns as flash_ws_kernel's
+//     do) with q's high and low parts as A fragments in registers, so that
+//     q.k reads only k's parts from shared memory; above, one consumer
+//     with q's parts in shared memory. kv tiles of 64 keys at hd 32 and
+//     64, of 32 elsewhere; two stages of k and v, one at hd = 192 (q, k, v
+//     and their low parts take 216 KB there).
+//   * Deterministic: no split of the keys across CTAs; CTAs in order of
+//     their causal work, as flash_wgmma_kernel orders them.
 // The kernels take more than the 48 KB default of shared memory at
 // hd = 128, so the launcher opts each instantiation in once.
 //
@@ -140,9 +170,10 @@
 // columns) would cost 1.6x / 1.14x the products at hd = 80 / 112. At
 // hd = 192 a tile is three blocks, flash_wgmma_kernel takes 124 KB of
 // shared memory (one CTA an SM) and flash_ws_kernel 193 KB, and the
-// accumulator is 96 floats a thread. The float32 kernel reads a thread's
-// columns one at a time where 4 does not divide its hd / 16 (hd = 80 and
-// 112).
+// accumulator is 96 floats a thread. A float32 tile is blocks of 32
+// columns (three at hd = 80, four at 112, zeros past hd), and the float32
+// P.V runs in column slices of 64, 32 and 16 (80 = 64 + 16, 112 = 64 + 32 +
+// 16).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -153,249 +184,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ---------------------------------------------------------------------------
-// float32: the online kernel on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 32;          // queries per CTA
-constexpr int kBK = 64;          // keys per kv tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Row pitch in floats of the q and kv tiles: HD + 4 (float4 reads of
-// neighbouring rows fall on different banks); of the score tile kBK + 4.
-template <int HD>
-__host__ __device__ constexpr int tile_pitch() { return HD + 4; }
-constexpr int kScorePitch = kBK + 4;
-
 // the shared memory a block may use on the H100 (227 KB); each launcher
 // asserts its kernel's size against it
 constexpr size_t kBlockSmem = 232448;
-
-// q and kv tiles, one tile of scores, and m, l and alpha per row.
-template <int HD>
-constexpr size_t online_smem_bytes() {
-  return sizeof(float) * ((size_t)(kBQ + kBK) * tile_pitch<HD>()
-                          + (size_t)kBQ * kScorePitch + 3 * kBQ);
-}
-
-// Load rows [t0, t0 + rows) of a (.., S, heads, HD) operand into `dst`
-// (rows x pitch floats), zeros at or past S.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long s_stride, int t0,
-                                          int rows, int S) {
-  constexpr int P = tile_pitch<HD>();
-  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int t = t0 + r;
-    dst[r * P + d] = t < S ? src[(long long)t * s_stride + d] : 0.f;
-  }
-}
-
-// Scores of the CTA's rows ty*RPT + i against the kv tile's keys
-// tx + 16*j, times scale, stored at s_s[row * kScorePitch + tx + 16*j].
-template <int HD>
-__device__ __forceinline__ void score_tile(const float* q_s,
-                                           const float* kv_s, float* s_s,
-                                           float scale) {
-  constexpr int P = tile_pitch<HD>();
-  constexpr int RPT = kBQ / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[RPT][4];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[RPT], c[4];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = ld4(&q_s[(ty * RPT + i) * P + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = ld4(&kv_s[(tx + 16 * j) * P + d]);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s_s[(ty * RPT + i) * kScorePitch + tx + 16 * j] = s[i][j] * scale;
-    }
-  }
-}
-
-// Columns a thread reads with one load in pv_tile and stores together:
-// 4 where they divide its HD / 16 columns, else 2 or 1 (hd = 80 and 112:
-// 5 and 7 columns a thread, read one at a time), so that the CPT / VW
-// groups cover every column.
-template <int HD>
-__host__ __device__ constexpr int pv_width() {
-  return (HD / 16) % 4 == 0 ? 4 : (HD / 16) % 2 == 0 ? 2 : 1;
-}
-
-// acc += P.V over the tile's first n_keys keys, for rows ty*RPT + i and
-// columns g*16*VW + tx*VW + e.
-template <int HD>
-__device__ __forceinline__ void pv_tile(float (&acc)[kBQ / 16][HD / 16],
-                                        const float* p_s, const float* kv_s,
-                                        int n_keys) {
-  constexpr int P = tile_pitch<HD>();
-  constexpr int RPT = kBQ / 16;
-  constexpr int CPT = HD / 16;
-  constexpr int VW = pv_width<HD>();
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int c = 0; c < n_keys; ++c) {
-    float pp[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      pp[i] = p_s[(ty * RPT + i) * kScorePitch + c];
-    }
-    const float* vr = &kv_s[c * P + tx * VW];
-#pragma unroll
-    for (int g = 0; g < CPT / VW; ++g) {
-      float vv[VW];
-      if constexpr (VW == 4) {
-        const float4 x = ld4(vr + g * 16 * VW);
-        vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < VW; ++e) vv[e] = vr[g * 16 * VW + e];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-#pragma unroll
-        for (int e = 0; e < VW; ++e) {
-          acc[i][g * VW + e] = fmaf(pp[i], vv[e], acc[i][g * VW + e]);
-        }
-      }
-    }
-  }
-}
-
-// The TPU kernel's running (m, l, acc) per row over kv tiles, one tile's
-// scores in shared memory at a time, for any S. q (B, S, H, HD), k/v
-// (B, S, K, HD): unit stride over HD, stride HD over heads, batch and
-// sequence strides as given (elements). out (B, S, H, HD) contiguous.
-// Grid (ceil(S / kBQ), H, B).
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_online_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
-                    int S, int H, int K, long long q_sb, long long q_ss,
-                    long long k_sb, long long k_ss, long long v_sb,
-                    long long v_ss, float scale) {
-  constexpr int P = tile_pitch<HD>();
-  constexpr int RPT = kBQ / 16;
-  constexpr int CPT = HD / 16;
-  constexpr int VW = pv_width<HD>();
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // kBQ x P
-  float* kv_s = q_s + kBQ * P;          // kBK x P: a k tile, then a v tile
-  float* s_s = kv_s + kBK * P;          // kBQ x kScorePitch: scores/probs
-  float* m_s = s_s + kBQ * kScorePitch; // kBQ: running max
-  float* l_s = m_s + kBQ;               // kBQ: running sum
-  float* a_s = l_s + kBQ;               // kBQ: this tile's rescale factor
-
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / K);
-  const float* kb = k + (long long)b * k_sb + (long long)kh * HD;
-  const float* vb = v + (long long)b * v_sb + (long long)kh * HD;
-  // keys [0, kv_end): with causal masking, the tiles wholly above the
-  // diagonal of this q tile are skipped
-  const int kv_end = CAUSAL ? min(q0 + kBQ, S) : S;
-
-  load_tile<HD>(q_s, q + (long long)b * q_sb + (long long)h * HD, q_ss, q0,
-                kBQ, S);
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  float acc[RPT][HD / 16] = {};
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();                    // kv_s and s_s are free
-    load_tile<HD>(kv_s, kb, k_ss, k0, kBK, S);
-    __syncthreads();
-    score_tile<HD>(q_s, kv_s, s_s, scale);
-    __syncthreads();                    // scores written, kv_s is free
-    // warp w over rows w, w + kWarps, ...: keys past S, and after the
-    // query when causal, masked with NEG_INF; m' = max(m, tile max),
-    // p = exp(s - m'), alpha = exp(m - m'), l' = alpha l + sum p. Every
-    // row sees key 0 in the first tile, so m' is finite from there on.
-    for (int r = warp; r < kBQ; r += kWarps) {
-      const int n = CAUSAL ? min(q0 + r + 1, S) : S;
-      float* row = s_s + r * kScorePitch;
-      const float x0 = k0 + lane < n ? row[lane] : kNegInf;
-      const float x1 = k0 + lane + 32 < n ? row[lane + 32] : kNegInf;
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      float l = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        l += __shfl_xor_sync(0xffffffffu, l, off);
-      }
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        m_s[r] = m_new;
-        l_s[r] = fmaf(alpha, l_s[r], l);
-        a_s[r] = alpha;
-      }
-    }
-    load_tile<HD>(kv_s, vb, v_ss, k0, kBK, S);
-    __syncthreads();                    // probs, alpha and the v tile
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float alpha = a_s[ty * RPT + i];
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) acc[i][j] *= alpha;
-    }
-    pv_tile<HD>(acc, s_s, kv_s, min(kBK, kv_end - k0));
-  }
-  // row ty*RPT + i: acc / max(l, 1e-30); rows at or past S not written
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i;
-    const int t = q0 + r;
-    if (t >= S) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    float* o = out + (((long long)b * S + t) * H + h) * HD + tx * VW;
-#pragma unroll
-    for (int g = 0; g < CPT / VW; ++g) {
-#pragma unroll
-      for (int e = 0; e < VW; ++e) o[g * 16 * VW + e] = acc[i][g * VW + e] / l;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
@@ -514,17 +305,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // Rows [t0, t0 + ROWS) of head `head`, batch row b, of a tensor map's
-// operand (boxes of ROWS rows) into a tile: one box of 64 columns a
-// 128-byte block (TMA writes the 128-byte swizzle itself; rows at or past
-// S, and columns past hd, are zero-filled and not read).
-template <int HD, int ROWS = kTile>
+// operand (boxes of ROWS rows) into a tile: one box of COLS columns (64
+// bf16 or 32 float32) a 128-byte block (TMA writes the 128-byte swizzle
+// itself; rows at or past S, and columns past hd, are zero-filled and not
+// read).
+template <int HD, int ROWS = kTile, int COLS = 64>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, uint32_t bar,
                                          int head, int t0, int b) {
-  mbar_expect(bar, tile_bytes<HD, ROWS>());
+  constexpr int blocks = (HD + COLS - 1) / COLS;
+  mbar_expect(bar, ROWS * 128 * blocks);
 #pragma unroll
-  for (int cb = 0; cb < (HD + 63) / 64; ++cb) {
-    tma_load(smem_addr(dst + cb * ROWS * 128), map, bar, cb * 64, head,
+  for (int cb = 0; cb < blocks; ++cb) {
+    tma_load(smem_addr(dst + cb * ROWS * 128), map, bar, cb * COLS, head,
              t0, b);
   }
 }
@@ -1419,6 +1212,644 @@ flash_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// float32: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// The float32 kernel's shape at head size HD: C consumer warpgroups of 64
+// query rows each (two halves of one head's 128 rows, or one), BN keys a kv
+// tile, ST stages of k tiles and ST of v tiles. Its shared memory holds,
+// besides the stages, q's tf32 high and low parts and v's landing tile, so
+// the wide head sizes take one consumer and fewer or narrower tiles (the
+// launcher asserts the fit against kBlockSmem).
+template <int HD>
+struct TfShape {
+  static constexpr int C = HD <= 80 ? 2 : 1;
+  static constexpr int BN = HD == 32 || HD == 64 ? 64 : 32;
+  static constexpr int ST = HD == 192 ? 1 : 2;
+  // q's high and low parts as A fragments in registers (hd words a thread)
+  // rather than in shared memory: q.k then reads only k's parts there
+  static constexpr bool QREG = C == 2;
+};
+
+// a float32 tile of ROWS rows: blocks of 32 columns, each ROWS rows x 128
+// bytes with wgmma's 128-byte swizzle (tile_bytes' layout, 32 float32
+// columns a block); columns past HD zero
+template <int HD, int ROWS>
+__host__ __device__ constexpr int tf_tile_bytes() {
+  return ROWS * 128 * ((HD + 31) / 32);
+}
+
+// q's high and low parts for each consumer; ST stages of k's high and low
+// parts (BN rows each); ST stages of v's high and low parts transposed
+// (HD rows of BN keys each, K-major for P.V); v's landing tile; the
+// barriers; and 1 KB to align the first tile to the swizzle's period
+template <int HD>
+__host__ __device__ constexpr size_t tf32_smem_bytes() {
+  using T = TfShape<HD>;
+  return 1024 + 2 * T::C * (size_t)tf_tile_bytes<HD, kTile>()
+         + (2 * T::ST + 1) * (size_t)tf_tile_bytes<HD, T::BN>()
+         + 2 * T::ST * (size_t)HD * T::BN * 4
+         + 8 * (T::C + 5 * T::ST + 1);
+}
+
+// setmaxnreg where C = 2: the launch gives every thread 168 registers
+// (65,536 / 384); the transform warpgroup keeps 56 and the consumers rise to
+// 224 (128 x 56 + 256 x 224 = 384 x 168). With C = 1 (256 threads) each
+// thread may take 255.
+constexpr int kTfTransformRegs = 56;
+constexpr int kTfConsumerRegs = 224;
+
+// threads a CTA: the consumers and one transform warpgroup
+template <int HD>
+__host__ __device__ constexpr int tf_threads() {
+  return 128 * (TfShape<HD>::C + 1);
+}
+
+// byte offset of element (row, col) in a float32 tile of ROWS rows
+template <int ROWS>
+__device__ __forceinline__ int swz_f32(int row, int col) {
+  return (col / 32) * (ROWS * 128) + row * 128
+         + ((((col % 32) / 4) ^ (row % 8)) * 16) + (col % 4) * 4;
+}
+
+// x rounded to tf32 (to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds): half a unit of the 13 dropped bits added to the magnitude bits,
+// then those bits cleared. Two integer operations; the conversion
+// instruction gave the same words 10-12 % slower at every timed shape
+// (PERF.md §6).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (below 2^-22 |x|): hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// p, hidden from the compiler at this point: the wgmma descriptors derived
+// from it are computed where a kv step uses them, not hoisted out of the kv
+// loop and held in registers (at hd = 192, with one stage, every q, k and v
+// descriptor is loop-invariant, and holding them spilled 360 bytes)
+template <typename P>
+__device__ __forceinline__ P* opaque(P* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// order the generic proxy's shared-memory writes of this thread before the
+// async proxy's (wgmma, TMA) accesses that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 32) = a . b (+ d if accumulate), tf32: a (64 x 8) and b (32 x 8)
+// both K-major in shared memory, by their descriptors
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float* d, uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) = a . b (+ d if accumulate), tf32: a (64 x 8) and b (64 x 8)
+// both K-major in shared memory, by their descriptors
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float* d, uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16) = a . b (+ d if accumulate), tf32: a (64 x 8) in registers,
+// b (16 x 8) K-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float* d,
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64 x 32) = a . b (+ d if accumulate), tf32: a (64 x 8) in registers,
+// b (32 x 8) K-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float* d,
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64 x 64) = a . b (+ d if accumulate), tf32: a (64 x 8) in registers,
+// b (64 x 8) K-major in shared memory, by its descriptor
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float* d,
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float* d, uint64_t a,
+                                              uint64_t b, int accumulate) {
+  if constexpr (N == 32) wgmma_tf32_ss_n32(d, a, b, accumulate);
+  if constexpr (N == 64) wgmma_tf32_ss_n64(d, a, b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float* d,
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  if constexpr (N == 16) wgmma_tf32_rs_n16(d, a, b, accumulate);
+  if constexpr (N == 32) wgmma_tf32_rs_n32(d, a, b, accumulate);
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, b, accumulate);
+}
+
+// s = q . k^T over hd / 8 k-steps: q_hi.k_hi + q_hi.k_lo + q_lo.k_hi, a
+// 64-row q tile against a kv tile of BN keys, one float32 accumulator
+// (issued, not waited for)
+template <int HD, int BN>
+__device__ __forceinline__ void qk_tf32(float (&s)[BN / 2],
+                                        const unsigned char* q_hi,
+                                        const unsigned char* q_lo,
+                                        const unsigned char* k_hi,
+                                        const unsigned char* k_lo) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const uint64_t qh = kmajor_desc(q_hi, kk), ql = kmajor_desc(q_lo, kk);
+    const uint64_t kh = kmajor_desc<BN>(k_hi, kk);
+    wgmma_tf32_ss<BN>(s, qh, kh, kk > 0);
+    wgmma_tf32_ss<BN>(s, qh, kmajor_desc<BN>(k_lo, kk), 1);
+    wgmma_tf32_ss<BN>(s, ql, kh, 1);
+  }
+}
+
+// The same with q's parts as A fragments in registers (q_fragments)
+template <int HD, int BN>
+__device__ __forceinline__ void qk_tf32(float (&s)[BN / 2],
+                                        const uint32_t (&qh)[HD / 8][4],
+                                        const uint32_t (&ql)[HD / 8][4],
+                                        const unsigned char* k_hi,
+                                        const unsigned char* k_lo) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const uint64_t kh = kmajor_desc<BN>(k_hi, kk);
+    wgmma_tf32_rs<BN>(s, qh[kk], kh, kk > 0);
+    wgmma_tf32_rs<BN>(s, qh[kk], kmajor_desc<BN>(k_lo, kk), 1);
+    wgmma_tf32_rs<BN>(s, ql[kk], kh, 1);
+  }
+}
+
+// A warp's 16 rows (r0 = 16 warp) of a landed 64-row q tile as the tf32 A
+// fragments of its high and low parts: k-step kk, fragment f holds row
+// r0 + g (+ 8 for f odd), column 8kk + tq (+ 4 for f >= 2)
+template <int HD>
+__device__ __forceinline__ void q_fragments(const unsigned char* q_tile,
+                                            int r0, int g, int tq,
+                                            uint32_t (&qh)[HD / 8][4],
+                                            uint32_t (&ql)[HD / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int row = r0 + g + (f & 1) * 8, col = 8 * kk + tq + (f >> 1) * 4;
+      split_tf32(*reinterpret_cast<const float*>(
+                     q_tile + swz_f32<kTile>(row, col)),
+                 qh[kk][f], ql[kk][f]);
+    }
+  }
+}
+
+// o[D0 / 2 ..] += (p_hi + p_lo) . (v_hi + v_lo) without p_lo . v_lo, for
+// k-step kk of 8 keys, over columns D0.. of HD in slices of 64, 32 and 16
+// (so every head size is whole slices: 80 = 64 + 16, 112 = 64 + 32 + 16)
+template <int HD, int BN, int D0 = 0>
+__device__ __forceinline__ void pv_tf32_step(float (&o)[HD / 2],
+                                             const uint32_t (&ph)[4],
+                                             const uint32_t (&pl)[4],
+                                             const unsigned char* v_hi,
+                                             const unsigned char* v_lo,
+                                             int kk) {
+  if constexpr (D0 < HD) {
+    constexpr int N = HD - D0 >= 64 ? 64 : HD - D0 >= 32 ? 32 : 16;
+    const uint64_t vh = kmajor_desc<HD>(v_hi + D0 * 128, kk);
+    const uint64_t vl = kmajor_desc<HD>(v_lo + D0 * 128, kk);
+    float* d = o + D0 / 2;
+    if constexpr (N == 64) {
+      wgmma_tf32_rs_n64(d, ph, vh, 1);
+      wgmma_tf32_rs_n64(d, ph, vl, 1);
+      wgmma_tf32_rs_n64(d, pl, vh, 1);
+    } else if constexpr (N == 32) {
+      wgmma_tf32_rs_n32(d, ph, vh, 1);
+      wgmma_tf32_rs_n32(d, ph, vl, 1);
+      wgmma_tf32_rs_n32(d, pl, vh, 1);
+    } else {
+      wgmma_tf32_rs_n16(d, ph, vh, 1);
+      wgmma_tf32_rs_n16(d, ph, vl, 1);
+      wgmma_tf32_rs_n16(d, pl, vh, 1);
+    }
+    pv_tf32_step<HD, BN, D0 + N>(o, ph, pl, v_hi, v_lo, kk);
+  }
+}
+
+// o += P . V over the tile's BN / 8 k-steps (issued, not waited for)
+template <int HD, int BN>
+__device__ __forceinline__ void pv_tf32(float (&o)[HD / 2],
+                                        const uint32_t (&ph)[BN / 8][4],
+                                        const uint32_t (&pl)[BN / 8][4],
+                                        const unsigned char* v_hi,
+                                        const unsigned char* v_lo) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    pv_tf32_step<HD, BN>(o, ph[kk], pl[kk], v_hi, v_lo, kk);
+  }
+}
+
+// The probabilities s as tf32 A fragments of p_hi and p_lo. A thread holds
+// keys 2tq and 2tq + 1 of each 8-key block j (s[4j + e], rows +0 / +8 by
+// e / 2), where the A fragment wants columns tq and tq + 4; so column c of
+// k-step j is key 2c (c < 4) or 2(c - 4) + 1, and v's transposed tiles keep
+// the keys of each 8-key block in that order (tf_key_pos).
+template <int BN>
+__device__ __forceinline__ void tf32_fragments(const float (&s)[BN / 2],
+                                               uint32_t (&ph)[BN / 8][4],
+                                               uint32_t (&pl)[BN / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    split_tf32(s[4 * j], ph[j][0], pl[j][0]);
+    split_tf32(s[4 * j + 2], ph[j][1], pl[j][1]);
+    split_tf32(s[4 * j + 1], ph[j][2], pl[j][2]);
+    split_tf32(s[4 * j + 3], ph[j][3], pl[j][3]);
+  }
+}
+
+// the column of key r of a kv tile in v's transposed tiles (tf32_fragments)
+__device__ __forceinline__ int tf_key_pos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
+// Split a landed float32 tile of `bytes` bytes in place into its tf32 high
+// part, and its low part into `lo` (the same layout), by one warpgroup's
+// 128 threads (t = 0..127), 16 bytes a thread at a time.
+__device__ __forceinline__ void split_tile(unsigned char* hi,
+                                           unsigned char* lo, int bytes,
+                                           int t) {
+  for (int e = t; e < bytes / 16; e += 128) {
+    float4* h = reinterpret_cast<float4*>(hi) + e;
+    const float4 x = *h;
+    uint32_t a[4], b[4];
+    split_tf32(x.x, a[0], b[0]);
+    split_tf32(x.y, a[1], b[1]);
+    split_tf32(x.z, a[2], b[2]);
+    split_tf32(x.w, a[3], b[3]);
+    *reinterpret_cast<uint4*>(h) = make_uint4(a[0], a[1], a[2], a[3]);
+    reinterpret_cast<uint4*>(lo)[e] = make_uint4(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// Split v's landed tile (BN keys x HD, swizzled float32 blocks) into its
+// tf32 high and low parts transposed: HD rows of BN keys, K-major for the
+// P.V wgmma, each 8-key block in tf_key_pos order. Warp w of the
+// transform warpgroup takes units w, w + 4, ... of (32 keys, 4 columns);
+// its lane reads one key's 16 bytes and writes 4 rows, the warp's 32
+// writes of a row to 32 banks.
+template <int HD, int BN>
+__device__ __forceinline__ void transpose_v(const unsigned char* land,
+                                            unsigned char* v_hi,
+                                            unsigned char* v_lo, int t) {
+  const int warp = t / 32, lane = t % 32;
+  for (int u = warp; u < (BN / 32) * (HD / 4); u += 4) {
+    const int r = (u / (HD / 4)) * 32 + lane, c = (u % (HD / 4)) * 4;
+    const float4 x =
+        *reinterpret_cast<const float4*>(land + swz_f32<BN>(r, c));
+    const int p = tf_key_pos(r);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t hi, lo;
+      split_tf32(xs[e], hi, lo);
+      const int off = swz_f32<HD>(c + e, p);
+      *reinterpret_cast<uint32_t*>(v_hi + off) = hi;
+      *reinterpret_cast<uint32_t*>(v_lo + off) = lo;
+    }
+  }
+}
+
+// q, k and v (float32) through their tensor maps (tensor_map below, boxes
+// of 32 columns), out (B, S, H, HD) contiguous. Grid (ceil(S / 64C), H, B)
+// with C = TfShape<HD>::C consumers, q tiles nearest S first.
+//
+// Warpgroup C is the transform warpgroup. Its thread 0 issues every TMA
+// copy: the consumers' q tiles, k tile i into k stage i % ST (after both
+// consumers have released the stage's previous tile) and v tile i into the
+// one landing tile. All its 128 threads then, for each kv tile i, split k
+// in place into its tf32 high part and its low part, and split v into its
+// high and low parts transposed into v stage i % ST (after its previous
+// tile's release), each followed by a proxy fence and one arrival on the
+// stage's ready barrier. Warpgroups 0 .. C - 1 are the consumers: each
+// splits its q tile once, then runs flash_ws_kernel's loop on split TF32
+// products (q.k of tile i + 1 beside P.V of tile i, the softmax of tile
+// i + 1 while P.V runs, the last P.V peeled), taking turns through named
+// barriers 1 / 2 where C = 2, and releasing k stage i + 1 after its q.k and
+// v stage i after its P.V.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(tf_threads<HD>(), 1)
+flash_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  float* __restrict__ out, int S, int H, int K,
+                  float scale) {
+  using T = TfShape<HD>;
+  constexpr int C = T::C, BN = T::BN, ST = T::ST;
+  constexpr int QB = tf_tile_bytes<HD, kTile>();   // a q part
+  constexpr int KB = tf_tile_bytes<HD, BN>();      // a k part, the landing
+  constexpr int VB = HD * BN * 4;                  // a transposed v part
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023))
+                                   & 1023);
+  unsigned char* k_s = q_s + 2 * C * QB;   // stage j: hi at 2j, lo at 2j + 1
+  unsigned char* v_s = k_s + 2 * ST * KB;
+  unsigned char* land = v_s + 2 * ST * VB;
+  // barriers: the q tiles'; k full, k ready, k empty (ST each); v landed;
+  // v ready, v empty (ST each). A stage's n-th tile completes its
+  // barriers' phase n % 2.
+  const uint32_t bar_q = smem_addr(land + KB);
+  const uint32_t k_full = bar_q + 8 * C, k_ready = k_full + 8 * ST;
+  const uint32_t k_empty = k_ready + 8 * ST, v_land = k_empty + 8 * ST;
+  const uint32_t v_ready = v_land + 8, v_empty = v_ready + 8 * ST;
+
+  const int hb_count = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y
+                                            * blockIdx.z);
+  constexpr int kRows = kTile * C;
+  const int q0 = (gridDim.x - 1 - lin / hb_count) * kRows;
+  const int h = lin % hb_count % H;
+  const int b = lin % hb_count / H;
+  const int kh = h / (H / K);
+  const int kv_end = CAUSAL ? min(q0 + kRows, S) : S;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < C + 2 * ST; ++i) mbar_init(bar_q + 8 * i, 1);
+#pragma unroll
+    for (int i = 0; i < ST; ++i) mbar_init(k_empty + 8 * i, C);
+    mbar_init(v_land, 1);
+#pragma unroll
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(v_ready + 8 * i, 1);
+      mbar_init(v_empty + 8 * i, C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == C) {
+    if constexpr (C == 2) regs_dealloc<kTfTransformRegs>();
+    const int t = threadIdx.x % 128;
+    const bool leader = t == 0;
+    auto load_k = [&](int j) {
+      tma_tile<HD, BN, 32>(k_s + 2 * (j % ST) * KB, &tm_k,
+                           k_full + 8 * (j % ST), kh, j * BN, b);
+    };
+    if (leader) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        tma_tile<HD, kTile, 32>(q_s + 2 * c * QB, &tm_q, bar_q + 8 * c, h,
+                                q0 + c * kTile, b);
+      }
+      for (int j = 0; j + 1 < ST && j < n_tiles; ++j) load_k(j);
+      tma_tile<HD, BN, 32>(land, &tm_v, v_land, kh, 0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      // k tile i + ST - 1 into its stage, once the stage's previous tile
+      // is released
+      const int j = i + ST - 1;
+      if (leader && j < n_tiles) {
+        if (j >= ST) {
+          mbar_wait_bounded(k_empty + 8 * (j % ST), ((j / ST) - 1) & 1);
+        }
+        load_k(j);
+      }
+      unsigned char* kt = k_s + 2 * (i % ST) * KB;
+      mbar_wait_bounded(k_full + 8 * (i % ST), (i / ST) & 1);
+      split_tile(kt, kt + KB, KB, t);
+      fence_proxy_async();
+      bar_sync<128>(5);
+      if (leader) mbar_arrive(k_ready + 8 * (i % ST));
+      unsigned char* vt = v_s + 2 * (i % ST) * VB;
+      if (i >= ST) {
+        mbar_wait_bounded(v_empty + 8 * (i % ST), ((i / ST) - 1) & 1);
+      }
+      mbar_wait_bounded(v_land, i & 1);
+      transpose_v<HD, BN>(land, vt, vt + VB, t);
+      fence_proxy_async();
+      bar_sync<128>(5);              // every thread is done with the landing
+      if (leader) {
+        mbar_arrive(v_ready + 8 * (i % ST));
+        if (i + 1 < n_tiles) {
+          tma_tile<HD, BN, 32>(land, &tm_v, v_land, kh, (i + 1) * BN, b);
+        }
+      }
+    }
+  } else {
+    if constexpr (C == 2) regs_alloc<kTfConsumerRegs>();
+    // the modulo tells ptxas that tid < 128 (see flash_wgmma_kernel)
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, tq = lane % 4;   // fragment row and column
+    unsigned char* q_hi = q_s + 2 * wg * QB;
+    unsigned char* q_lo = q_hi + QB;
+    const int rows0 = q0 + wg * kTile;
+    const int row0 = rows0 + warp * 16 + g;  // this thread's rows: +0, +8
+    auto masked = [&](int k0) {
+      return (CAUSAL && k0 + BN > rows0) || k0 + BN > S;
+    };
+    auto k_tile = [&](int i) { return k_s + 2 * (i % ST) * KB; };
+    auto v_tile = [&](int i) { return v_s + 2 * (i % ST) * VB; };
+    auto wait_ready = [&](uint32_t bars, int i) {
+      mbar_wait_bounded(bars + 8 * (i % ST), (i / ST) & 1);
+    };
+    auto release = [&](uint32_t bars, int i) {
+      if (tid == 0) mbar_arrive(bars + 8 * (i % ST));
+    };
+    // the turns (flash_ws_kernel's); one consumer takes none
+    auto take_turn = [&] {
+      if constexpr (C == 2) bar_sync<256>(1 + wg);
+    };
+    auto pass_turn = [&] {
+      if constexpr (C == 2) bar_arrive<256>(2 - wg);
+    };
+    if (wg == 1) pass_turn();
+
+    // this consumer's q tile split once into its high and low parts: in
+    // registers (QREG) or in shared memory
+    uint32_t qh[T::QREG ? HD / 8 : 1][4], ql[T::QREG ? HD / 8 : 1][4];
+    mbar_wait_bounded(bar_q + 8 * wg, 0);
+    if constexpr (T::QREG) {
+      q_fragments<HD>(q_hi, warp * 16, g, tq, qh, ql);
+    } else {
+      split_tile(q_hi, q_lo, QB, tid);
+      fence_proxy_async();
+      bar_sync<128>(3 + wg);
+    }
+    auto qk = [&](float (&s)[BN / 2], int i) {
+      unsigned char* kt = opaque(k_tile(i));
+      if constexpr (T::QREG) {
+        qk_tf32<HD, BN>(s, qh, ql, kt, kt + KB);
+      } else {
+        qk_tf32<HD, BN>(s, opaque(q_hi), opaque(q_lo), kt, kt + KB);
+      }
+    };
+
+    float o[HD / 2];                 // 64 x HD accumulator
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}; // running max of rows row0, row0 + 8
+    float l[2] = {0.f, 0.f};         // this thread's part of their sums
+    const float c = scale * kLog2e;
+    auto pv = [&](const uint32_t (&ph)[BN / 8][4],
+                  const uint32_t (&pl)[BN / 8][4], int i) {
+      unsigned char* vt = opaque(v_tile(i));
+      pv_tf32<HD, BN>(o, ph, pl, vt, vt + VB);
+    };
+    {
+      float s[BN / 2] = {};          // 64 x BN scores, then probabilities
+      uint32_t ph[BN / 8][4], pl[BN / 8][4];   // p_hi, p_lo A fragments
+      wait_ready(k_ready, 0);
+      take_turn();
+      fence_regs(s);
+      wgmma_fence();
+      qk(s, 0);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(k_empty, 0);
+      float2 alpha = softmax_tile<CAUSAL, BN>(s, m, l, c, masked(0), 0,
+                                              row0, tq, S);
+      for (int i = 0; i + 1 < n_tiles; ++i) {
+        tf32_fragments<BN>(s, ph, pl);
+        rescale(o, alpha);
+        fence_regs(ph);
+        fence_regs(pl);
+        wait_ready(k_ready, i + 1);
+        wait_ready(v_ready, i);
+        take_turn();
+        fence_regs(s);               // s = q . k^T of tile i + 1
+        wgmma_fence();
+        qk(s, i + 1);
+        wgmma_commit();
+        fence_regs(s);
+        pv(ph, pl, i);
+        wgmma_commit();
+        pass_turn();
+        fence_regs(o);
+        wgmma_wait<1>();             // the scores; P.V may still run
+        fence_regs(s);
+        release(k_empty, i + 1);
+        const int k1 = (i + 1) * BN;
+        alpha = softmax_tile<CAUSAL, BN>(s, m, l, c, masked(k1), k1, row0,
+                                         tq, S);
+        wgmma_wait<0>();
+        fence_regs(o);
+        release(v_empty, i);
+      }
+      // the last tile's P.V
+      tf32_fragments<BN>(s, ph, pl);
+      rescale(o, alpha);
+      fence_regs(ph);
+      fence_regs(pl);
+      wait_ready(v_ready, n_tiles - 1);
+      take_turn();
+      wgmma_fence();
+      pv(ph, pl, n_tiles - 1);
+      wgmma_commit();
+      if (wg == 0) pass_turn();
+      fence_regs(o);
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {    // the rows' sums
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    // o / max(l, 1e-30), rows at or past S not written; a quad writes 32
+    // contiguous bytes of a row
+    const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
+                          1.f / fmaxf(l[1], 1e-30f)};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = row0 + 8 * r;
+      if (t >= S) continue;
+      float* orow = out + (((long long)b * S + t) * H + h) * HD + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[4 * n + 2 * r] * inv[r],
+                        o[4 * n + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1432,23 +1863,6 @@ cudaError_t opt_in(Kernel kernel, size_t bytes, bool& done) {
       static_cast<int>(bytes));
   done = err == cudaSuccess;
   return err;
-}
-
-template <int HD, bool CAUSAL>
-int launch_f32(const float* q, const float* k, const float* v, float* out,
-               int B, int S, int H, int K, long long q_sb, long long q_ss,
-               long long k_sb, long long k_ss, long long v_sb,
-               long long v_ss, float scale, cudaStream_t stream) {
-  static bool opted_in = false;
-  constexpr size_t bytes = online_smem_bytes<HD>();
-  static_assert(bytes <= kBlockSmem, "over the 227 KB a block may use");
-  const cudaError_t err =
-      opt_in(flash_online_kernel<HD, CAUSAL>, bytes, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_online_kernel<HD, CAUSAL><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, out, S, H, K, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link
@@ -1474,26 +1888,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (B, S, heads, HD) bf16 operand read in place: dims
-// (HD, heads, S, B) with the caller's sequence and batch strides, boxes of
-// 64 columns x `rows` rows of one head, 128-byte swizzle, zeros outside
-// (rows at or past S, columns past HD).
-template <int HD>
-cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int heads, int S,
+// The tensor map of a (B, S, heads, HD) bf16 or float32 operand read in
+// place: dims (HD, heads, S, B) with the caller's sequence and batch
+// strides, boxes of 128 bytes of columns (64 bf16, 32 float32) x `rows`
+// rows of one head, 128-byte swizzle, zeros outside (rows at or past S,
+// columns past HD).
+template <int HD, typename T>
+cudaError_t tensor_map(CUtensorMap* map, const T* base, int heads, int S,
                        int B, long long s_stride, long long b_stride,
                        int rows = kTile) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {HD * sizeof(bf16),
-                                 (cuuint64_t)s_stride * sizeof(bf16),
-                                 (cuuint64_t)b_stride * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {HD * sizeof(T),
+                                 (cuuint64_t)s_stride * sizeof(T),
+                                 (cuuint64_t)b_stride * sizeof(T)};
+  const cuuint32_t box[4] = {128 / sizeof(T), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<T*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -1504,11 +1921,51 @@ cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int heads, int S,
 // launcher refuses any other plan, a plan of the other dtype, and
 // kWsPairs at an odd G.
 enum Plan : int {
-  kOnline = 0,     // float32: flash_online_kernel
   kWgmma = 1,      // bf16: flash_wgmma_kernel
   kWsHalves = 2,   // bf16: flash_ws_kernel, two halves of a head's 128 rows
   kWsPairs = 3,    // bf16: flash_ws_kernel, 64 rows of two heads (G even)
+  kTf32 = 4,       // float32: flash_tf32_kernel
 };
+
+// TMA reads 16-byte aligned rows: base pointers and strides (elements of
+// `es` bytes) must keep them so (the wrapper refuses other layouts first)
+inline bool rows_aligned(const void* q, const void* k, const void* v,
+                         long long strides, int es) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q)
+                         | reinterpret_cast<uintptr_t>(k)
+                         | reinterpret_cast<uintptr_t>(v);
+  return (strides * es) % 16 == 0 && ptrs % 16 == 0;
+}
+
+template <int HD, bool CAUSAL>
+int launch_tf32(const float* q, const float* k, const float* v, float* out,
+                int B, int S, int H, int K, long long q_sb, long long q_ss,
+                long long k_sb, long long k_ss, long long v_sb,
+                long long v_ss, float scale, cudaStream_t stream) {
+  using T = TfShape<HD>;
+  if (!rows_aligned(q, k, v, q_sb | q_ss | k_sb | k_ss | v_sb | v_ss, 4)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = tensor_map<HD>(&tm_q, q, H, S, B, q_ss, q_sb);
+  if (err == cudaSuccess) {
+    err = tensor_map<HD>(&tm_k, k, K, S, B, k_ss, k_sb, T::BN);
+  }
+  if (err == cudaSuccess) {
+    err = tensor_map<HD>(&tm_v, v, K, S, B, v_ss, v_sb, T::BN);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool opted_in = false;
+  constexpr size_t bytes = tf32_smem_bytes<HD>();
+  static_assert(bytes <= kBlockSmem, "over the 227 KB a block may use");
+  err = opt_in(flash_tf32_kernel<HD, CAUSAL>, bytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int rows = kTile * T::C;
+  const dim3 grid((S + rows - 1) / rows, H, B);
+  flash_tf32_kernel<HD, CAUSAL><<<grid, tf_threads<HD>(), bytes, stream>>>(
+      tm_q, tm_k, tm_v, out, S, H, K, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int HD, bool CAUSAL, bool HEADS, int BN = ws_kv_rows<HD>()>
 int launch_ws(const bf16* k, const bf16* v, const CUtensorMap& tm_q,
@@ -1545,13 +2002,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   if (!(plan == kWgmma || ws)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // TMA reads 16-byte aligned rows: base pointers and strides must keep
-  // them so (the wrapper refuses other layouts first)
-  const long long strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q)
-                         | reinterpret_cast<uintptr_t>(k)
-                         | reinterpret_cast<uintptr_t>(v);
-  if ((strides % 8) != 0 || (ptrs % 16) != 0) {
+  if (!rows_aligned(q, k, v, q_sb | q_ss | k_sb | k_ss | v_sb | v_ss, 2)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   CUtensorMap tm_q;
@@ -1586,8 +2037,8 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
                  long long q_ss, long long k_sb, long long k_ss,
                  long long v_sb, long long v_ss, float scale, int plan,
                  cudaStream_t stream) {
-  if (dtype == 0 && plan == kOnline) {
-    return launch_f32<HD, CAUSAL>(
+  if (dtype == 0 && plan == kTf32) {
+    return launch_tf32<HD, CAUSAL>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), B, S, H, K,
         q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, stream);
@@ -1622,10 +2073,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
 template <int HD>
 int plan_tile(int plan, int* rows, int* keys) {
   switch (plan) {
-    case kOnline: *rows = kBQ; *keys = kBK; return 0;
     case kWgmma: *rows = kTile; *keys = kTile; return 0;
     case kWsHalves: *rows = kWsRows; *keys = ws_kv_rows<HD>(); return 0;
     case kWsPairs: *rows = kTile; *keys = ws_kv_rows<HD>(); return 0;
+    case kTf32:
+      *rows = kTile * TfShape<HD>::C;
+      *keys = TfShape<HD>::BN;
+      return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -43,22 +43,24 @@ WS_MIN_CTAS = 128
 class FlashPlan(enum.IntEnum):
     """One launch's kernel (``enum Plan`` of csrc/flash_attention.cu,
     which derives each kernel's tiles and stages and refuses a plan of the
-    other dtype). float32 runs the online kernel; bf16 one warpgroup a CTA
-    over 64-row tiles (flash_wgmma_kernel), or a producer warp and two
-    consumer warpgroups over wide kv tiles (flash_ws_kernel) on two halves
-    of one head's 128 query rows, or on 64 rows of two heads that read one
-    kv head (G even)."""
-    ONLINE = 0
+    other dtype). float32 runs split TF32 products on the tensor cores
+    (flash_tf32_kernel); bf16 one warpgroup a CTA over 64-row tiles
+    (flash_wgmma_kernel), or a producer warp and two consumer warpgroups
+    over wide kv tiles (flash_ws_kernel) on two halves of one head's 128
+    query rows, or on 64 rows of two heads that read one kv head (G even).
+    Value 0 was a float32 kernel on the CUDA cores, which the card read
+    slower than TF32 at every timed float32 shape (PERF.md §6)."""
     WGMMA = 1
     WS_HALVES = 2
     WS_PAIRS = 3
+    TF32 = 4
 
 
 def plans(dtype: torch.dtype, G: int = 1) -> tuple:
     """Every plan the library holds for ``dtype`` at G query heads a kv
     head."""
     if dtype == torch.float32:
-        return (FlashPlan.ONLINE,)
+        return (FlashPlan.TF32,)
     if dtype == torch.bfloat16:
         return ((FlashPlan.WGMMA, FlashPlan.WS_HALVES)
                 + ((FlashPlan.WS_PAIRS,) if G % 2 == 0 else ()))
@@ -81,7 +83,7 @@ def flash_plan(B: int, S: int, H: int, K: int, hd: int,
     (S 204), S 1,500 over 4 heads (48 CTAs) and granite's hd 64 read faster
     on WGMMA, every other timed shape on the warp-specialised kernel."""
     if dtype == torch.float32:
-        return FlashPlan.ONLINE
+        return FlashPlan.TF32
     if hd < 80 or S < WS_MIN_S or B * H * -(-S // 128) < WS_MIN_CTAS:
         return FlashPlan.WGMMA
     return FlashPlan.WS_PAIRS if (H // K) % 2 == 0 else FlashPlan.WS_HALVES
@@ -125,15 +127,16 @@ def _check(q, k, v) -> None:
 
 
 def _check_rows_aligned(q, k, v) -> None:
-    """What the bf16 kernel's 16-byte row copies take: each data pointer
-    and each batch and sequence stride a multiple of 16 bytes."""
+    """What the tensor-core kernels' 16-byte row copies (TMA) take: each
+    data pointer and each batch and sequence stride a multiple of 16
+    bytes."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         es = t.element_size()
         if (t.data_ptr() % 16 or t.stride(0) * es % 16
                 or t.stride(1) * es % 16):
             raise ValueError(f"{name} rows must be 16-byte aligned for the "
-                             f"bf16 kernel; data_ptr {t.data_ptr()}, "
-                             f"strides {t.stride()}")
+                             f"tensor-core kernels; data_ptr "
+                             f"{t.data_ptr()}, strides {t.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -147,10 +150,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernel picks its own tiles, and the result does not depend on
     them. The kernel reads the public layout in place through the batch
     and sequence strides (no kv-major transpose, no padding of S); keys
-    at or past S are never read. Any S runs. bf16 runs on the tensor
-    cores and copies 16-byte rows, so it refuses tensors whose data
-    pointer or batch or sequence stride is not a multiple of 16 bytes;
-    float32 runs on the CUDA cores (``csrc/flash_attention.cu``).
+    at or past S are never read. Any S runs. Both dtypes run on the
+    tensor cores (float32 as split TF32 products) and copy 16-byte rows,
+    so they refuse tensors whose data pointer or batch or sequence stride
+    is not a multiple of 16 bytes (``csrc/flash_attention.cu``).
     ``plan`` (default ``flash_plan``'s) picks the kernel; one of
     ``plans(dtype, H // K)``, else ``ValueError``. Every plan computes the
     same function."""
@@ -164,12 +167,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     _check(q, k, v)
-    if q.dtype == torch.bfloat16:
-        _check_rows_aligned(q, k, v)
     B, S, H, hd = q.shape
     K = k.shape[2]
     if plan is None:
         plan = flash_plan(B, S, H, K, hd, q.dtype)
+    _check_rows_aligned(q, k, v)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -125,7 +125,7 @@ def test_every_head_size_gets_a_plan_that_fits(hd):
 
 
 def test_shared_memory_of_each_plan():
-    """Each kernel's launcher (the float32 online kernel,
+    """Each kernel's launcher (the float32 split-TF32 kernel,
     flash_wgmma_kernel, flash_ws_kernel) asserts at compile time that its
     shared memory fits the 227 KB a block may use on the H100, and the
     library instantiates every head size of ``HEAD_DIMS``, so the
@@ -133,14 +133,14 @@ def test_shared_memory_of_each_plan():
     src = (Path(fops.__file__).parent / "csrc"
            / "flash_attention.cu").read_text()
     assert "constexpr size_t kBlockSmem = 232448;" in src
-    for kernel in ("online", "wg", "ws"):
+    for kernel in ("tf32", "wg", "ws"):
         assert re.search(rf"constexpr size_t bytes = {kernel}_smem_bytes<"
                          r"[^;]*;\n\s*static_assert\(bytes <= kBlockSmem",
                          src), kernel
     hds = [int(h) for h in re.findall(r"FLASH_HD\((\d+)\)", src)]
     assert hds == list(fops.HEAD_DIMS) * 2      # launch and tile
     assert [p.value for p in fops.FlashPlan] == [
-        int(v) for v in re.findall(r"k(?:Online|Wgmma|WsHalves|WsPairs) = "
+        int(v) for v in re.findall(r"k(?:Wgmma|WsHalves|WsPairs|Tf32) = "
                                    r"(\d+),", src)]
 
 
@@ -166,7 +166,7 @@ def test_lisa_prefill_takes_the_plan_the_card_measured_faster():
                            (1, 4096, 32, 32, 128)):
         assert fops.flash_plan(B, S, H, K, hd, bf16) == P.WS_HALVES
     assert fops.flash_plan(2, 1024, 96, 8, 192,
-                           torch.float32) == P.ONLINE
+                           torch.float32) == P.TF32
 
 
 def test_rule_cases_straddle_the_thresholds():
@@ -197,7 +197,7 @@ def test_wrapper_refuses_a_plan_it_was_not_built_for():
     P = fops.FlashPlan
     q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 1, 128, dtype=torch.bfloat16)
-    for plan in (7, P.ONLINE):
+    for plan in (7, P.TF32):
         with pytest.raises(ValueError, match="was built for"):
             fops.flash_attention(q, k, k, plan=plan)
     with pytest.raises(ValueError, match="was built for"):
